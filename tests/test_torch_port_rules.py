@@ -1,0 +1,158 @@
+"""Rules of the PyTorch port, enforced.
+
+* The port (k8s_operator_libs_tpu_torch/) and chip_smoke.py import no jax,
+  flax, optax or orbax and nothing of the JAX package — by an AST scan and
+  in a fresh interpreter.
+* Its entry points default to the card and raise without one; the kernel
+  loader raises without nvcc; a CUDA tensor never falls back to a plain
+  version.
+"""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from k8s_operator_libs_tpu_torch import _build
+from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+from k8s_operator_libs_tpu_torch.tpu import smoke
+from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "k8s_operator_libs_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "k8s_operator_libs_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # k8s_operator_libs_tpu_torch starts with k8s_operator_libs_tpu: match
+    # the name or a dotted child, never a prefix
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_forbidden_name_match_respects_the_prefix():
+    assert _forbidden("k8s_operator_libs_tpu") and _forbidden("k8s_operator_libs_tpu.tpu")
+    assert _forbidden("jax.numpy") and _forbidden("orbax.checkpoint")
+    assert not _forbidden("k8s_operator_libs_tpu_torch") and not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_whole_port_loads_neither_jax_nor_the_jax_package():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(len(bad), bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []"
+
+
+def test_flash_attention_module_has_no_try_to_fall_back_on():
+    tree = ast.parse((PORT / "tpu" / "flash_attention.py").read_text())
+    assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = wl.ModelConfig(n_layers=1, d_model=32, d_ff=64, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wl.CheckpointingTrainer(cfg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wl.create_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.run_smoke(str(tmp_path), config=cfg)
+
+
+def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is present")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing built there
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("flash_attention")
+    # the CUDA wrapper itself raises: it never runs the plain version
+    qf = torch.zeros(2, 16, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa._flash_forward_cuda(qf, qf, qf, 1, True)
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor: only ``is_cuda`` is read by the router."""
+
+    is_cuda = True
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_version():
+    calls = []
+
+    def kernel(*args):
+        calls.append("kernel")
+        raise RuntimeError("launch refused")
+
+    def plain(*args):
+        calls.append("plain")
+
+    with pytest.raises(RuntimeError, match="launch refused"):
+        fa._route(kernel, plain, _FakeCuda(), 1, True)
+    assert calls == ["kernel"]  # the error propagates; no fallback ran
+    with pytest.raises(ValueError, match="no kernel"):
+        fa._route(kernel, plain, torch.zeros(1, device="meta"), 1, True)
+
+
+def test_kernel_input_checks_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(4, 16, 48)  # head_dim 48 is not compiled
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_kernel_inputs("t", q, q, q, 1)
+    q = torch.zeros(4, 16, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa._check_kernel_inputs("t", q, q, q, 1)
+    q = torch.zeros(4, 16, 64)
+    with pytest.raises(ValueError, match="k/v"):
+        fa._check_kernel_inputs("t", q, torch.zeros(3, 16, 64), torch.zeros(3, 16, 64), 2)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fa._check_kernel_inputs("t", q, q, q.bfloat16(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._check_kernel_inputs("t", q, q, q.transpose(0, 1).contiguous().transpose(0, 1), 1)
+    fa._check_kernel_inputs("t", q, q, q, 1, q, torch.zeros(4, 16), torch.zeros(4, 16))
+
+
+def test_launch_counts_start_at_zero_and_reset():
+    fa.launch_counts["flash_fwd"] += 3
+    fa.reset_launch_counts()
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    # the plain versions on the CPU never count
+    q = torch.randn(1, 32, 2, 16)
+    fa.flash_attention(q, q, q, True, 32, 32)
+    assert set(fa.launch_counts.values()) == {0}
