@@ -9,13 +9,20 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (the exit code is then non-zero and no result line is printed):
 
 1. device: the card's name and power limit; build the CUDA kernels from
-   ``k8s_operator_libs_tpu_torch/csrc``;
+   ``k8s_operator_libs_tpu_torch/csrc``, with each kernel's registers,
+   shared memory and spills (``ptxas -v``) and its tensor-core
+   instructions (HGMMA/HMMA in the SASS: the bf16 forward and dQ must
+   have them);
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
-   long shapes, then timed beside its plain version and SDPA;
+   long shapes in fp32 and bf16, then timed beside its plain version and
+   SDPA: at the trainer's shape by replaying a CUDA graph of captured
+   calls (free of each call's host work; the old back-to-back event
+   figure is logged beside it), at the long shape by events;
 3. main path: the drain-aware trainer (``run_smoke``) at the repo's chip
    configuration with ``flash_attention=True`` in bf16, with the kernels'
-   launch counts read around it, and flash against the dense ("gather")
+   launch counts read around it (the forward and dQ launches must all go
+   to the tensor-core kernels), and flash against the dense ("gather")
    path on identical weights;
 4. drain: request, checkpoint, acknowledgement with the echoed token,
    restore and a 2-step resume (inside ``run_smoke``);
@@ -73,7 +80,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of *fn* over *iters* back-to-back calls."""
+    """Mean milliseconds of *fn* over *iters* back-to-back calls, by
+    events: where a call's host work outlasts its kernels, this measures
+    the host."""
     import torch
 
     for _ in range(warmup):
@@ -87,6 +96,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds of one *fn* call: *calls* calls captured
+    in a CUDA graph, replayed *replays* times between events, so no
+    call's host work (checks, allocation, the ctypes call) is timed."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm up off the default stream, as capture wants
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def work(kernel: str, b, s, h, hk, d, causal: bool, dtype: str):
@@ -232,9 +269,11 @@ def check_lse_cotangent():
     log("kernels lse-cotangent: ok")
 
 
-def time_shape(b, s, h, d, dtype, iters, plain_iters):
+def time_shape(b, s, h, d, dtype, iters, plain_iters, graphs: bool):
     """Device ms of each kernel, its plain version and SDPA, forward and
-    forward+backward, causal, on one set of inputs."""
+    forward+backward, causal, on one set of inputs.  With *graphs* the
+    kernels, plain versions and SDPA are timed by :func:`graph_ms` and
+    each kernel's back-to-back event figure is kept as ``event_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -245,24 +284,27 @@ def time_shape(b, s, h, d, dtype, iters, plain_iters):
     o, lse = fa.flash_forward(qf, kf, vf, 1, True)
     dvec = (o.float() * dof.float()).sum(-1)
     bwd = (qf, kf, vf, dof, lse, dvec, 1, True)
-    row = {"shape": f"b{b} s{s} h{h} d{d} causal {dtype}"}
-    row["flash_fwd"] = (
-        cuda_ms(lambda: fa.flash_forward(qf, kf, vf, 1, True), iters),
-        cuda_ms(lambda: fa.flash_forward_plain(qf, kf, vf, 1, True), plain_iters),
-    )
-    row["flash_bwd_dq"] = (
-        cuda_ms(lambda: fa.flash_bwd_dq(*bwd), iters),
-        cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd), plain_iters),
-    )
-    row["flash_bwd_dkv"] = (
-        cuda_ms(lambda: fa.flash_bwd_dkv(*bwd), iters),
-        cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd), plain_iters),
-    )
+    row = {"shape": f"b{b} s{s} h{h} d{d} causal {dtype}",
+           "timed_by": "cuda graph replay" if graphs else "events, back to back"}
+    calls = {
+        "flash_fwd": (lambda: fa.flash_forward(qf, kf, vf, 1, True),
+                      lambda: fa.flash_forward_plain(qf, kf, vf, 1, True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd), lambda: fa.flash_bwd_dq_plain(*bwd)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd), lambda: fa.flash_bwd_dkv_plain(*bwd)),
+    }
+    timed = {}
+    for name, (kernel, plain) in calls.items():
+        event = cuda_ms(kernel, iters)
+        if graphs:
+            timed[name] = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain), "event_ms": event}
+        else:
+            timed[name] = {"ms": event, "plain_ms": cuda_ms(plain, plain_iters)}
     # SDPA wants [b, h, s, d]: the folded layout, viewed
     qh, kh, vh = (x.view(b, h, s, d) for x in (qf, kf, vf))
-    row["sdpa_fwd_ms"] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters
-    )
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)  # noqa: E731
+    row["sdpa_fwd_ms"] = graph_ms(sdpa) if graphs else cuda_ms(sdpa, iters)
+    if graphs:
+        row["sdpa_fwd_event_ms"] = cuda_ms(sdpa, iters)
 
     def fwd_bwd(attn, tensors, grad):
         leaves = [x.detach().requires_grad_() for x in tensors]
@@ -283,12 +325,12 @@ def time_shape(b, s, h, d, dtype, iters, plain_iters):
             iters,
         ),
     }
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in calls:
         bound, by = bound_ms(name, dtype, b, s, h, h, d, True)
-        row[name] = {"ms": row[name][0], "plain_ms": row[name][1],
-                     "bound_ms": bound, "bound_by": by}
+        row[name] = {**timed[name], "bound_ms": bound, "bound_by": by,
+                     "bound_share": bound / timed[name]["ms"]}
     log("timing", json.dumps(row))
-    del q, k, v, do, qf, kf, vf, dof, o, lse, dvec, bwd, qh, kh, vh
+    del q, k, v, do, qf, kf, vf, dof, o, lse, dvec, bwd, qh, kh, vh, calls, sdpa
     torch.cuda.empty_cache()
     return row
 
@@ -400,6 +442,27 @@ def step_breakdown(config, steps: int = 5):
     return out
 
 
+def compiled_report():
+    """Per kernel instantiation, ``ptxas -v``'s registers, shared memory
+    and spills and the HGMMA/HMMA count of its SASS.  Raises when a
+    tensor-core kernel holds no tensor-core instruction."""
+    from k8s_operator_libs_tpu_torch import _build
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    ptxas = _build.ptxas_report("flash_attention")
+    sass = _build.sass_counts("flash_attention")
+    report = {name: {**ptxas.get(name, {}), **sass.get(name, {})} for name in sorted(sass)}
+    for name, row in report.items():
+        log("compiled", name, json.dumps(row))
+    tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
+                   if "_tc_" in k}
+    for kernel in sorted(tensor_core):
+        rows = [r for n, r in report.items() if n.startswith(kernel + "<")]
+        if not rows or any(r["HGMMA"] + r["HMMA"] == 0 for r in rows):
+            raise RuntimeError(f"{kernel}: no tensor-core instruction in its SASS ({rows})")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -424,6 +487,7 @@ def main() -> int:
     _build.load("flash_attention")
     log(f"build: flash_attention.cu {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds['flash_attention']:.1f} s)")
+    compiled = compiled_report()
 
     # ---- 2. kernels against their plain versions ----
     errs = check_case("main-bf16", 8, 256, 8, 8, 64, True, "bfloat16")
@@ -436,11 +500,16 @@ def main() -> int:
     check_case("ragged-d32", 2, 200, 4, 4, 32, True, "float32", block=40, seed=4)
     check_case("d128", 2, 256, 4, 4, 128, True, "float32", seed=7)
     check_case("bench-s2048", 4, 2048, 8, 8, 64, True, "bfloat16", seed=8)
+    # the tensor-core kernels' ragged edge, widest head, non-causal GQA, MQA
+    check_case("ragged-d32-bf16", 2, 200, 4, 4, 32, True, "bfloat16", block=40, seed=4)
+    check_case("d128-bf16", 2, 256, 4, 4, 128, True, "bfloat16", seed=7)
+    check_case("non-causal-gqa-bf16", 2, 256, 8, 2, 16, False, "bfloat16", seed=10)
+    check_case("mqa-bf16", 2, 256, 8, 1, 16, True, "bfloat16", seed=2)
     check_lse_cotangent()
     log("kernels worst err / max(1, max|ref|):", json.dumps(worst_rel),
         f"(tol fp32 {FP32_TOL}, bf16 {BF16_TOL})")
-    main_timing = time_shape(8, 256, 8, 64, "bfloat16", iters=100, plain_iters=20)
-    long_timing = time_shape(4, 8192, 8, 64, "bfloat16", iters=5, plain_iters=2)
+    main_timing = time_shape(8, 256, 8, 64, "bfloat16", iters=100, plain_iters=20, graphs=True)
+    long_timing = time_shape(4, 8192, 8, 64, "bfloat16", iters=5, plain_iters=2, graphs=False)
     log("phase 2 done", f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 3 and 4. main path: train, time, drain, restore, resume ----
@@ -452,6 +521,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as ckpt:
         result = smoke.run_smoke(ckpt, steps=steps, warmup=warmup, config=config)
     launches = dict(fa.launch_counts)
+    device_launches = dict(fa.device_launch_counts)
     drain = result["drain_handshake"]
     train_steps = warmup + steps + drain["resumed_steps"]
     want = config.n_layers * train_steps
@@ -460,6 +530,10 @@ def main() -> int:
             f"launch counts {launches} != {want} ({config.n_layers} layers x "
             f"{train_steps} steps) for every kernel"
         )
+    # bf16: every forward and dQ launch went to the tensor-core kernels
+    routed = {name: fa.DEVICE_KERNELS[name][config.dtype] for name in launches}
+    if {k: n for k, n in device_launches.items() if n} != {routed[e]: want for e in launches}:
+        raise RuntimeError(f"device kernel launches {device_launches}, want {want} of {routed}")
     if not math.isfinite(result["final_loss"]):
         raise RuntimeError(f"non-finite loss {result['final_loss']}")
     if drain != {**drain, "checkpoint_step": steps, "ack": "done:smoke-1", "resumed_steps": 2}:
@@ -473,6 +547,9 @@ def main() -> int:
         "model": result["model"],
         "launches": launches,
         "launches_per_step": {k: n / train_steps for k, n in launches.items()},
+        "device_kernel_launches_per_step": {
+            k: n / train_steps for k, n in device_launches.items() if n
+        },
     }))
     log("drain:", json.dumps(drain))
     flash_vs_gather(config, "float32")
@@ -481,19 +558,32 @@ def main() -> int:
 
     # ---- 5. the result lines ----
     kernels = []
+    head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         t = main_timing[name]
+        # the instantiation the main path runs: tc kernels take the head
+        # dim, the scalar ones the dtype too
+        dtype_arg = "" if "_tc_" in routed[name] else "__nv_bfloat16, "
+        built = compiled.get(f"{routed[name]}<{dtype_arg}{head_dim}>", {})
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": launches[name],
+            # the device kernel each dtype runs, with its launches above
+            "device_kernels": {
+                str(dt).removeprefix("torch."): k for dt, k in fa.DEVICE_KERNELS[name].items()
+            },
+            "main_path_device_kernel": routed[name],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            "event_ms": t["event_ms"],
+            "registers": built.get("registers"),
+            "spill_bytes": built.get("spill_stores"),
             # SDPA computes the forward; no one PyTorch call computes dQ
             # alone or dK/dV alone
             "library_ms": main_timing["sdpa_fwd_ms"] if name == "flash_fwd" else None,

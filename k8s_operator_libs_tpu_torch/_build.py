@@ -3,9 +3,15 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded through :mod:`ctypes`.  The build runs
 at first use into ``_build/`` next to this file (listed in
-``.gitignore``), under a name carrying the hash of the source, so an
-edited source rebuilds and an unchanged one loads what is there.  A
-missing ``nvcc`` or a failed build raises: there is no fallback.
+``.gitignore``), under a name carrying the hash of everything the build
+reads (the source, every header under ``csrc/`` and the flags), so an
+edited source or header rebuilds and an unchanged one loads what is
+there.  A missing ``nvcc`` or a failed build raises: there is no
+fallback.
+
+The build keeps what ``ptxas -v`` reports (registers, shared memory,
+spills per kernel; :func:`ptxas_report`), and :func:`sass_counts` counts
+the tensor-core instructions in a built library's SASS.
 """
 
 from __future__ import annotations
@@ -13,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -26,7 +33,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
 )
+HEADER_SUFFIXES = (".cuh", ".h")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -70,12 +79,29 @@ def find_nvcc() -> str:
     )
 
 
+def source_digest(name: str, csrc: Optional[Path] = None) -> str:
+    """Hash of what building ``<name>.cu`` reads: the source, every header
+    under *csrc* (default :data:`CSRC`) and :data:`NVCC_FLAGS`."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    headers = sorted(p for p in csrc.rglob("*") if p.suffix in HEADER_SUFFIXES)
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in (csrc / f"{name}.cu", *headers):
+        digest.update(b"\0" + str(path.relative_to(csrc)).encode() + b"\0")
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of the current sources is (or will be) built."""
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source
-    hash exists; returns the library's path."""
+    hash exists; returns the library's path.  The ``ptxas`` report is
+    kept beside it."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = library_path(name)
     if lib.exists():
         build_seconds[name] = 0.0
         return lib
@@ -94,6 +120,7 @@ def build(name: str) -> Path:
             f"nvcc failed to build {source.name} (exit {proc.returncode}):\n"
             f"{proc.stderr[-4000:]}"
         )
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     build_seconds[name] = time.perf_counter() - t0
     return lib
@@ -117,3 +144,120 @@ def check(status: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what} failed: CUDA error {status}")
+
+
+# ------------------------------------------------ what was compiled
+
+_BUILTIN_TYPES = {"b": "bool", "d": "double", "f": "float", "i": "int", "j": "unsigned"}
+
+
+def demangle(symbol: str) -> str:
+    """``kernel<args>`` for the Itanium-mangled name of a kernel template
+    whose arguments are types and integers (``_ZN12_GLOBAL__N_119flash_
+    fwd_tc_kernelILi64EEEv...`` -> ``flash_fwd_tc_kernel<64>``); any other
+    symbol comes back as it is."""
+    m = re.match(r"_ZN?", symbol)
+    if not m:
+        return symbol
+    pos, ident = m.end(), None
+    while (m := re.match(r"\d+", symbol[pos:])) is not None:  # nested names
+        start = pos + m.end()
+        ident, pos = symbol[start:start + int(m.group())], start + int(m.group())
+    if ident is None or not symbol.startswith("I", pos):
+        return ident or symbol
+    args, pos = [], pos + 1
+    while pos < len(symbol) and symbol[pos] != "E":
+        if (m := re.match(r"L[a-z](n?\d+)E", symbol[pos:])) is not None:
+            args.append(m.group(1).replace("n", "-"))
+        elif (m := re.match(r"(\d+)", symbol[pos:])) is not None:
+            start = pos + m.end()
+            args.append(symbol[start:start + int(m.group())])
+            pos = start + int(m.group())
+            continue
+        elif symbol[pos] in _BUILTIN_TYPES:
+            args.append(_BUILTIN_TYPES[symbol[pos]])
+            pos += 1
+            continue
+        else:
+            return symbol
+        pos += m.end()
+    return f"{ident}<{', '.join(args)}>"
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict]:
+    """Per kernel (demangled), what ``ptxas -v`` reported: ``registers``,
+    ``smem_bytes`` (static), ``stack_bytes``, ``spill_stores`` and
+    ``spill_loads`` (bytes), and under ``notes`` each coded message that
+    names it (``C7515 Potential Performance Loss: wgmma.mma_async
+    instructions are serialized ...``)."""
+    kernels: Dict[str, Dict] = {}
+    notes: Dict[str, list] = {}
+    current = None
+    for line in text.splitlines():
+        if (m := re.search(r"\((C\d+)\) (.*?)(?: in the function)? '([^']+)'", line)) is not None:
+            notes.setdefault(demangle(m.group(3)), []).append(f"{m.group(1)} {m.group(2)}")
+        elif (m := re.search(r"Compiling entry function '([^']+)'", line)) is not None:
+            current = demangle(m.group(1))
+            kernels[current] = dict.fromkeys(
+                ("registers", "smem_bytes", "stack_bytes", "spill_stores", "spill_loads"), 0
+            )
+        elif (m := re.search(r"Function properties for (\S+)", line)) is not None:
+            name = demangle(m.group(1))
+            current = name if name in kernels else None  # not an entry point
+        elif current is None:
+            continue
+        elif (m := re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line
+        )) is not None:
+            kernels[current].update(
+                stack_bytes=int(m.group(1)),
+                spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)),
+            )
+        elif (m := re.search(r"Used (\d+) registers", line)) is not None:
+            kernels[current]["registers"] = int(m.group(1))
+            if (m := re.search(r"(\d+) bytes smem", line)) is not None:
+                kernels[current]["smem_bytes"] = int(m.group(1))
+    for name, found in notes.items():
+        if name in kernels:
+            kernels[name]["notes"] = found
+    return kernels
+
+
+def ptxas_report(name: str) -> Dict[str, Dict]:
+    """:func:`parse_ptxas` of the report kept when library *name* was
+    built (empty when there is none)."""
+    report = library_path(name).with_suffix(".ptxas.txt")
+    return parse_ptxas(report.read_text()) if report.exists() else {}
+
+
+#: The tensor-core instructions: HGMMA (wgmma) and HMMA (mma.sync).
+TENSOR_CORE_OPCODES = ("HGMMA", "HMMA")
+
+
+def parse_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """Per function (demangled) of a ``cuobjdump --dump-sass`` listing,
+    how many instructions of each of :data:`TENSOR_CORE_OPCODES` it
+    holds."""
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        if (m := re.search(r"Function : (\S+)", line)) is not None:
+            current = demangle(m.group(1))
+            counts[current] = dict.fromkeys(TENSOR_CORE_OPCODES, 0)
+        elif current is not None:
+            for op in TENSOR_CORE_OPCODES:
+                if re.search(rf"\b{op}\b", line):
+                    counts[current][op] += 1
+    return counts
+
+
+def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_sass` of the built library *name*, through the
+    ``cuobjdump`` beside ``nvcc``."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run(
+        [str(cuobjdump), "--dump-sass", str(build(name))],
+        capture_output=True, text=True, check=True,
+    )
+    return parse_sass(proc.stdout)

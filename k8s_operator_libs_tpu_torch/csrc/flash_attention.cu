@@ -2,9 +2,15 @@
 //
 // Replaces the three Pallas TPU kernels of
 // k8s_operator_libs_tpu/tpu/flash_attention.py:
-//   flash_fwd_kernel     <- _flash_kernel          (flash_attention.py:64-121)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (flash_attention.py:225-274)
+//   flash_fwd_tc_kernel (bf16), flash_fwd_kernel (fp32)
+//                        <- _flash_kernel          (flash_attention.py:64-121)
+//   flash_bwd_dq_tc_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//                        <- _flash_bwd_dq_kernel   (flash_attention.py:225-274)
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (flash_attention.py:277-333)
+// The entry points flash_fwd and flash_bwd_dq route by dtype: bf16 to the
+// tensor-core kernels, fp32 to the scalar ones. Neither falls back to the
+// other. Tensor cores take fp32 only as TF32 (~1e-3 relative), short of
+// the 1e-4 the fp32 kernels are held to, so fp32 stays scalar.
 //
 // Layout: q, dO, O, dQ and the dK/dV partials are [b*h, s, d]; k and v are
 // [b*hk, s, d] with h = g*hk, and query row bh reads K/V row bh / g (GQA and
@@ -17,7 +23,23 @@
 // a step pays. At long sequences (s 8192) they are bound by operations:
 // ~275 GFLOP causal per forward against 989 TFLOP/s of bf16 tensor cores.
 //
-// What the design does about that. This is the simple, correct first
+// The bf16 forward and dQ (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel).
+// Scalar FMAs reach ~13 TFLOP/s, 1/75 of the operations bound, so the
+// products move to wgmma: one warpgroup owns a 64-row q-tile (one wgmma M).
+// Q (and dO) are copied once into shared memory; K/V tiles of 64 rows
+// stream through a 2-stage ring of 16-byte cp.async copies, the next
+// tile's copy in flight while the current one computes. Every tile is
+// written in wgmma's swizzled K-major layout (TcTile), which the
+// descriptors read K-major for Q K^T and dO V^T and MN-major (the
+// transpose bit) for P V and dS K. S and dP stay in fp32 registers; the
+// online softmax runs there in the exp2 domain with quad shuffles, and P
+// (or dS) goes to bf16 in registers as the A operand of the next wgmma,
+// so no score leaves the SM. Causal: the loop stops at the diagonal tile,
+// only the diagonal (and ragged last) tile is masked, and q-tiles launch
+// heaviest first. dQ accumulates in registers and is written once: no
+// atomics, deterministic.
+//
+// The fp32 kernels and dK/dV. This is the simple, correct first
 // version. The TPU grid's sequential axis becomes a loop inside one block,
 // and the causal `pl.when` skip becomes that loop's bound, so tiles above
 // the diagonal cost nothing. In the forward and dQ each thread owns one
@@ -41,6 +63,10 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -325,6 +351,365 @@ __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
   }
 }
 
+// ------------------------------------------- bf16 forward and dQ on wgmma
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTcRows = 64;      // query rows of a block: one wgmma M
+constexpr int kTcThreads = 128;  // one warpgroup
+constexpr int kTcKeys = 64;      // rows of a K/V tile
+
+// An [R, D] bf16 tile in shared memory, in wgmma's canonical layout with
+// the widest swizzle its rows take: rows of W = min(2D, 128) bytes (swizzle
+// 32B, 64B or 128B), and at D 128 two 64-column blocks one after the other.
+// The 16-byte chunk c of row r sits at r*W + 16c with offset bits [4, 4 +
+// log2(W/16)) XORed with bits [7, ...): the address swizzle the hardware
+// undoes, so tiles start on 1024-byte boundaries. The same tile is read
+// K-major (rows are M or N, columns the reduction: Q, dO, K, V in Q K^T and
+// dO V^T) and MN-major (rows are the reduction: V in P V, K in dS K).
+template <int R, int D>
+struct TcTile {
+  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks in a block row
+  static constexpr int kBlockBytes = R * kRowBytes;
+  static constexpr int kBytes = R * D * 2;
+  static constexpr uint32_t kSwizzle = kRowBytes == 128  ? hopper::kSwizzle128B
+                                       : kRowBytes == 64 ? hopper::kSwizzle64B
+                                                         : hopper::kSwizzle32B;
+  static_assert(R % 8 == 0 && kBytes % 1024 == 0, "tiles keep 1024-byte alignment");
+
+  // Byte offset of chunk c (elements [8c, 8c + 8)) of row r.
+  __device__ __forceinline__ static uint32_t offset(int r, int c) {
+    const uint32_t off = (c / kChunks) * kBlockBytes + r * kRowBytes + (c % kChunks) * 16;
+    return off ^ (((off >> 7) & (kChunks - 1)) << 4);
+  }
+
+  // Copies rows [r0, r0 + R) of a row-major [s, D] matrix to the tile at
+  // base; rows past s are zero.
+  __device__ __forceinline__ static void load(uint32_t base, const __nv_bfloat16* src, int r0,
+                                              int s) {
+    for (int i = threadIdx.x; i < R * D / 8; i += kTcThreads) {
+      const int r = i / (D / 8), c = i % (D / 8);
+      const bool in = r0 + r < s;
+      hopper::cp_async_16(base + offset(r, c),
+                          src + static_cast<size_t>(in ? r0 + r : 0) * D + c * 8, in ? 16 : 0);
+    }
+  }
+
+  // Descriptor of reduction step kk (columns [16kk, 16kk + 16)), K-major.
+  __device__ __forceinline__ static uint64_t kmajor(uint32_t base, int kk) {
+    const int at = kk * 32;
+    return hopper::make_desc(base + (at / kRowBytes) * kBlockBytes + at % kRowBytes, 16,
+                             8 * kRowBytes, kSwizzle);
+  }
+
+  // Descriptor of reduction step kk (rows [16kk, 16kk + 16)), MN-major:
+  // the N = D columns span the column blocks, kBlockBytes apart.
+  __device__ __forceinline__ static uint64_t mnmajor(uint32_t base, int kk) {
+    return hopper::make_desc(base + kk * 16 * kRowBytes, kBlockBytes, 8 * kRowBytes, kSwizzle);
+  }
+};
+
+__device__ __forceinline__ uint32_t align_1024(uint32_t addr) {
+  return (addr + 1023) & ~1023u;
+}
+
+// The 2-stage K/V ring: waits for tile t (and the q-side tiles with it),
+// after starting the copy of tile t + 1 into the other stage.
+template <typename KT>
+__device__ __forceinline__ void next_kv_tile(uint32_t sk, uint32_t sv, const __nv_bfloat16* kb,
+                                             const __nv_bfloat16* vb, int t, int n_tiles,
+                                             int s) {
+  if (t + 1 < n_tiles) {
+    const uint32_t at = ((t + 1) & 1) * KT::kBytes;
+    KT::load(sk + at, kb, (t + 1) * kTcKeys, s);
+    KT::load(sv + at, vb, (t + 1) * kTcKeys, s);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+  } else {
+    hopper::cp_async_wait<0>();
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+}
+
+// Whether tile k0 holds a key that some row of q-tile q0 must not see.
+__device__ __forceinline__ bool tile_masked(int k0, int q0, int s, int causal) {
+  return (causal && k0 + kTcKeys - 1 > q0) || k0 + kTcKeys > s;
+}
+
+// Forward on the tensor cores: one warpgroup per (bh, 64-row q-tile).
+// Thread (warp w, lane l) owns rows row0 = q0 + 16w + l/4 and row0 + 8.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int s, int g, int causal, float scale) {
+  using QT = TcTile<kTcRows, D>;
+  using KT = TcTile<kTcKeys, D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = align_1024(hopper::smem_u32(smem_raw));
+  const uint32_t sk = sq + QT::kBytes;      // K stages 0 and 1
+  const uint32_t sv = sk + 2 * KT::kBytes;  // V stages 0 and 1
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest q-tile first
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bh / g) * s * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bh / g) * s * D;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);  // accumulator columns 8j + col0 + {0, 1}
+  const int kv_end = causal ? min(s, q0 + kTcRows) : s;
+  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+
+  QT::load(sq, q + static_cast<size_t>(bh) * s * D, q0, s);
+  KT::load(sk, kb, 0, s);
+  KT::load(sv, vb, 0, s);
+  hopper::cp_async_commit();
+
+  const float c = scale * kLog2e;  // scores in the exp2 domain
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    next_kv_tile<KT>(sk, sv, kb, vb, t, n_tiles, s);
+    const uint32_t kt = sk + (t & 1) * KT::kBytes, vt = sv + (t & 1) * KT::kBytes;
+
+    float sc[kTcKeys / 2];  // S = Q K^T
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<kTcKeys>::ss(sc, QT::kmajor(sq, kk), KT::kmajor(kt, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    const int k0 = t * kTcKeys;
+    const bool masked = tile_masked(k0, q0, s, causal);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * c;
+        const int key = k0 + 8 * j + col0 + (e & 1);
+        if (masked && (key >= s || (causal && key > row0 + 8 * (e >> 1)))) x = kNeg;
+        sc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // a row's 4 threads share its max
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+    uint32_t pa[kTcKeys / 16][4];  // P in bf16: the A operand of P V
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = exp2f(sc[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += sc[4 * j + e];
+      }
+      pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(sc[4 * j], sc[4 * j + 1]);
+      pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    hopper::wgmma_fence();  // O += P V
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+      hopper::Wgmma<D>::rs(acc, pa[kk], KT::mnmajor(vt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    __syncthreads();  // the stage is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row < s) {
+      const float inv_l = 1.f / l[i];
+      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s + row) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            hopper::pack_bf16(acc[4 * j + 2 * i] * inv_l, acc[4 * j + 2 * i + 1] * inv_l);
+      }
+      // natural log, as the backward kernels and flash_attention_lse read it
+      if (lane % 4 == 0) lse[static_cast<size_t>(bh) * s + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+}
+
+// dQ on the tensor cores: one warpgroup per (bh, 64-row q-tile), looping
+// k-tiles to the causal bound. Per tile S = Q K^T and dP = dO V^T (wgmma),
+// P = exp2(S scale log2e - lse log2e), dS = P (dP - dvec) scale in fp32,
+// then dQ += dS K (wgmma, dS from registers). dQ is written once.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    __nv_bfloat16* __restrict__ dq, int s, int g, int causal, float scale) {
+  using QT = TcTile<kTcRows, D>;
+  using KT = TcTile<kTcKeys, D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = align_1024(hopper::smem_u32(smem_raw));
+  const uint32_t sdo = sq + QT::kBytes;
+  const uint32_t sk = sdo + QT::kBytes;     // K stages 0 and 1
+  const uint32_t sv = sk + 2 * KT::kBytes;  // V stages 0 and 1
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest q-tile first
+  const size_t qoff = static_cast<size_t>(bh) * s * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bh / g) * s * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bh / g) * s * D;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const int kv_end = causal ? min(s, q0 + kTcRows) : s;
+  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+
+  QT::load(sq, q + qoff, q0, s);
+  QT::load(sdo, dout + qoff, q0, s);
+  KT::load(sk, kb, 0, s);
+  KT::load(sv, vb, 0, s);
+  hopper::cp_async_commit();
+
+  const float c = scale * kLog2e;
+  float lse2[2], dvr[2];  // the rows' lse (exp2 domain) and dvec
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const size_t at = static_cast<size_t>(bh) * s + (row < s ? row : 0);
+    lse2[i] = row < s ? lse[at] * kLog2e : 0.f;
+    dvr[i] = row < s ? dvec[at] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    next_kv_tile<KT>(sk, sv, kb, vb, t, n_tiles, s);
+    const uint32_t kt = sk + (t & 1) * KT::kBytes, vt = sv + (t & 1) * KT::kBytes;
+
+    float sc[kTcKeys / 2], dp[kTcKeys / 2];  // S = Q K^T, dP = dO V^T
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<kTcKeys>::ss(sc, QT::kmajor(sq, kk), KT::kmajor(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<kTcKeys>::ss(dp, QT::kmajor(sdo, kk), KT::kmajor(vt, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    const int k0 = t * kTcKeys;
+    const bool masked = tile_masked(k0, q0, s, causal);
+    uint32_t da[kTcKeys / 16][4];  // dS in bf16: the A operand of dS K
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(sc[4 * j + e] * c - lse2[e >> 1]);
+        const int key = k0 + 8 * j + col0 + (e & 1);
+        if (masked && (key >= s || (causal && key > row0 + 8 * (e >> 1)))) p = 0.f;
+        ds[e] = p * (dp[4 * j + e] - dvr[e >> 1]) * scale;
+      }
+      da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
+      da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+    }
+
+    hopper::wgmma_fence();  // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+      hopper::Wgmma<D>::rs(acc, da[kk], KT::mnmajor(kt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    __syncthreads();  // the stage is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row < s) {
+      __nv_bfloat16* drow = dq + qoff + static_cast<size_t>(row) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(drow + 8 * j) =
+            hopper::pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory above 48 KB must be allowed before a launch, once
+// per kernel and device; a refusal stays in cudaGetLastError, which the
+// entry point returns.
+template <auto Kernel>
+void allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  if (bytes <= 48 * 1024 || cudaGetDevice(&dev) != cudaSuccess) return;
+  if (dev < kMaxDevices && allowed[dev]) return;
+  if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
+          cudaSuccess &&
+      dev < kMaxDevices) {
+    allowed[dev] = true;
+  }
+}
+
+// A tc kernel's grid: bh fastest, then q-tiles, so that every row's
+// heaviest q-tile is dispatched before any lighter one.
+inline dim3 tc_grid(int bh, int s) { return dim3(bh, (s + kTcRows - 1) / kTcRows); }
+
+template <int D>
+void launch_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                   int s, int g, int causal, float scale, cudaStream_t st) {
+  constexpr int smem = TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
+  allow_smem<flash_fwd_tc_kernel<D>>(smem);
+  flash_fwd_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), s, g, causal, scale);
+}
+
+template <int D>
+void launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* dvec, void* dq, int bh, int s, int g,
+                  int causal, float scale, cudaStream_t st) {
+  constexpr int smem = 2 * TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
+  allow_smem<flash_bwd_dq_tc_kernel<D>>(smem);
+  flash_bwd_dq_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<__nv_bfloat16*>(dq), s, g, causal, scale);
+}
+
+// ------------------------------------------------------------ launchers
+
 template <int D>
 dim3 grid_for(int bh, int s) {
   return dim3((s + Tiles<D>::kRows - 1) / Tiles<D>::kRows, bh);
@@ -358,6 +743,29 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dk), static_cast<T*>(dv), s, g,
       causal, scale);
+}
+
+// The forward and dQ route by dtype: bf16 to the tensor-core kernels, fp32
+// to the scalar ones.
+template <typename T, int D>
+void route_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
+               int g, int causal, float scale, cudaStream_t st) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    launch_fwd_tc<D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
+  } else {
+    launch_fwd<T, D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
+  }
+}
+
+template <typename T, int D>
+void route_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* dvec, void* dq, int bh, int s, int g, int causal, float scale,
+              cudaStream_t st) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    launch_dq_tc<D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+  } else {
+    launch_dq<T, D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+  }
 }
 
 // Launches LAUNCH<T, D>(...) for the (dtype, head dim) pair, or returns
@@ -399,7 +807,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, i
               int s, int d, int g, int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, s, g, causal, scale, st);
+  FLASH_DISPATCH(route_fwd, q, k, v, o, lse, bh, s, g, causal, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,7 +816,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+  FLASH_DISPATCH(route_dq, q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,10 +10,15 @@ Pallas TPU kernels become three CUDA kernels in
 * dK/dV (``_flash_bwd_dkv_kernel``): ``(q, k, v, dO, lse, dvec) -> (dK,
   dV)`` per query head; the GQA group-sum runs here, in torch.
 
+The forward and dQ run bf16 on the tensor cores (wgmma) and fp32 on
+scalar kernels; :data:`DEVICE_KERNELS` names the device kernel each
+(entry point, dtype) launches.
+
 Beside each kernel sits its plain PyTorch version: dense, fp32, masked
 with ``_NEG``.  A wrapper takes the plain version only for a tensor on the
 CPU (the tests); for a CUDA tensor it launches the kernel or raises.  Each
-wrapper counts its launches in :data:`launch_counts`.
+wrapper counts its launches in :data:`launch_counts`, and by device
+kernel in :data:`device_launch_counts`.
 
 The public functions keep the JAX layout ``[batch, seq, heads, head_dim]``
 and fold to ``[batch*heads, seq, head_dim]`` inside.  ``block_q`` and
@@ -42,14 +47,42 @@ launch_counts: Dict[str, int] = {
     "flash_bwd_dkv": 0,
 }
 
+#: The device kernel (in csrc/flash_attention.cu) each entry point
+#: launches, by dtype.
+DEVICE_KERNELS: Dict[str, Dict[torch.dtype, str]] = {
+    "flash_fwd": {
+        torch.bfloat16: "flash_fwd_tc_kernel",
+        torch.float32: "flash_fwd_kernel",
+    },
+    "flash_bwd_dq": {
+        torch.bfloat16: "flash_bwd_dq_tc_kernel",
+        torch.float32: "flash_bwd_dq_kernel",
+    },
+    "flash_bwd_dkv": {
+        torch.bfloat16: "flash_bwd_dkv_kernel",
+        torch.float32: "flash_bwd_dkv_kernel",
+    },
+}
+
+#: Launches by device kernel, counted beside :data:`launch_counts`.
+device_launch_counts: Dict[str, int] = {
+    name: 0 for kernels in DEVICE_KERNELS.values() for name in kernels.values()
+}
+
 #: Head dims the CUDA kernels are compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, device_launch_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count_launch(entry: str, dtype: torch.dtype) -> None:
+    launch_counts[entry] += 1
+    device_launch_counts[DEVICE_KERNELS[entry][dtype]] += 1
 
 
 def _causal_needed(qi, kj, block_q: int, block_k: int):
@@ -183,6 +216,9 @@ def _check_kernel_inputs(what: str, qf, kf, vf, g: int, dof=None, lse=None, dvec
     for t in (qf, *same, *rows):
         if t.device != qf.device or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous on one device")
+    # the bf16 tensor-core kernels copy rows in 16-byte chunks
+    if qf.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (qf, *same)):
+        raise ValueError(f"{what}: bf16 q/k/v/dO must start on a 16-byte boundary")
 
 
 def _launch_env(qf) -> Tuple:
@@ -215,7 +251,7 @@ def _flash_forward_cuda(qf, kf, vf, g: int, causal: bool):
         ),
         "flash_fwd",
     )
-    launch_counts["flash_fwd"] += 1
+    _count_launch("flash_fwd", qf.dtype)
     return out, lse
 
 
@@ -232,7 +268,7 @@ def _flash_bwd_dq_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
         ),
         "flash_bwd_dq",
     )
-    launch_counts["flash_bwd_dq"] += 1
+    _count_launch("flash_bwd_dq", qf.dtype)
     return dq
 
 
@@ -250,7 +286,7 @@ def _flash_bwd_dkv_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
         ),
         "flash_bwd_dkv",
     )
-    launch_counts["flash_bwd_dkv"] += 1
+    _count_launch("flash_bwd_dkv", qf.dtype)
     return dk, dv
 
 

@@ -213,10 +213,10 @@ class TinyLM(nn.Module):
     the flax param tree (``block_0/attn/query`` is ``block_0.attn.query``)
     so :mod:`..convert` maps one onto the other."""
 
-    def __init__(self, config: ModelConfig, device="cpu", seed: int = 0) -> None:
+    def __init__(self, config: ModelConfig, device="cuda", seed: int = 0) -> None:
         super().__init__()
         cfg = self.config = config
-        device = torch.device(device)
+        device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device, gen)
         self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, cfg.dtype, device, gen)

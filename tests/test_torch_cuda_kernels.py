@@ -22,9 +22,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want) -> bool:
+#: bf16 against the fp32 plain version on the same bf16 inputs: the
+#: chip_smoke.py bound (the kernels round their outputs, P and dS to bf16).
+BF16_TOL = 2.0**-7
+
+
+def _close(got, want, tol: float = 1e-4) -> bool:
     err = float((got.float() - want.float()).abs().max())
-    return err <= 1e-4 * max(1.0, float(want.float().abs().max()))
+    return err <= tol * max(1.0, float(want.float().abs().max()))
 
 
 @pytest.mark.cuda
@@ -58,3 +63,67 @@ def test_a_flash_train_step_launches_each_kernel_once_per_layer(cuda):
     losses = [float(step(wl.make_batch(cfg, 4, seed=i, device=cuda))) for i in range(3)]
     assert all(torch.isfinite(torch.tensor(losses)))
     assert fa.launch_counts == {name: 2 * 3 for name in fa.launch_counts}
+
+
+def _bf16_inputs(cuda, d, s, hk, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    g = 4 // hk
+
+    def mk(rows):
+        return torch.randn(rows, s, d, device=cuda, generator=gen).bfloat16()
+
+    qf, kf, vf, dof = mk(8), mk(8 // g), mk(8 // g), mk(8)
+    return qf, kf, vf, dof, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hk", [4, 2, 1], ids=lambda hk: f"hk{hk}")
+@pytest.mark.parametrize("s", [200, 256], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("d", fa.HEAD_DIMS, ids=lambda d: f"d{d}")
+def test_bf16_tensor_core_kernels_match_their_plain_versions(cuda, d, s, hk, causal):
+    """The wgmma forward and dQ at every head dim, a ragged and a whole
+    number of 64-row tiles, MHA/GQA/MQA, causal or not."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, d, s, hk, seed=d * 1000 + s + hk)
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    before = dict(fa.device_launch_counts)
+    o, lse = fa.flash_forward(qf, kf, vf, g, causal)
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, causal)
+    assert _close(o, o_ref, BF16_TOL)
+    assert _close(lse, lse_ref)  # fp32 on both sides, from the same values
+    dvec = (o_ref * fp32[3]).sum(-1)
+    dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), BF16_TOL)
+    launched = {
+        name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
+    }
+    assert launched == {"flash_fwd_tc_kernel": 1, "flash_bwd_dq_tc_kernel": 1}
+
+
+@pytest.mark.cuda
+def test_bf16_dq_is_deterministic(cuda):
+    """dQ accumulates in registers with no atomics: two launches on the
+    same inputs agree bit for bit."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, 64, 1000, 2, seed=9)
+    o, lse = fa.flash_forward(qf, kf, vf, g, True)
+    dvec = (o.float() * dof.float()).sum(-1)
+    first = fa.flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g, True)
+    second = fa.flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g, True)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_a_bf16_train_step_runs_the_tensor_core_kernels(cuda):
+    cfg = wl.ModelConfig(
+        d_model=128, n_heads=2, n_layers=2, d_ff=256, max_seq_len=65,
+        dtype=torch.bfloat16, flash_attention=True,
+    )
+    model, optimizer = wl.create_train_state(cfg, cuda)
+    step = wl.make_train_step(model, optimizer)
+    fa.reset_launch_counts()
+    loss = float(step(wl.make_batch(cfg, 4, seed=0, device=cuda)))
+    assert torch.isfinite(torch.tensor(loss))
+    launched = {name: n for name, n in fa.device_launch_counts.items() if n}
+    assert launched == {
+        "flash_fwd_tc_kernel": 2, "flash_bwd_dq_tc_kernel": 2, "flash_bwd_dkv_kernel": 2,
+    }

@@ -92,6 +92,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         smoke.run_smoke(str(tmp_path), config=cfg)
 
 
+def test_tinylm_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = wl.ModelConfig(n_layers=1, d_model=32, d_ff=64, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        wl.TinyLM(cfg)
+    assert sum(p.numel() for p in wl.TinyLM(cfg, device="cpu").parameters()) > 0
+
+
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("nvcc is present")
@@ -146,6 +154,13 @@ def test_kernel_input_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fa._check_kernel_inputs("t", q, q, q.transpose(0, 1).contiguous().transpose(0, 1), 1)
     fa._check_kernel_inputs("t", q, q, q, 1, q, torch.zeros(4, 16), torch.zeros(4, 16))
+    # the bf16 tensor-core kernels copy 16-byte chunks: a q starting 2 bytes
+    # into its storage is refused
+    flat = torch.zeros(4 * 16 * 64 + 1, dtype=torch.bfloat16)
+    shifted, aligned = flat[1:].view(4, 16, 64), flat[:-1].view(4, 16, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_kernel_inputs("t", shifted, aligned, aligned, 1)
+    fa._check_kernel_inputs("t", aligned, aligned, aligned, 1)
 
 
 def test_launch_counts_start_at_zero_and_reset():
