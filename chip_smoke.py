@@ -11,19 +11,22 @@ failure (the exit code is then non-zero and no result line is printed):
 1. device: the card's name and power limit; build the CUDA kernels from
    ``k8s_operator_libs_tpu_torch/csrc``, with each kernel's registers,
    shared memory and spills (``ptxas -v``) and its tensor-core
-   instructions (HGMMA/HMMA in the SASS: the bf16 forward and dQ must
-   have them);
+   instructions (HGMMA/HMMA in the SASS): each bf16 kernel must have
+   them, at every head dim, with no spill and no ptxas note that its
+   wgmma were serialized;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
    long shapes in fp32 and bf16, then timed beside its plain version and
    SDPA: at the trainer's shape by replaying a CUDA graph of captured
    calls (free of each call's host work; the old back-to-back event
-   figure is logged beside it), at the long shape by events;
+   figure is logged beside it), at the long shape by events.  SDPA's
+   backward alone (its fwd+bwd less its forward) stands beside dQ +
+   dK/dV;
 3. main path: the drain-aware trainer (``run_smoke``) at the repo's chip
    configuration with ``flash_attention=True`` in bf16, with the kernels'
-   launch counts read around it (the forward and dQ launches must all go
-   to the tensor-core kernels), and flash against the dense ("gather")
-   path on identical weights;
+   launch counts read around it (the forward, dQ and dK/dV launches must
+   all go to the tensor-core kernels), and flash against the dense
+   ("gather") path on identical weights;
 4. drain: request, checkpoint, acknowledgement with the echoed token,
    restore and a 2-step resume (inside ``run_smoke``);
 5. a ``{"kernels": [...]}`` line, the card line, and last
@@ -325,6 +328,11 @@ def time_shape(b, s, h, d, dtype, iters, plain_iters, graphs: bool):
             iters,
         ),
     }
+    # No one call computes dQ or dK/dV alone; SDPA's backward alone (its
+    # fwd+bwd less its forward, both by events) is their yardstick.
+    sdpa_fwd_event = row["sdpa_fwd_event_ms"] if graphs else row["sdpa_fwd_ms"]
+    row["sdpa_bwd_ms"] = row["fwd_bwd_ms"]["sdpa"] - sdpa_fwd_event
+    row["dq_plus_dkv_ms"] = timed["flash_bwd_dq"]["ms"] + timed["flash_bwd_dkv"]["ms"]
     for name in calls:
         bound, by = bound_ms(name, dtype, b, s, h, h, d, True)
         row[name] = {**timed[name], "bound_ms": bound, "bound_by": by,
@@ -443,9 +451,11 @@ def step_breakdown(config, steps: int = 5):
 
 
 def compiled_report():
-    """Per kernel instantiation, ``ptxas -v``'s registers, shared memory
-    and spills and the HGMMA/HMMA count of its SASS.  Raises when a
-    tensor-core kernel holds no tensor-core instruction."""
+    """Per kernel instantiation, ``ptxas -v``'s registers, shared memory,
+    spills and notes and the HGMMA/HMMA count of its SASS.  Raises unless
+    each tensor-core kernel is built at every head dim with tensor-core
+    instructions, no spill and no ptxas note that its wgmma were
+    serialized (C7515 for a call, C7512 for want of registers)."""
     from k8s_operator_libs_tpu_torch import _build
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
 
@@ -457,9 +467,18 @@ def compiled_report():
     tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
                    if "_tc_" in k}
     for kernel in sorted(tensor_core):
-        rows = [r for n, r in report.items() if n.startswith(kernel + "<")]
-        if not rows or any(r["HGMMA"] + r["HMMA"] == 0 for r in rows):
-            raise RuntimeError(f"{kernel}: no tensor-core instruction in its SASS ({rows})")
+        rows = [report.get(f"{kernel}<{d}>") for d in fa.HEAD_DIMS]
+        bad = [
+            r for r in rows
+            if r is None or r["HGMMA"] + r["HMMA"] == 0
+            or r.get("spill_stores", 1) or r.get("spill_loads", 1)
+            or any("serialized" in n for n in r.get("notes", ()))
+        ]
+        if bad:
+            raise RuntimeError(
+                f"{kernel}: a head dim missing, without tensor-core instructions, spilling "
+                f"or with serialized wgmma ({rows})"
+            )
     return report
 
 
@@ -505,11 +524,13 @@ def main() -> int:
     check_case("d128-bf16", 2, 256, 4, 4, 128, True, "bfloat16", seed=7)
     check_case("non-causal-gqa-bf16", 2, 256, 8, 2, 16, False, "bfloat16", seed=10)
     check_case("mqa-bf16", 2, 256, 8, 1, 16, True, "bfloat16", seed=2)
+    # s % 4 != 0: a row of lse or dvec starts only 4-byte aligned
+    check_case("ragged-s203-gqa-bf16", 2, 203, 8, 2, 64, True, "bfloat16", block=203, seed=12)
     check_lse_cotangent()
     log("kernels worst err / max(1, max|ref|):", json.dumps(worst_rel),
         f"(tol fp32 {FP32_TOL}, bf16 {BF16_TOL})")
     main_timing = time_shape(8, 256, 8, 64, "bfloat16", iters=100, plain_iters=20, graphs=True)
-    long_timing = time_shape(4, 8192, 8, 64, "bfloat16", iters=5, plain_iters=2, graphs=False)
+    long_timing = time_shape(4, 8192, 8, 64, "bfloat16", iters=10, plain_iters=2, graphs=False)
     log("phase 2 done", f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 3 and 4. main path: train, time, drain, restore, resume ----
@@ -530,9 +551,11 @@ def main() -> int:
             f"launch counts {launches} != {want} ({config.n_layers} layers x "
             f"{train_steps} steps) for every kernel"
         )
-    # bf16: every forward and dQ launch went to the tensor-core kernels
+    # bf16: every forward, dQ and dK/dV launch went to the tensor-core kernels
     routed = {name: fa.DEVICE_KERNELS[name][config.dtype] for name in launches}
-    if {k: n for k, n in device_launches.items() if n} != {routed[e]: want for e in launches}:
+    if any("_tc_" not in k for k in routed.values()) or {
+        k: n for k, n in device_launches.items() if n
+    } != {routed[e]: want for e in launches}:
         raise RuntimeError(f"device kernel launches {device_launches}, want {want} of {routed}")
     if not math.isfinite(result["final_loss"]):
         raise RuntimeError(f"non-finite loss {result['final_loss']}")
@@ -561,10 +584,8 @@ def main() -> int:
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         t = main_timing[name]
-        # the instantiation the main path runs: tc kernels take the head
-        # dim, the scalar ones the dtype too
-        dtype_arg = "" if "_tc_" in routed[name] else "__nv_bfloat16, "
-        built = compiled.get(f"{routed[name]}<{dtype_arg}{head_dim}>", {})
+        # the instantiation the main path runs (a tc kernel: the head dim)
+        built = compiled.get(f"{routed[name]}<{head_dim}>", {})
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -585,7 +606,8 @@ def main() -> int:
             "registers": built.get("registers"),
             "spill_bytes": built.get("spill_stores"),
             # SDPA computes the forward; no one PyTorch call computes dQ
-            # alone or dK/dV alone
+            # alone or dK/dV alone (time_shape logs SDPA's whole backward,
+            # sdpa_bwd_ms, beside dq_plus_dkv_ms instead)
             "library_ms": main_timing["sdpa_fwd_ms"] if name == "flash_fwd" else None,
         })
     log("long-context:", json.dumps(long_timing))

@@ -6,11 +6,13 @@
 //                        <- _flash_kernel          (flash_attention.py:64-121)
 //   flash_bwd_dq_tc_kernel (bf16), flash_bwd_dq_kernel (fp32)
 //                        <- _flash_bwd_dq_kernel   (flash_attention.py:225-274)
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (flash_attention.py:277-333)
-// The entry points flash_fwd and flash_bwd_dq route by dtype: bf16 to the
-// tensor-core kernels, fp32 to the scalar ones. Neither falls back to the
-// other. Tensor cores take fp32 only as TF32 (~1e-3 relative), short of
-// the 1e-4 the fp32 kernels are held to, so fp32 stays scalar.
+//   flash_bwd_dkv_tc_kernel (bf16), flash_bwd_dkv_kernel (fp32)
+//                        <- _flash_bwd_dkv_kernel  (flash_attention.py:277-333)
+// Each entry point (flash_fwd, flash_bwd_dq, flash_bwd_dkv) routes by
+// dtype: bf16 to its tensor-core kernel, fp32 to its scalar one. No route
+// falls back to the other. Tensor cores take fp32 only as TF32 (~1e-3
+// relative), short of the 1e-4 the fp32 kernels are held to, so fp32
+// stays scalar.
 //
 // Layout: q, dO, O, dQ and the dK/dV partials are [b*h, s, d]; k and v are
 // [b*hk, s, d] with h = g*hk, and query row bh reads K/V row bh / g (GQA and
@@ -23,38 +25,37 @@
 // a step pays. At long sequences (s 8192) they are bound by operations:
 // ~275 GFLOP causal per forward against 989 TFLOP/s of bf16 tensor cores.
 //
-// The bf16 forward and dQ (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel).
-// Scalar FMAs reach ~13 TFLOP/s, 1/75 of the operations bound, so the
-// products move to wgmma: one warpgroup owns a 64-row q-tile (one wgmma M).
-// Q (and dO) are copied once into shared memory; K/V tiles of 64 rows
-// stream through a 2-stage ring of 16-byte cp.async copies, the next
-// tile's copy in flight while the current one computes. Every tile is
-// written in wgmma's swizzled K-major layout (TcTile), which the
-// descriptors read K-major for Q K^T and dO V^T and MN-major (the
-// transpose bit) for P V and dS K. S and dP stay in fp32 registers; the
+// The bf16 kernels (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel). Scalar FMAs reach ~13 TFLOP/s, 1/75 of the
+// operations bound, so the products move to wgmma: one warpgroup owns a
+// 64-row tile (one wgmma M), a q-tile in the forward and dQ, a k-tile in
+// dK/dV. That tile is copied once into shared memory; the other side's
+// 64-row tiles (K/V, or Q/dO with their lse and dvec) stream through a
+// 2-stage ring of cp.async copies, the next tile's copy in flight while
+// the current one computes. Every tile is written in wgmma's swizzled
+// K-major layout (TcTile), which the descriptors read K-major for Q K^T
+// and dO V^T (K Q^T and V dO^T in dK/dV) and MN-major (the transpose bit)
+// for P V and dS K (P^T dO and dS^T Q). Scores stay in fp32 registers; the
 // online softmax runs there in the exp2 domain with quad shuffles, and P
-// (or dS) goes to bf16 in registers as the A operand of the next wgmma,
-// so no score leaves the SM. Causal: the loop stops at the diagonal tile,
-// only the diagonal (and ragged last) tile is masked, and q-tiles launch
-// heaviest first. dQ accumulates in registers and is written once: no
-// atomics, deterministic.
+// or dS (P^T, dS^T) goes to bf16 in registers as the A operand of the next
+// wgmma, so no score leaves the SM. Causal: the loop stops at (dK/dV:
+// starts from) the diagonal tile, only the diagonal and ragged last tiles
+// are masked, and the heaviest tiles launch first. Each kernel accumulates
+// in registers and writes its output once: no atomics, deterministic.
 //
-// The fp32 kernels and dK/dV. This is the simple, correct first
-// version. The TPU grid's sequential axis becomes a loop inside one block,
-// and the causal `pl.when` skip becomes that loop's bound, so tiles above
-// the diagonal cost nothing. In the forward and dQ each thread owns one
-// query row; in dK/dV two threads (four at head dim 128) share a key row,
-// each holding its part of the row's K, V, dK and dV, and add their
-// partial dot products with a warp shuffle. Rows and accumulators live in
-// registers; the tile a block sweeps is staged in shared memory as fp32 and
-// read at one address by all threads (a broadcast, free of bank conflicts).
-// Dot products keep four partial sums, so a thread has four independent
-// FMA chains in flight: at the trainer's shape there are only ~4 warps per
-// SM to hide latency with. The products are scalar fp32 FMAs, not
-// tensor-core instructions: the
-// kernels are far from the operations bound at long sequences, and a later
-// version moves them to wgmma with TMA-fed tiles. dQ and dK/dV stay two
-// kernels with no atomics, so gradients are deterministic as on the TPU.
+// The fp32 kernels. This is the simple, correct first version. The TPU
+// grid's sequential axis becomes a loop inside one block, and the causal
+// `pl.when` skip becomes that loop's bound, so tiles above the diagonal
+// cost nothing. In the forward and dQ each thread owns one query row; in
+// dK/dV two threads (four at head dim 128) share a key row, each holding
+// its part of the row's K, V, dK and dV, and add their partial dot
+// products with a warp shuffle. Rows and accumulators live in registers;
+// the tile a block sweeps is staged in shared memory as fp32 and read at
+// one address by all threads (a broadcast, free of bank conflicts). Dot
+// products keep four partial sums, so a thread has four independent FMA
+// chains in flight. The products are scalar fp32 FMAs: TF32 would miss the
+// fp32 bound. dQ and dK/dV stay two kernels with no atomics, so gradients
+// are deterministic as on the TPU.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
@@ -351,7 +352,7 @@ __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
   }
 }
 
-// ------------------------------------------- bf16 forward and dQ on wgmma
+// ------------------------------------------------- bf16 kernels on wgmma
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -414,16 +415,12 @@ __device__ __forceinline__ uint32_t align_1024(uint32_t addr) {
   return (addr + 1023) & ~1023u;
 }
 
-// The 2-stage K/V ring: waits for tile t (and the q-side tiles with it),
-// after starting the copy of tile t + 1 into the other stage.
-template <typename KT>
-__device__ __forceinline__ void next_kv_tile(uint32_t sk, uint32_t sv, const __nv_bfloat16* kb,
-                                             const __nv_bfloat16* vb, int t, int n_tiles,
-                                             int s) {
+// A 2-stage ring: waits for tile t (and what was copied with it), after
+// load_next(t + 1) has started the copy of tile t + 1 into the other stage.
+template <typename Load>
+__device__ __forceinline__ void ring_next(const Load& load_next, int t, int n_tiles) {
   if (t + 1 < n_tiles) {
-    const uint32_t at = ((t + 1) & 1) * KT::kBytes;
-    KT::load(sk + at, kb, (t + 1) * kTcKeys, s);
-    KT::load(sv + at, vb, (t + 1) * kTcKeys, s);
+    load_next(t + 1);
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();
   } else {
@@ -431,6 +428,20 @@ __device__ __forceinline__ void next_kv_tile(uint32_t sk, uint32_t sv, const __n
   }
   hopper::fence_proxy_async();
   __syncthreads();
+}
+
+// The forward's and dQ's K/V ring: K/V tile u into stage u & 1.
+template <typename KT>
+__device__ __forceinline__ void next_kv_tile(uint32_t sk, uint32_t sv, const __nv_bfloat16* kb,
+                                             const __nv_bfloat16* vb, int t, int n_tiles,
+                                             int s) {
+  ring_next(
+      [&](int u) {
+        const uint32_t at = (u & 1) * KT::kBytes;
+        KT::load(sk + at, kb, u * kTcKeys, s);
+        KT::load(sv + at, vb, u * kTcKeys, s);
+      },
+      t, n_tiles);
 }
 
 // Whether tile k0 holds a key that some row of q-tile q0 must not see.
@@ -663,6 +674,146 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   }
 }
 
+// dK/dV on the tensor cores: one warpgroup per (bh, 64-key tile), looping
+// q-tiles from the diagonal (causal) or from 0. Per q-tile S^T = K Q^T and
+// dP^T = V dO^T (wgmma), P^T = exp2(S^T scale log2e - lse log2e) and
+// dS^T = P^T (dP^T - dvec) scale in fp32, then dV += P^T dO and dK +=
+// dS^T Q (wgmma, P^T and dS^T from registers, dO and Q read MN-major).
+// The partials are per query head: the caller sums the GQA group's.
+// Thread (warp w, lane l) owns key rows key0 = k0 + 16w + l/4 and key0 +
+// 8; its accumulator columns are query rows, so it reads 16 lse and 16
+// dvec values per q-tile. Those rows are staged in shared memory beside
+// the Q and dO tiles by 4-byte copies: a row of lse starts 16-byte
+// aligned only when s % 4 == 0.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int g, int causal,
+    float scale) {
+  using KT = TcTile<kTcKeys, D>;
+  using QT = TcTile<kTcRows, D>;
+  static_assert(kTcThreads == 2 * kTcRows, "a thread copies one lse or dvec value");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sk = align_1024(raw);
+  const uint32_t sv = sk + KT::kBytes;
+  const uint32_t sq = sv + KT::kBytes;          // Q stages 0 and 1
+  const uint32_t sdo = sq + 2 * QT::kBytes;     // dO stages 0 and 1
+  const uint32_t srows = sdo + 2 * QT::kBytes;  // per stage: lse[64], then dvec[64]
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (srows - raw));
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcKeys;  // causal: k-tile 0 sees every q-tile, and goes first
+  const size_t qoff = static_cast<size_t>(bh) * s * D;
+  const size_t kvoff = static_cast<size_t>(bh / g) * s * D;
+  const float* lb = lse + static_cast<size_t>(bh) * s;
+  const float* db = dvec + static_cast<size_t>(bh) * s;
+  const int lane = threadIdx.x % 32;
+  const int key0 = k0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);      // accumulator columns 8j + col0 + {0, 1}
+  const int i_begin = causal ? k0 : 0;  // query rows below k0 never see these keys
+  const int n_tiles = (s - i_begin + kTcRows - 1) / kTcRows;
+
+  // q-tile u into stage u & 1: its Q and dO rows, and its lse and dvec
+  // (one value per thread; rows past s are zero)
+  const auto load_q_tile = [&](int u) {
+    const int i0 = i_begin + u * kTcRows;
+    const uint32_t at = (u & 1) * QT::kBytes;
+    QT::load(sq + at, q + qoff, i0, s);
+    QT::load(sdo + at, dout + qoff, i0, s);
+    const int i = i0 + threadIdx.x % kTcRows;
+    const float* src = threadIdx.x < kTcRows ? lb : db;
+    hopper::cp_async_4(srows + ((u & 1) * kTcThreads + threadIdx.x) * 4, src + (i < s ? i : 0),
+                       i < s ? 4 : 0);
+  };
+  KT::load(sk, k + kvoff, k0, s);
+  KT::load(sv, v + kvoff, k0, s);
+  load_q_tile(0);
+  hopper::cp_async_commit();
+
+  const float c = scale * kLog2e;  // scores in the exp2 domain
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    ring_next(load_q_tile, t, n_tiles);
+    const uint32_t qt = sq + (t & 1) * QT::kBytes, dt = sdo + (t & 1) * QT::kBytes;
+    const float* lr = rows + (t & 1) * kTcThreads;  // lse; dvec at lr + kTcRows
+
+    float st[kTcRows / 2], dpt[kTcRows / 2];  // S^T = K Q^T, dP^T = V dO^T
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<kTcRows>::ss(st, KT::kmajor(sk, kk), QT::kmajor(qt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<kTcRows>::ss(dpt, KT::kmajor(sv, kk), QT::kmajor(dt, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    const int i0 = i_begin + t * kTcRows;
+    // only the diagonal q-tile holds a query row above one of the keys,
+    // and only the last one rows past s
+    const bool masked = (causal && i0 < k0 + kTcKeys - 1) || i0 + kTcRows > s;
+    uint32_t pa[kTcRows / 16][4], da[kTcRows / 16][4];  // P^T, dS^T in bf16: A operands
+#pragma unroll
+    for (int j = 0; j < kTcRows / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * j + col0);
+      const float2 d2 = *reinterpret_cast<const float2*>(lr + kTcRows + 8 * j + col0);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = i0 + 8 * j + col0 + (e & 1);
+        p[e] = exp2f(st[4 * j + e] * c - ((e & 1) ? l2.y : l2.x) * kLog2e);
+        if (masked && (row >= s || (causal && key0 + 8 * (e >> 1) > row))) p[e] = 0.f;
+        ds[e] = p[e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+      pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
+      pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
+      da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
+      da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+    }
+
+    hopper::wgmma_fence();  // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk)
+      hopper::Wgmma<D>::rs(dva, pa[kk], QT::mnmajor(dt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk)
+      hopper::Wgmma<D>::rs(dka, da[kk], QT::mnmajor(qt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    __syncthreads();  // the stage is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key < s) {
+      const size_t at = qoff + static_cast<size_t>(key) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+            hopper::pack_bf16(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+            hopper::pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
 // Dynamic shared memory above 48 KB must be allowed before a launch, once
 // per kernel and device; a refusal stays in cudaGetLastError, which the
 // entry point returns.
@@ -680,8 +831,10 @@ void allow_smem(int bytes) {
   }
 }
 
-// A tc kernel's grid: bh fastest, then q-tiles, so that every row's
-// heaviest q-tile is dispatched before any lighter one.
+// A tc kernel's grid: bh fastest, then 64-row tiles (q-tiles in the
+// forward and dQ, k-tiles in dK/dV), so that every row's heaviest tile is
+// dispatched before any lighter one.
+static_assert(kTcRows == kTcKeys, "q-tiles and k-tiles share the grid");
 inline dim3 tc_grid(int bh, int s) { return dim3(bh, (s + kTcRows - 1) / kTcRows); }
 
 template <int D>
@@ -706,6 +859,21 @@ void launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
       static_cast<__nv_bfloat16*>(dq), s, g, causal, scale);
+}
+
+template <int D>
+void launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* dvec, void* dk, void* dv, int bh, int s, int g,
+                   int causal, float scale, cudaStream_t st) {
+  // K, V; two stages of Q, dO and the lse/dvec rows
+  constexpr int smem = 2 * TcTile<kTcKeys, D>::kBytes + 4 * TcTile<kTcRows, D>::kBytes +
+                       2 * kTcThreads * static_cast<int>(sizeof(float)) + 1024;
+  allow_smem<flash_bwd_dkv_tc_kernel<D>>(smem);
+  flash_bwd_dkv_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s, g, causal, scale);
 }
 
 // ------------------------------------------------------------ launchers
@@ -745,8 +913,8 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       causal, scale);
 }
 
-// The forward and dQ route by dtype: bf16 to the tensor-core kernels, fp32
-// to the scalar ones.
+// Each entry point routes by dtype: bf16 to its tensor-core kernel, fp32
+// to its scalar one.
 template <typename T, int D>
 void route_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
                int g, int causal, float scale, cudaStream_t st) {
@@ -765,6 +933,17 @@ void route_dq(const void* q, const void* k, const void* v, const void* dout, con
     launch_dq_tc<D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
   } else {
     launch_dq<T, D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+  }
+}
+
+template <typename T, int D>
+void route_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* dvec, void* dk, void* dv, int bh, int s, int g, int causal,
+               float scale, cudaStream_t st) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    launch_dkv_tc<D>(q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
+  } else {
+    launch_dkv<T, D>(q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
   }
 }
 
@@ -825,8 +1004,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   int d, int g, int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale,
-                 st);
+  FLASH_DISPATCH(route_dkv, q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 

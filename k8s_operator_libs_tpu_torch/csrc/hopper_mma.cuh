@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the tensor-core flash kernels:
-// 16-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
+// 16- and 4-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
 // descriptors, and wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands
 // in shared memory (ss) or A in registers (rs). Inline PTX only, so the
 // library builds in seconds; nothing here includes PyTorch or CUTLASS.
@@ -31,6 +31,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // (the ragged edge) and reads nothing.
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4-byte copy global -> shared (through L1), for rows whose start is
+// only 4-byte aligned; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -103,8 +111,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // wgmma.mma_async m64nNk16, fp32 accumulators d[N / 2] per thread; scale_d
 // = 0 overwrites d with A B, 1 adds A B to it. ss (N 64: S = Q K^T, dP =
-// dO V^T) reads A and B by descriptor, both K-major; rs (N = head dim: O
-// += P V, dQ += dS K) takes A from registers in the fragment layout above
+// dO V^T, and their transposes K Q^T, V dO^T) reads A and B by
+// descriptor, both K-major; rs (N = head dim: O += P V, dQ += dS K, dV +=
+// P^T dO, dK += dS^T Q) takes A from registers in the fragment layout above
 // and reads B MN-major (the transpose bit). The operand lists are
 // generated: N / 2 accumulator registers each.
 template <int N>

@@ -10,9 +10,9 @@ Pallas TPU kernels become three CUDA kernels in
 * dK/dV (``_flash_bwd_dkv_kernel``): ``(q, k, v, dO, lse, dvec) -> (dK,
   dV)`` per query head; the GQA group-sum runs here, in torch.
 
-The forward and dQ run bf16 on the tensor cores (wgmma) and fp32 on
-scalar kernels; :data:`DEVICE_KERNELS` names the device kernel each
-(entry point, dtype) launches.
+All three run bf16 on the tensor cores (wgmma) and fp32 on scalar
+kernels; :data:`DEVICE_KERNELS` names the device kernel each (entry
+point, dtype) launches.
 
 Beside each kernel sits its plain PyTorch version: dense, fp32, masked
 with ``_NEG``.  A wrapper takes the plain version only for a tensor on the
@@ -59,7 +59,7 @@ DEVICE_KERNELS: Dict[str, Dict[torch.dtype, str]] = {
         torch.float32: "flash_bwd_dq_kernel",
     },
     "flash_bwd_dkv": {
-        torch.bfloat16: "flash_bwd_dkv_kernel",
+        torch.bfloat16: "flash_bwd_dkv_tc_kernel",
         torch.float32: "flash_bwd_dkv_kernel",
     },
 }

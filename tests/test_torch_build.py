@@ -63,6 +63,7 @@ compile_size = 64bit
         (FWD, "flash_fwd_tc_kernel<64>"),
         (DQ32, "flash_bwd_dq_kernel<float, 128>"),
         ("_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li16EEEvPKT_", "flash_bwd_dkv_kernel<__nv_bfloat16, 16>"),
+        ("_ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiif", "flash_bwd_dkv_tc_kernel<64>"),
         ("_Z7kernel2ILin3ELb1EEvv", "kernel2<-3, 1>"),
         ("_Z3addPfS_", "add"),
         ("flash_fwd", "flash_fwd"),

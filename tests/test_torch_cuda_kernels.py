@@ -79,11 +79,13 @@ def _bf16_inputs(cuda, d, s, hk, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("hk", [4, 2, 1], ids=lambda hk: f"hk{hk}")
-@pytest.mark.parametrize("s", [200, 256], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("s", [1, 63, 200, 203, 256], ids=lambda s: f"s{s}")
 @pytest.mark.parametrize("d", fa.HEAD_DIMS, ids=lambda d: f"d{d}")
 def test_bf16_tensor_core_kernels_match_their_plain_versions(cuda, d, s, hk, causal):
-    """The wgmma forward and dQ at every head dim, a ragged and a whole
-    number of 64-row tiles, MHA/GQA/MQA, causal or not."""
+    """The wgmma forward, dQ and dK/dV at every head dim, MHA/GQA/MQA,
+    causal or not: one row, one short tile, ragged and whole 64-row tiles,
+    and s 203, where a row of lse or dvec starts only 4-byte aligned
+    (dK/dV copies them 4 bytes at a time)."""
     qf, kf, vf, dof, g = _bf16_inputs(cuda, d, s, hk, seed=d * 1000 + s + hk)
     fp32 = [t.float() for t in (qf, kf, vf, dof)]
     before = dict(fa.device_launch_counts)
@@ -94,22 +96,39 @@ def test_bf16_tensor_core_kernels_match_their_plain_versions(cuda, d, s, hk, cau
     dvec = (o_ref * fp32[3]).sum(-1)
     dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
     assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), BF16_TOL)
+    dk, dv = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*fp32, lse_ref, dvec, g, causal)
+    assert _close(dk, dk_ref, BF16_TOL) and _close(dv, dv_ref, BF16_TOL)
     launched = {
         name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
     }
-    assert launched == {"flash_fwd_tc_kernel": 1, "flash_bwd_dq_tc_kernel": 1}
+    assert launched == {
+        "flash_fwd_tc_kernel": 1, "flash_bwd_dq_tc_kernel": 1, "flash_bwd_dkv_tc_kernel": 1,
+    }
+
+
+def _bf16_backward_inputs(cuda):
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, 64, 1000, 2, seed=9)
+    o, lse = fa.flash_forward(qf, kf, vf, g, True)
+    dvec = (o.float() * dof.float()).sum(-1)
+    return qf, kf, vf, dof, lse, dvec, g, True
 
 
 @pytest.mark.cuda
 def test_bf16_dq_is_deterministic(cuda):
     """dQ accumulates in registers with no atomics: two launches on the
     same inputs agree bit for bit."""
-    qf, kf, vf, dof, g = _bf16_inputs(cuda, 64, 1000, 2, seed=9)
-    o, lse = fa.flash_forward(qf, kf, vf, g, True)
-    dvec = (o.float() * dof.float()).sum(-1)
-    first = fa.flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g, True)
-    second = fa.flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g, True)
-    assert torch.equal(first, second)
+    args = _bf16_backward_inputs(cuda)
+    assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+def test_bf16_dkv_is_deterministic(cuda):
+    """dK and dV accumulate in registers and are written once, with no
+    atomics: two launches on the same inputs agree bit for bit."""
+    args = _bf16_backward_inputs(cuda)
+    first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
@@ -125,5 +144,5 @@ def test_a_bf16_train_step_runs_the_tensor_core_kernels(cuda):
     assert torch.isfinite(torch.tensor(loss))
     launched = {name: n for name, n in fa.device_launch_counts.items() if n}
     assert launched == {
-        "flash_fwd_tc_kernel": 2, "flash_bwd_dq_tc_kernel": 2, "flash_bwd_dkv_kernel": 2,
+        "flash_fwd_tc_kernel": 2, "flash_bwd_dq_tc_kernel": 2, "flash_bwd_dkv_tc_kernel": 2,
     }

@@ -233,6 +233,43 @@ def test_plain_versions_match_the_jax_kernels_on_folded_inputs(qkv128):
         assert _max_err(fa._unfold(got, 2), want) < 1e-4
 
 
+def _dkv_rounded_as_the_bf16_kernel(qf, kf, vf, dof, lse, dvec, g, causal):
+    """dK/dV rounded where flash_bwd_dkv_tc_kernel rounds: bf16 inputs,
+    P^T and dS^T to bf16 before their products, fp32 sums, bf16 outputs."""
+    probs, ds = fa._probs_and_dscores(
+        qf.float(), kf.float(), vf.float(), dof.float(), lse, dvec, g, causal
+    )
+    bf16 = lambda x: x.bfloat16().float()  # noqa: E731
+    dv = torch.bmm(bf16(probs).transpose(1, 2), dof.float())
+    dk = torch.bmm(bf16(ds).transpose(1, 2), qf.float())
+    return dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hk", [8, 2], ids=["mha", "gqa"])
+def test_bf16_dkv_rounding_stays_within_the_card_bound(hk, causal):
+    """At the trainer's shape (b 8, s 256, h 8, d 64) the bf16 dK/dV
+    kernel's roundings keep it within chip_smoke.py's 2^-7 * max(1, |ref|)
+    of the fp32 plain version (itself held to the JAX kernel by
+    test_plain_versions_match_the_jax_kernels_on_folded_inputs)."""
+    b, s, h, d = 8, 256, 8, 64
+    rng = np.random.default_rng(17 + hk)
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, hk, d)).astype(np.float32) for _ in range(2))
+    qf, kf, vf, dof = (fa._fold(torch.from_numpy(x).bfloat16()) for x in (q, k, v, do))
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    g = h // hk
+    o, lse = fa.flash_forward_plain(*fp32[:3], g, causal)
+    dvec = (o * fp32[3]).sum(-1)
+    got = _dkv_rounded_as_the_bf16_kernel(qf, kf, vf, dof, lse, dvec, g, causal)
+    want = fa.flash_bwd_dkv_plain(*fp32, lse, dvec, g, causal)
+    for a, ref in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (b * h, s, d)
+        assert _max_err(a.float(), ref) <= 2.0**-7 * max(1.0, float(ref.abs().max()))
+    # the roundings do show: the bf16 result is not the fp32 one
+    assert _max_err(got[1].float(), want[1]) > 0
+
+
 @pytest.mark.parametrize("bq,bk", [(64, 64), (32, 64), (64, 32), (128, 16)])
 def test_causal_predicates_match_jax(bq, bk):
     """_causal_needed is the kernels' loop bound: k-tile kj is needed by

@@ -9,6 +9,7 @@
 """
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -161,6 +162,50 @@ def test_kernel_input_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="16-byte"):
         fa._check_kernel_inputs("t", shifted, aligned, aligned, 1)
     fa._check_kernel_inputs("t", aligned, aligned, aligned, 1)
+
+
+CU_SOURCE = PORT / "csrc" / "flash_attention.cu"
+
+
+def _cu_function(name: str) -> str:
+    """The text of C++ function *name* in the kernels' source: from its
+    name to the closing brace at the start of a line."""
+    source = CU_SOURCE.read_text()
+    m = re.search(rf"\b{name}\((?:.|\n)*?\n\}}\n", source)
+    assert m is not None, f"{name} not in {CU_SOURCE.name}"
+    return m.group()
+
+
+def test_bf16_routes_to_tensor_core_kernels_and_fp32_to_scalar_ones():
+    for entry, kernels in fa.DEVICE_KERNELS.items():
+        assert "_tc_" in kernels[torch.bfloat16], entry
+        assert "_tc_" not in kernels[torch.float32], entry
+    assert fa.DEVICE_KERNELS["flash_bwd_dkv"] == {
+        torch.bfloat16: "flash_bwd_dkv_tc_kernel", torch.float32: "flash_bwd_dkv_kernel",
+    }
+
+
+def test_every_device_kernel_is_a_global_function_of_the_source():
+    source = CU_SOURCE.read_text()
+    defined = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", source
+    ))
+    named = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()}
+    assert named <= defined, named - defined
+    assert "flash_bwd_dkv_tc_kernel" in defined
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("entry", sorted(fa.DEVICE_KERNELS))
+def test_the_c_entry_point_launches_the_device_kernel_named_for_its_dtype(entry, dtype):
+    """C entry point -> FLASH_DISPATCH(route_*) -> the route's bf16 or fp32
+    branch -> launch_* -> the kernel it launches, read from the source."""
+    route = re.search(r"FLASH_DISPATCH\((\w+)", _cu_function(entry)).group(1)
+    bf16_branch, fp32_branch = _cu_function(route).split("} else {")
+    branch = bf16_branch if dtype == torch.bfloat16 else fp32_branch
+    launcher = re.search(r"(launch_\w+)<", branch).group(1)
+    kernel = re.search(r"(\w+)<[^<>;]*>\s*<<<", _cu_function(launcher)).group(1)
+    assert kernel == fa.DEVICE_KERNELS[entry][dtype]
 
 
 def test_launch_counts_start_at_zero_and_reset():
