@@ -28,8 +28,20 @@ failure (the exit code is then non-zero and no result line is printed):
    all go to the tensor-core kernels), and flash against the dense
    ("gather") path on identical weights;
 4. drain: request, checkpoint, acknowledgement with the echoed token,
-   restore and a 2-step resume (inside ``run_smoke``);
-5. a ``{"kernels": [...]}`` line, the card line, and last
+   restore and a 2-step resume (inside ``run_smoke``, which also runs the
+   decode bench on the just-trained weights: float and int8 tokens/s);
+5. serving: the int8 matmul kernel against its plain version at every
+   decode shape of the smoke configuration (M 8), at M 1 and 13 and at
+   ragged K and N, in bf16 and fp32, two launches bit-equal; timed beside
+   its bytes bound and ``F.linear`` on the dequantized weight.  Then, at
+   the smoke width from seed-0 weights: fp32 cached greedy decode equals
+   full-prefix recompute; a ragged batch equals each row's solo run; bf16
+   cached logits match the full prefix, and the int8 kernel route matches
+   the plain route; ``generate`` launches the int8 kernel (6 * n_layers +
+   1) times per step and no flash kernel, with no host synchronisation in
+   the loop (``set_sync_debug_mode("error")``); sampling is seeded and
+   top_k 1 is greedy; a profiled window of decode steps;
+6. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,11 +74,19 @@ LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_PEAK_FLOPS = 67e12  # H100 SXM fp32 FMA; the bf16 peak is smoke's table
 
-SOURCE = "k8s_operator_libs_tpu_torch/csrc/flash_attention.cu"
+_FLASH_SOURCE = "k8s_operator_libs_tpu_torch/csrc/flash_attention.cu"
+SOURCE = {
+    "flash_fwd": _FLASH_SOURCE,
+    "flash_bwd_dq": _FLASH_SOURCE,
+    "flash_bwd_dkv": _FLASH_SOURCE,
+    "int8_linear": "k8s_operator_libs_tpu_torch/csrc/int8_matmul.cu",
+}
 REPLACES = {
     "flash_fwd": "k8s_operator_libs_tpu/tpu/flash_attention.py:64",
     "flash_bwd_dq": "k8s_operator_libs_tpu/tpu/flash_attention.py:225",
     "flash_bwd_dkv": "k8s_operator_libs_tpu/tpu/flash_attention.py:277",
+    "int8_linear": "XLA's fusion of k8s_operator_libs_tpu/tpu/quantize.py:74-84 into "
+                   "the consuming matmul; no Pallas kernel",
 }
 
 
@@ -390,15 +410,54 @@ def _union_us(spans) -> float:
     return total + cur_end - cur_start
 
 
-def step_breakdown(config, steps: int = 5):
-    """Where a train step's time goes, flash and gather paths in one call:
-    host-clock ms per step, and from a torch.profiler trace the device's
-    busy ms per step (the union of its kernels' intervals), the idle share
-    of the traced window, and the kernels that take most device time."""
-    import dataclasses
-
+def device_window(run, steps: int):
+    """Host-clock ms per step of *run* (which runs *steps* steps and
+    returns), then from a torch.profiler trace of another call the
+    device's busy ms per step (the union of its kernels' intervals), its
+    ops per step, the idle share of the traced window, and the kernels
+    that take most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    row = {"wall_ms_per_step": (time.perf_counter() - t0) / steps * 1e3}
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
+    ) as prof:
+        run()
+        torch.cuda.synchronize()
+    # device work only: a user annotation's device range spans the gaps
+    # between the kernels it encloses
+    device = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    if not device:
+        row["device_trace"] = "not measured: the profiler recorded no CUDA events"
+        return row
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy = _union_us(spans)
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row.update(
+        device_busy_ms_per_step=busy / 1e3 / steps,
+        device_ops_per_step=len(device) / steps,
+        idle_pct_of_traced_window=100.0 * (1 - busy / (spans[-1][1] - spans[0][0])),
+        top_device_ms_per_step={n[:70]: t / 1e3 / steps for n, t in top},
+    )
+    return row
+
+
+def step_breakdown(config, steps: int = 5):
+    """Where a train step's time goes, flash and gather paths in one call
+    (:func:`device_window` over *steps* steps)."""
+    import dataclasses
 
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
 
@@ -411,59 +470,268 @@ def step_breakdown(config, steps: int = 5):
         step = wl.make_train_step(model, opt)
         for _ in range(3):
             step(batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(batch)
-        torch.cuda.synchronize()
-        row = {"wall_ms_per_step": (time.perf_counter() - t0) / steps * 1e3}
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
-        ) as prof:
+
+        def run():
             for _ in range(steps):
                 step(batch)
-            torch.cuda.synchronize()
-        # device work only: a user annotation's device range spans the gaps
-        # between the kernels it encloses
-        device = [
-            e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-        ]
-        if device:
-            spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-            busy = _union_us(spans)
-            by_name = {}
-            for e in device:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            row.update(
-                device_busy_ms_per_step=busy / 1e3 / steps,
-                device_ops_per_step=len(device) / steps,
-                idle_pct_of_traced_window=100.0 * (1 - busy / (spans[-1][1] - spans[0][0])),
-                top_device_ms_per_step={n[:70]: t / 1e3 / steps for n, t in top},
-            )
-        else:
-            row["device_trace"] = "not measured: the profiler recorded no CUDA events"
-        out["flash" if flash else "gather"] = row
+
+        out["flash" if flash else "gather"] = device_window(run, steps)
     log("step breakdown:", json.dumps(out))
     return out
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def int8_decode_shapes(config):
+    """(name, K, N, launches per decode step) of every int8 matmul one
+    decode step runs at *config*."""
+    d, ff, layers = config.d_model, config.d_ff, config.n_layers
+    return [
+        ("qkv/out", d, d, 4 * layers),
+        ("mlp_up", d, ff, layers),
+        ("mlp_down", ff, d, layers),
+        ("lm_head", d, config.vocab_size, 1),
+    ]
+
+
+def int8_inputs(m, k, n, dtype: str, seed: int):
+    """x [m, k], a per-row int8 weight q [n, k] with its fp32 scale s, and
+    a bias, on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+    amax = w.abs().amax(1)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8)
+    dt = getattr(torch, dtype)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    bias = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dt)
+    return x, q, s, bias
+
+
+def int8_bound_ms(m, k, n, dtype: str):
+    """Bytes: q once, its scales, x, y and the bias; operations: 2MNK."""
+    e = 2 if dtype == "bfloat16" else 4
+    nbytes = k * n + 4 * n + e * (m * k + m * n + n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / peak_flops(dtype) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int8(name, m, k, n, dtype: str, seed: int = 0) -> float:
+    """The kernel against its plain version on the same inputs, and two
+    launches bit-equal."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = int8_inputs(m, k, n, dtype, seed)
+    got = qz.int8_linear(x, q, s, bias)
+    if not torch.equal(got, qz.int8_linear(x, q, s, bias)):
+        raise RuntimeError(f"int8 {name}: two launches differ")
+    err = check_close(f"int8 {name}", got, qz.int8_linear_plain(x, q, s, bias), dtype)
+    log(f"kernels int8 {name}: M{m} K{k} N{n} {dtype} err={err:.3e}")
+    return err
+
+
+def time_int8(m, k, n, dtype: str, graphs: bool, iters: int = 50) -> dict:
+    """Device ms of the kernel, its plain version, and ``F.linear`` on the
+    already-dequantized weight: the cuBLAS call the kernel replaces, which
+    reads twice the bytes (a yardstick, not the same function)."""
+    import torch.nn.functional as F
+
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = int8_inputs(m, k, n, dtype, seed=1)
+    w = (q.float() * s[:, None]).to(x.dtype)
+    timer = graph_ms if graphs else (lambda fn: cuda_ms(fn, iters))
+    row = {
+        "ms": timer(lambda: qz.int8_linear(x, q, s, bias)),
+        "plain_ms": timer(lambda: qz.int8_linear_plain(x, q, s, bias)),
+        "linear_ms": timer(lambda: F.linear(x, w, bias)),
+    }
+    bound, by = int8_bound_ms(m, k, n, dtype)
+    row.update(bound_ms=bound, bound_by=by, bound_share=bound / row["ms"])
+    return row
+
+
+def int8_kernel_phase(config):
+    """Hold the kernel to its plain version at every decode shape of
+    *config* (M 8), at M 1 and 13, at ragged K and N, and at the long
+    shape; time the decode shapes by graph replay and the long one by
+    events.  Returns (worst err at the decode shapes, timings)."""
+    errs = []
+    for dtype in ("bfloat16", "float32"):
+        for name, k, n, _ in int8_decode_shapes(config):
+            errs.append(check_int8(f"{name}-{dtype}", 8, k, n, dtype, seed=k + n))
+        check_int8(f"m1-{dtype}", 1, 512, 2048, dtype, seed=3)
+        check_int8(f"m13-{dtype}", 13, 2048, 512, dtype, seed=4)
+        check_int8(f"ragged-k80-n33-{dtype}", 8, 80, 33, dtype, seed=5)
+        check_int8(f"ragged-k77-n40-{dtype}", 13, 77, 40, dtype, seed=6)  # byte loads of q
+    check_int8("long-bfloat16", 8, 8192, 8192, "bfloat16", seed=7)
+    shapes = {}
+    for name, k, n, per_step in int8_decode_shapes(config):
+        shapes[name] = {"M": 8, "K": k, "N": n, "launches_per_step": per_step,
+                        **time_int8(8, k, n, "bfloat16", graphs=True)}
+    step = {key: sum(r[key] * r["launches_per_step"] for r in shapes.values())
+            for key in ("ms", "plain_ms", "linear_ms", "bound_ms")}
+    step["launches"] = sum(r["launches_per_step"] for r in shapes.values())
+    step["bound_by"] = "/".join(sorted({r["bound_by"] for r in shapes.values()}))
+    long = {"M": 8, "K": 8192, "N": 8192, **time_int8(8, 8192, 8192, "bfloat16", graphs=False)}
+    timing = {"per_shape": shapes, "per_decode_step": step, "long": long}
+    log("timing int8:", json.dumps(timing))
+    return max(errs), timing
+
+
+def decode_logits(cfg, model, tokens):
+    """Teacher-forced cached decode over *tokens* [b, t]: each step's fp32
+    last logits, [b, t, vocab]."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    b, t = tokens.shape
+    cache = wl.KVCache(cfg, b, t, "cuda")
+    steps = []
+    with torch.inference_mode():
+        for i in range(t):
+            pos = torch.full((b, 1), i, dtype=torch.long, device="cuda")
+            steps.append(model(tokens[:, i:i + 1], pos, cache=cache)[:, -1].float())
+    return torch.stack(steps, 1)
+
+
+def no_host_sync(fn):
+    """*fn*() with every synchronising CUDA call raising."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
+    """The serving path at the smoke width from seed-0 weights; every
+    gate raises.  Returns the int8 launches of the gated ``generate`` and
+    what was measured."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    out = {}
+    b, total = 8, prompt_len + new_tokens
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, config.vocab_size, (b, prompt_len))).cuda()
+
+    # fp32: cached greedy decode == full-prefix recompute, token for token
+    f32 = dataclasses.replace(config, dtype=torch.float32, flash_attention=False)
+    model = wl.TinyLM(f32, "cuda", seed=0)
+    greedy = wl.greedy_generate(f32, model, prompt, new_tokens)
+    buf = prompt
+    with torch.inference_mode():
+        for _ in range(new_tokens):
+            buf = torch.cat([buf, model(buf)[:, -1].float().argmax(-1)[:, None]], 1)
+    if not torch.equal(greedy, buf):
+        raise RuntimeError(f"fp32 decode != recompute in {int((greedy != buf).sum())} tokens")
+
+    # ragged prompts: each row equals its own solo generation (fp32)
+    lens = [min(n, prompt_len) for n in (3, prompt_len, 7, 12, 1, prompt_len, 9, 5)]
+    ragged = wl.generate(f32, model, prompt, new_tokens, prompt_lens=lens)
+    for r, plen in enumerate(lens):
+        solo = wl.generate(f32, model, prompt[r:r + 1, :plen], new_tokens + prompt_len - plen)
+        if not torch.equal(ragged[r], solo[0]):
+            raise RuntimeError(f"ragged row {r} (prompt {plen}) != its solo generation")
+
+    # sampling, through the fp32 int8 route (bf16 logits tie at the top
+    # often enough that top_k 1 may keep two tokens where argmax takes the
+    # first): one seed reproduces, another differs, top_k 1 is greedy
+    int8_f32 = wl.quantize_model(model)
+    del model
+
+    def sample(seed, top_k=8, temperature=1.0):
+        return no_host_sync(lambda: wl.generate(
+            f32, int8_f32, prompt, new_tokens, temperature=temperature, top_k=top_k, seed=seed
+        ))
+
+    a, again, other = sample(7), sample(7), sample(8)
+    if not torch.equal(a, again) or torch.equal(a, other):
+        raise RuntimeError("sampling: seed 7 not reproduced, or seed 8 gave the same tokens")
+    if not torch.equal(sample(3, top_k=1, temperature=5.0), wl.greedy_generate(f32, int8_f32, prompt, new_tokens)):
+        raise RuntimeError("sampling: top_k=1 differs from greedy")
+    del int8_f32
+    log(f"serving fp32: greedy == recompute over {new_tokens} tokens; ragged {lens} == solo rows; "
+        "int8 sampling seeded, top_k=1 == greedy, no host sync")
+
+    # bf16: the cache against the full prefix; int8: kernel route against
+    # the plain route (the dequantized weights through F.linear)
+    bf16 = dataclasses.replace(config, flash_attention=False)
+    model = wl.TinyLM(bf16, "cuda", seed=0)
+    qstate = qz.quantize_params_int8(model)
+    int8 = wl.quantized_model(bf16, qstate, "cuda")
+    plain = wl.TinyLM(bf16, "cuda")
+    plain.load_state_dict(qz.dequantize_params(qstate))
+    tokens = wl.greedy_generate(bf16, int8, prompt, new_tokens)
+    with torch.inference_mode():
+        full = model(tokens).float()
+    out["bf16_cache_err"] = check_close("bf16 decode vs full prefix", decode_logits(bf16, model, tokens), full, "bfloat16")
+    out["int8_route_err"] = check_close(
+        "int8 kernel route vs plain route",
+        decode_logits(bf16, int8, tokens), decode_logits(bf16, plain, tokens), "bfloat16",
+    )
+
+    # the int8 route's launches, with no host synchronisation in the loop
+    qz.reset_launch_counts()
+    fa.reset_launch_counts()
+    gated = no_host_sync(lambda: wl.generate(bf16, int8, prompt, new_tokens))
+    launches = qz.launch_counts["int8_linear"]
+    want = (6 * config.n_layers + 1) * (total - 1)
+    if launches != want or any(fa.launch_counts.values()):
+        raise RuntimeError(
+            f"int8 launches {launches} (want {want}), flash launches {fa.launch_counts} (want 0)"
+        )
+    if not torch.equal(gated, tokens):
+        raise RuntimeError("two greedy int8 generations differ")
+    log(f"serving bf16/int8: errs {json.dumps(out)} (tol {BF16_TOL}); int8 launches {launches} "
+        f"= (6*{config.n_layers}+1)*{total - 1}, flash 0; no host sync in the loop")
+
+    # where a decode step's time goes, float and int8 (8 new tokens)
+    out["decode_breakdown"] = {
+        name: device_window(lambda m=m: wl.generate(bf16, m, prompt, 8), prompt_len + 7)
+        for name, m in (("float", model), ("int8", int8))
+    }
+    log("decode breakdown (per decode step):", json.dumps(out["decode_breakdown"]))
+    out["launches"] = launches
+    return out
+
+
 def compiled_report():
-    """Per kernel instantiation, ``ptxas -v``'s registers, shared memory,
-    spills and notes and the HGMMA/HMMA count of its SASS.  Raises unless
-    each tensor-core kernel is built at every head dim with tensor-core
-    instructions, no spill and no ptxas note that its wgmma were
-    serialized (C7515 for a call, C7512 for want of registers)."""
+    """Per kernel instantiation of every library, ``ptxas -v``'s
+    registers, shared memory, spills and notes and the HGMMA/HMMA count of
+    its SASS.  Raises unless each tensor-core kernel is built at every head
+    dim with tensor-core instructions, no spill and no ptxas note that its
+    wgmma were serialized (C7515 for a call, C7512 for want of registers),
+    and unless each int8 instantiation is built."""
     from k8s_operator_libs_tpu_torch import _build
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
 
-    ptxas = _build.ptxas_report("flash_attention")
-    sass = _build.sass_counts("flash_attention")
-    report = {name: {**ptxas.get(name, {}), **sass.get(name, {})} for name in sorted(sass)}
+    report = {}
+    for lib in _build.SIGNATURES:
+        ptxas = _build.ptxas_report(lib)
+        sass = _build.sass_counts(lib)
+        report.update({name: {**ptxas.get(name, {}), **sass.get(name, {})} for name in sorted(sass)})
     for name, row in report.items():
         log("compiled", name, json.dumps(row))
+    int8 = [f"int8_linear_kernel<{t}>" for t in ("float", "__nv_bfloat16")]
+    if any(name not in report for name in int8):
+        raise RuntimeError(f"int8_matmul: {int8} not all built ({sorted(report)})")
     tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
                    if "_tc_" in k}
     for kernel in sorted(tensor_core):
@@ -503,9 +771,12 @@ def main() -> int:
     log("device:", card, "| torch", torch.__version__, "cuda", torch.version.cuda,
         "| gpu", json.dumps(smoke.detect_gpu()))
     t0 = time.perf_counter()
-    _build.load("flash_attention")
-    log(f"build: flash_attention.cu {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds['flash_attention']:.1f} s)")
+    _build.build_all()  # one nvcc per source, side by side
+    nvcc = dict(_build.build_seconds)  # before load() finds them built
+    for lib in _build.SIGNATURES:
+        _build.load(lib)
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel: "
+        + ", ".join(f"{lib}.cu {t:.1f} s" for lib, t in nvcc.items()) + ")")
     compiled = compiled_report()
 
     # ---- 2. kernels against their plain versions ----
@@ -578,8 +849,15 @@ def main() -> int:
     flash_vs_gather(config, "float32")
     flash_vs_gather(config, "bfloat16")
     step_breakdown(config)
+    log("phase 3-4 done", f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- 5. the result lines ----
+    # ---- 5. serving: the int8 kernel, then the decode path's gates ----
+    int8_err, int8_timing = int8_kernel_phase(config)
+    serving = serving_gates(config)
+    log("decode bench:", json.dumps(result["decode"]), "|", card)
+    log("phase 5 done", f"{time.perf_counter() - t_start:.1f} s")
+
+    # ---- 6. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -589,7 +867,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             # the device kernel each dtype runs, with its launches above
@@ -610,6 +888,30 @@ def main() -> int:
             # sdpa_bwd_ms, beside dq_plus_dkv_ms instead)
             "library_ms": main_timing["sdpa_fwd_ms"] if name == "flash_fwd" else None,
         })
+    step = int8_timing["per_decode_step"]
+    built = compiled.get("int8_linear_kernel<__nv_bfloat16>", {})
+    kernels.append({
+        "name": "int8_linear",
+        "route": "cuda",
+        "source": SOURCE["int8_linear"],
+        "replaces": REPLACES["int8_linear"],
+        "launches": serving["launches"],
+        "max_abs_err": int8_err,
+        # one decode step's int8 matmuls at the smoke config (M 8, bf16),
+        # each by graph replay, summed over its launches_per_step
+        "unit": f"ms per decode step ({step['launches']} launches; per_shape in the "
+                "int8 timing line)",
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"],
+        "registers": built.get("registers"),
+        "spill_bytes": built.get("spill_stores"),
+        # F.linear on the already-dequantized bf16 weight: the cuBLAS call
+        # the kernel replaces (it reads twice the weight bytes)
+        "library_ms": step["linear_ms"],
+        "long_shape": int8_timing["long"],
+    })
     log("long-context:", json.dumps(long_timing))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,7 @@ at first use into ``_build/`` next to this file (listed in
 reads (the source, every header under ``csrc/`` and the flags), so an
 edited source or header rebuilds and an unchanged one loads what is
 there.  A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+fallback.  :func:`build_all` compiles the sources side by side.
 
 The build keeps what ``ptxas -v`` reports (registers, shared memory,
 spills per kernel; :func:`ptxas_report`), and :func:`sass_counts` counts
@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -51,6 +52,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # q, k, v, dout, lse, dvec, dk, dv, bh, s, d, g, causal, is_bf16,
         # scale, stream
         "flash_bwd_dkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+    },
+    "int8_matmul": {
+        # x, q, s, bias (or 0), y, M, K, N, is_bf16, stream
+        "int8_linear": (P, P, P, P, P, I, I, I, I, P),
     },
 }
 
@@ -124,6 +129,16 @@ def build(name: str) -> Path:
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     build_seconds[name] = time.perf_counter() - t0
     return lib
+
+
+def build_all(names=None) -> Dict[str, Path]:
+    """:func:`build` every library in *names* (default: all of
+    :data:`SIGNATURES`), one ``nvcc`` per source, all started together.
+    Raises the first failure after every build has ended."""
+    names = list(SIGNATURES) if names is None else list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: future.result() for name, future in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

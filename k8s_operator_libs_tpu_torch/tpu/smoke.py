@@ -9,10 +9,13 @@ The port of the trainer and drain part of
   the orchestrator side requests a pre-drain checkpoint through the node
   annotation, the :class:`~.workload.CheckpointingTrainer` observes it
   between steps, saves, acknowledges and stops; a fresh trainer then
-  resumes from the restored checkpoint.
+  resumes from the restored checkpoint;
+* :func:`_decode_bench` — KV-cache greedy decoding of the just-trained
+  weights, float and weight-only int8: tokens/s, ms/token, the int8
+  speedup and token agreement (``run_smoke``'s ``decode``).
 
-Every result names the device it ran on.  ``run_stage`` and the decode
-and matmul benches of the JAX module are later slices (ROADMAP).
+Every result names the device it ran on.  ``run_stage`` and the matmul
+bench of the JAX module are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -81,6 +84,44 @@ def smoke_config(device: torch.device):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _decode_bench(config, model, new_tokens: int = 0) -> Dict[str, Any]:
+    """KV-cache greedy decoding throughput at batch 8 from a 16-token
+    prompt (``default_rng(0)``), float and then int8
+    (:func:`~.workload.quantize_model`), each timed after a warm call.
+    *new_tokens* 0 decodes the rest of the context window."""
+    import numpy as np
+
+    from .workload import generate, quantize_model
+
+    device = next(model.parameters()).device
+    b = 8
+    new_tokens = new_tokens or (config.max_seq_len - 16)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, config.vocab_size, (b, 16))).to(device)
+
+    def timed(served):
+        generate(config, served, prompt, new_tokens, device=device)  # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        out = generate(config, served, prompt, new_tokens, device=device)
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    out, elapsed = timed(model)
+    out_q, elapsed_q = timed(quantize_model(model))
+    return {
+        "batch": b,
+        "new_tokens": new_tokens,
+        "tokens_per_s": b * new_tokens / elapsed,
+        "ms_per_token": elapsed / new_tokens * 1e3,
+        "int8": {
+            "tokens_per_s": b * new_tokens / elapsed_q,
+            "speedup_vs_float": elapsed / elapsed_q,
+            "token_agreement": float((out == out_q).float().mean()),
+        },
+    }
 
 
 def run_smoke(
@@ -153,6 +194,11 @@ def run_smoke(
     peak = peak_bf16_tflops(result["device_kind"])
     if gpu and peak:
         result["mfu_pct"] = 100.0 * result["achieved_tflops"] / peak
+    # serving with the just-trained weights: the rest of the context
+    # window on the card, a few tokens on the CPU
+    new_tokens = 0 if gpu else min(32, config.max_seq_len - 16)
+    if gpu or new_tokens > 0:
+        result["decode"] = _decode_bench(config, trainer.model, new_tokens)
 
     # ---- checkpoint-on-drain handshake, then resume ----
     trainer.step = steps  # timed steps above bypassed run()'s counter

@@ -10,14 +10,20 @@ The port of the single-device gather and flash paths of
 * :func:`save_checkpoint` / :func:`restore_checkpoint` — ``torch.save`` of
   the step, the model and the optimizer;
 * :class:`CheckpointingTrainer` — polls the drain watcher between steps,
-  checkpoints, acknowledges and stops.
+  checkpoints, acknowledges and stops;
+* :func:`generate` / :func:`greedy_generate` — the serving path: one token
+  per step over a per-layer :class:`KVCache`, greedy or seeded
+  temperature/top-k sampling, ragged prompts, and weight-only int8
+  (:func:`quantized_model`, whose layers run the int8 kernel of
+  :mod:`.quantize`).
 
 Numerics follow flax: parameters are fp32 masters and every layer casts
 its input and parameters to ``config.dtype`` in its forward (no
 autocast); LayerNorm takes its statistics in fp32 with flax's eps 1e-6
 and fast variance; GELU is the tanh approximation; AdamW uses optax's
 weight decay 1e-4 on every parameter.  Attention runs dense ("gather")
-by default and through the flash kernels with ``flash_attention=True``.
+by default and through the flash kernels with ``flash_attention=True``;
+decode attends over the cache densely, as flax's decode mode does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import quantize
 
 #: optax.adamw(3e-4)'s settings (optax 0.2 defaults: b1 0.9, b2 0.999,
 #: eps 1e-8, weight decay 1e-4 on every parameter).
@@ -59,6 +67,8 @@ class ModelConfig:
     #: Route attention through the CUDA flash kernels
     #: (:mod:`.flash_attention`), padding the sequence to a whole block.
     flash_attention: bool = False
+    #: Decode mode: :class:`TinyLM` takes one token per call with a
+    #: :class:`KVCache` (``generate`` sets it, as the JAX package does).
     decode: bool = False
 
     def __post_init__(self) -> None:
@@ -71,7 +81,6 @@ class ModelConfig:
                 self.ring_layout != "contiguous", "A9 (ring_attention.py)"
             ),
             "remat": (self.remat, "A8 (SPMD: remat)"),
-            "decode": (self.decode, "A4 (serving)"),
         }
         for field, (set_, item) in not_ported.items():
             if set_:
@@ -153,10 +162,37 @@ class LayerNorm(nn.Module):
         return y.to(self.compute_dtype)
 
 
+def _attend(q, k, v, visible):
+    """flax ``dot_product_attention`` in the compute dtype: q [b, sq, h,
+    d] scaled by 1/sqrt(d), keys where *visible* ([sq, sk] or [sk]) is
+    False masked with ``finfo.min``, softmax in the scores' dtype."""
+    q = q / math.sqrt(q.shape[3])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    scores = scores.masked_fill(~visible, torch.finfo(scores.dtype).min)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class KVCache:
+    """flax's decode-mode ``cache`` collection for :class:`TinyLM`: per
+    layer ``cached_key`` / ``cached_value`` [b, total, h, hd] in the
+    compute dtype, zero at the start, sized to one generation's span
+    (*total* = prompt + new tokens), and ONE index shared by every row and
+    layer: the position the next call writes."""
+
+    def __init__(self, config: ModelConfig, batch: int, total: int, device) -> None:
+        shape = (batch, total, config.n_heads, config.d_model // config.n_heads)
+        zeros = lambda: torch.zeros(shape, dtype=config.dtype, device=device)  # noqa: E731
+        self.keys = [zeros() for _ in range(config.n_layers)]
+        self.values = [zeros() for _ in range(config.n_layers)]
+        self.index = 0
+
+
 class Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (qkv_features = d_model):
     query/key/value/out projections with biases, causal attention between
-    them — dense, or the flash kernels."""
+    them — dense, or the flash kernels; over a :class:`KVCache` in
+    decode."""
 
     def __init__(self, cfg: ModelConfig, device, generator) -> None:
         super().__init__()
@@ -172,21 +208,28 @@ class Attention(nn.Module):
             self.attention_fn = self._dense_causal
 
     def _dense_causal(self, q, k, v):
-        """flax ``dot_product_attention`` with the causal mask, in the
-        compute dtype (the "gather" path)."""
-        s, d = q.shape[1], q.shape[3]
-        q = q / math.sqrt(d)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-        weights = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        """Causal attention in the compute dtype (the "gather" path)."""
+        s = q.shape[1]
+        return _attend(q, k, v, torch.ones(s, s, dtype=torch.bool, device=q.device).tril())
 
-    def forward(self, x):
+    @staticmethod
+    def _cached(q, k, v, cache: KVCache, layer: int):
+        """flax's decode step: write this token's K/V at the cache index,
+        then attend over the cached keys ``arange(total) <= index``."""
+        i, keys, values = cache.index, cache.keys[layer], cache.values[layer]
+        keys[:, i] = k[:, 0]
+        values[:, i] = v[:, 0]
+        visible = torch.arange(keys.shape[1], device=q.device) <= i
+        return _attend(q, keys, values, visible)
+
+    def forward(self, x, cache: KVCache = None, layer: int = 0):
         b, s, d = x.shape
         split = lambda t: t.reshape(b, s, self.n_heads, d // self.n_heads)  # noqa: E731
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        h = self.attention_fn(q, k, v)
+        if cache is None:
+            h = self.attention_fn(q, k, v)
+        else:
+            h = self._cached(q, k, v, cache, layer)
         return self.out(h.reshape(b, s, d))
 
 
@@ -202,8 +245,8 @@ class Block(nn.Module):
         self.mlp_up = Dense(cfg.d_model, cfg.d_ff, dt, device, generator)
         self.mlp_down = Dense(cfg.d_ff, cfg.d_model, dt, device, generator)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_attn(x))
+    def forward(self, x, cache: KVCache = None, layer: int = 0):
+        x = x + self.attn(self.ln_attn(x), cache, layer)
         h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_down(h)
 
@@ -225,12 +268,20 @@ class TinyLM(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device, gen)
 
-    def forward(self, tokens, positions=None):
+    def forward(self, tokens, positions=None, cache: KVCache = None):
+        """Logits [b, s, vocab].  With a *cache* (decode) *tokens* is one
+        token per row, written at ``cache.index``, which then advances."""
+        if cache is None and self.config.decode:
+            raise ValueError("a decode-mode TinyLM takes a KVCache")
+        if cache is not None and tokens.shape[1] != 1:
+            raise ValueError(f"decode feeds one token per row, got {tokens.shape[1]}")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = self.embed(tokens) + self.pos_embed(positions)
         for i in range(self.config.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, cache, i)
+        if cache is not None:
+            cache.index += 1
         return self.lm_head(self.ln_f(x))
 
 
@@ -357,3 +408,175 @@ class CheckpointingTrainer:
             self.losses.append(float(self.step_fn(batch)))
             self.step += 1
         return self.step
+
+
+# --------------------------------------------------------------- serving
+
+
+class Int8Dense(nn.Module):
+    """:class:`Dense` with weight-only int8: ``q`` int8 [out, in], the
+    per-row fp32 scale expanded from the node's ``s``, and the bias in the
+    compute dtype (a quantized q/k/v bias is dequantized).  The forward is
+    :func:`.quantize.int8_linear`: the CUDA kernel on the card, its plain
+    version on the CPU."""
+
+    def __init__(self, key: str, weight, bias, dtype, device) -> None:
+        super().__init__()
+        self.compute_dtype = dtype
+        q = weight["q"]
+        scale = quantize.scale_like(f"{key}.weight", q, weight["s"]).reshape(-1)
+        if quantize.is_quant_node(bias):
+            bias = quantize.dequantize_leaf(f"{key}.bias", bias)
+        self.register_buffer("q", q.to(device, torch.int8).contiguous())
+        self.register_buffer("scale", scale.to(device, torch.float32).contiguous())
+        self.register_buffer("bias", bias.to(device, torch.float32).to(dtype))
+
+    def forward(self, x):
+        return quantize.int8_linear(x.to(self.compute_dtype).contiguous(), self.q, self.scale, self.bias)
+
+
+class Int8Embed(nn.Module):
+    """flax ``Embed`` over an int8 table: the rows taken, times the
+    per-feature scale, in *dtype* (a gather of b rows needs no kernel)."""
+
+    def __init__(self, key: str, node, dtype, device) -> None:
+        super().__init__()
+        self.compute_dtype = dtype
+        scale = quantize.scale_like(key, node["q"], node["s"])
+        self.register_buffer("q", node["q"].to(device, torch.int8))
+        self.register_buffer("scale", scale.to(device, torch.float32))
+
+    def forward(self, ids):
+        return (self.q[ids].float() * self.scale).to(self.compute_dtype)
+
+
+def quantized_model(config: ModelConfig, qstate: Dict[str, Any], device="cuda") -> TinyLM:
+    """A TinyLM serving a :func:`.quantize.quantize_params_int8` state:
+    its Dense and Embed layers are :class:`Int8Dense` / :class:`Int8Embed`
+    holding the int8 nodes, LayerNorms keep their float leaves."""
+    device = resolve_device(device)
+    model = TinyLM(config, device=device)
+    for name, module in list(model.named_modules()):
+        parent, _, attr = name.rpartition(".")
+        if isinstance(module, Dense):
+            layer = Int8Dense(name, qstate[f"{name}.weight"], qstate[f"{name}.bias"], config.dtype, device)
+        elif isinstance(module, Embed):
+            layer = Int8Embed(f"{name}.embedding", qstate[f"{name}.embedding"], config.dtype, device)
+        else:
+            continue
+        setattr(model.get_submodule(parent), attr, layer)
+    # what is left as parameters is the LayerNorms'
+    model.load_state_dict({k: qstate[k] for k, _ in model.named_parameters()}, strict=False)
+    return model
+
+
+def quantize_model(model: TinyLM) -> TinyLM:
+    """The int8 serving model of a float TinyLM, on the same device."""
+    device = next(model.parameters()).device
+    return quantized_model(model.config, quantize.quantize_params_int8(model), device)
+
+
+def _serving_model(config: ModelConfig, model_or_state, device: torch.device) -> nn.Module:
+    """The model *generate* runs: a TinyLM as given, or one built from a
+    float or quantized state dict."""
+    if isinstance(model_or_state, nn.Module):
+        mc = model_or_state.config
+        fields = ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff", "max_seq_len", "dtype")
+        if any(getattr(mc, f) != getattr(config, f) for f in fields):
+            raise ValueError(f"model config {mc} does not match {config}")
+        where = {t.device.type for t in model_or_state.state_dict().values()}
+        if where != {device.type}:
+            raise ValueError(f"model on {where}, generate on {device}")
+        return model_or_state
+    if any(quantize.is_quant_node(v) for v in model_or_state.values()):
+        return quantized_model(config, model_or_state, device)
+    model = TinyLM(config, device=device)
+    model.load_state_dict(model_or_state)
+    return model
+
+
+def _prompt_lens(prompt_lens, b: int, prompt_len: int, device) -> torch.Tensor:
+    """[b] int64 on *device*; validated here, once, on the host."""
+    if prompt_lens is None:
+        return torch.full((b,), prompt_len, dtype=torch.long, device=device)
+    lens = torch.as_tensor(prompt_lens)
+    if tuple(lens.shape) != (b,):
+        raise ValueError(f"prompt_lens must be [batch] = [{b}], got {tuple(lens.shape)}")
+    host = lens.cpu()
+    if int(host.min()) < 1 or int(host.max()) > prompt_len:
+        # out-of-range lengths would teacher-force the zero padding into
+        # the cache: garbage, not an error
+        raise ValueError(f"prompt_lens must lie in [1, {prompt_len}], got {host.tolist()}")
+    return host.to(device, torch.long)
+
+
+def _sample(last, temperature: float, top_k: int, generator):
+    """Gumbel-max draw from softmax(last / temperature), restricted to the
+    logits >= the k-th largest (ties stay) when *top_k* > 0."""
+    scaled = last / temperature
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return (scaled + gumbel).argmax(-1)
+
+
+def generate(
+    config: ModelConfig,
+    model_or_state,
+    prompt,
+    max_new_tokens: int,
+    *,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    seed: int = 0,
+    prompt_lens=None,
+    device="cuda",
+):
+    """KV-cache decoding, the serving path (``workload.generate`` of the
+    JAX package, step for step).
+
+    *model_or_state* is a TinyLM (float, or int8 from :func:`quantize_model`
+    / :func:`quantized_model`) or a state dict, float or quantized.  Step
+    ``i`` of ``total - 1`` feeds ``buf[:, i]`` at position ``i`` and writes
+    ``buf[:, i + 1]``: the prompt token while ``i + 1 < prompt_lens`` (rows
+    may be ragged), else the argmax of the fp32 last logits
+    (``temperature <= 0``) or a draw at ``max(temperature, 1e-6)`` from the
+    ``top_k`` largest logits, seeded by *seed* on the device.  Returns the
+    buffer [b, prompt_len + max_new_tokens], int64 on the device.  The loop
+    keeps every decision on the device: no host synchronisation per token.
+    """
+    cfg = dataclasses.replace(
+        config, decode=True, seq_axis=None, ring_attention=False, flash_attention=False, remat=False
+    )
+    device = resolve_device(device)
+    prompt = torch.as_tensor(prompt)
+    b, prompt_len = prompt.shape
+    total = prompt_len + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds max_seq_len ({cfg.max_seq_len})"
+        )
+    plens = _prompt_lens(prompt_lens, b, prompt_len, device)
+    model = _serving_model(cfg, model_or_state, device)
+    cache = KVCache(cfg, b, total, device)
+    buf = torch.zeros((b, total), dtype=torch.long, device=device)
+    buf[:, :prompt_len] = prompt.to(device)
+    generator = torch.Generator(device=device).manual_seed(seed) if temperature > 0.0 else None
+    with torch.inference_mode():
+        for i in range(total - 1):
+            positions = torch.full((b, 1), i, dtype=torch.long, device=device)
+            last = model(buf[:, i:i + 1], positions, cache=cache)[:, -1].float()
+            if generator is None:
+                nxt = last.argmax(-1)
+            else:
+                nxt = _sample(last, max(temperature, 1e-6), top_k, generator)
+            buf[:, i + 1] = torch.where(plens > i + 1, buf[:, i + 1], nxt)
+    return buf
+
+
+def greedy_generate(config: ModelConfig, model_or_state, prompt, max_new_tokens: int, device="cuda"):
+    """KV-cache greedy decoding: :func:`generate` at temperature 0."""
+    return generate(config, model_or_state, prompt, max_new_tokens, device=device)

@@ -183,3 +183,45 @@ def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="bad asm"):
         _build.build("flash_attention")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_each_shipped_library_name_carries_its_own_digest(name):
+    digest = _build.source_digest(name)
+    assert _build.library_path(name).name == f"lib{name}-{digest}.so"
+    assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def test_the_int8_entry_point_takes_five_pointers_four_ints_and_the_stream():
+    P, I = _build.P, _build.I
+    assert _build.SIGNATURES["int8_matmul"] == {"int8_linear": (P, P, P, P, P, I, I, I, I, P)}
+    assert _build.source_digest("int8_matmul") != _build.source_digest("flash_attention")
+
+
+def test_editing_one_source_leaves_the_other_s_digest(tmp_path):
+    csrc = _sources(tmp_path)
+    (csrc / "other.cu").write_text("// another library\n")
+    k, other = _build.source_digest("k", csrc), _build.source_digest("other", csrc)
+    assert k != other
+    (csrc / "other.cu").write_text("// another library, edited\n")
+    assert _build.source_digest("k", csrc) == k
+    assert _build.source_digest("other", csrc) != other
+
+
+def test_build_all_builds_every_library_side_by_side(tmp_path, monkeypatch):
+    _fake_toolkit(tmp_path, monkeypatch)
+    built = _build.build_all()
+    assert set(built) == set(_build.SIGNATURES)
+    for name, lib in built.items():
+        assert lib == _build.library_path(name) and lib.exists()
+        assert _build.build_seconds[name] > 0.0
+    assert _build.build_all() == built  # cached
+    assert set(_build.build_seconds.values()) == {0.0}
+
+
+def test_build_all_raises_a_failed_build(tmp_path, monkeypatch):
+    _fake_toolkit(tmp_path, monkeypatch)
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\nsys.stderr.write('bad int8')\nsys.exit(2)\n")
+    with pytest.raises(RuntimeError, match="bad int8"):
+        _build.build_all(["int8_matmul"])

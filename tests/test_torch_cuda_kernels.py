@@ -146,3 +146,74 @@ def test_a_bf16_train_step_runs_the_tensor_core_kernels(cuda):
     assert launched == {
         "flash_fwd_tc_kernel": 2, "flash_bwd_dq_tc_kernel": 2, "flash_bwd_dkv_tc_kernel": 2,
     }
+
+
+# ------------------------------------------------ the int8 decode matmul
+
+#: (M, K, N): every decode shape of the smoke config at M 8 (q/k/v/out,
+#: mlp_up and lm_head, mlp_down), M 1 and 13, ragged K and N (K 77 takes
+#: byte loads of q)
+INT8_SHAPES = [(8, 512, 512), (8, 512, 2048), (8, 2048, 512), (1, 512, 2048), (13, 2048, 512),
+               (8, 80, 33), (13, 77, 40)]
+
+
+def _int8_inputs(cuda, m, k, n, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randint(-127, 128, (n, k), device=cuda, generator=gen, dtype=torch.int8)
+    s = torch.rand(n, device=cuda, generator=gen) * 0.01 + 1e-4
+    x = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    bias = torch.randn(n, device=cuda, generator=gen).to(dtype)
+    return x, q, s, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES, ids=lambda v: str(v))
+def test_int8_linear_matches_its_plain_version(cuda, m, k, n, dtype):
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = _int8_inputs(cuda, m, k, n, dtype, seed=m + k + n)
+    before = qz.launch_counts["int8_linear"]
+    got = qz.int8_linear(x, q, s, bias)
+    assert qz.launch_counts["int8_linear"] == before + 1
+    want = qz.int8_linear_plain(x, q, s, bias)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _close(got, want, BF16_TOL if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_linear_is_deterministic(cuda):
+    """Each output is written once after a warp-shuffle reduction, with no
+    atomics: two launches agree bit for bit."""
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = _int8_inputs(cuda, 8, 8192, 4096, torch.bfloat16, seed=1)
+    assert torch.equal(qz.int8_linear(x, q, s, bias), qz.int8_linear(x, q, s, bias))
+
+
+@pytest.mark.cuda
+def test_int8_linear_refuses_a_misaligned_x(cuda):
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    _, q, s, bias = _int8_inputs(cuda, 4, 64, 16, torch.bfloat16)
+    flat = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    before = qz.launch_counts["int8_linear"]
+    with pytest.raises(ValueError, match="16-byte"):
+        qz.int8_linear(flat[1:].view(4, 64), q, s, bias)
+    assert qz.launch_counts["int8_linear"] == before
+
+
+@pytest.mark.cuda
+def test_int8_generate_launches_the_kernel_for_every_quantized_dense(cuda):
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    cfg = wl.ModelConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq_len=32,
+                         dtype=torch.bfloat16, flash_attention=True)
+    model = wl.quantize_model(wl.TinyLM(cfg, cuda))
+    prompt = torch.randint(0, cfg.vocab_size, (3, 5), device=cuda)
+    qz.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = wl.generate(cfg, model, prompt, 7)
+    assert out.shape == (3, 12) and torch.equal(out[:, :5], prompt)
+    assert qz.launch_counts["int8_linear"] == (6 * 2 + 1) * 11
+    assert set(fa.launch_counts.values()) == {0}  # decode runs no flash kernel

@@ -216,3 +216,65 @@ def test_launch_counts_start_at_zero_and_reset():
     q = torch.randn(1, 32, 2, 16)
     fa.flash_attention(q, q, q, True, 32, 32)
     assert set(fa.launch_counts.values()) == {0}
+
+
+def test_the_scans_see_the_serving_modules():
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"tpu/quantize.py", "tpu/workload.py", "convert.py"} <= scanned
+
+
+def test_quantize_module_has_no_try_to_fall_back_on():
+    tree = ast.parse((PORT / "tpu" / "quantize.py").read_text())
+    assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
+
+
+def test_a_cuda_tensor_never_reaches_the_int8_plain_version(monkeypatch):
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    calls = []
+
+    def kernel(*args):
+        calls.append("kernel")
+        raise RuntimeError("launch refused")
+
+    monkeypatch.setattr(qz, "_int8_linear_cuda", kernel)
+    monkeypatch.setattr(qz, "int8_linear_plain", lambda *a: calls.append("plain"))
+    with pytest.raises(RuntimeError, match="launch refused"):
+        qz.int8_linear(_FakeCuda(), None, None)
+    assert calls == ["kernel"]
+    with pytest.raises(ValueError, match="no kernel"):
+        qz.int8_linear(torch.zeros(1, device="meta"), None, None)
+
+
+def test_the_int8_wrapper_raises_without_nvcc(monkeypatch, tmp_path):
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is present")
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    x, q, s = torch.zeros(2, 16), torch.zeros(4, 16, dtype=torch.int8), torch.ones(4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        qz._int8_linear_cuda(x, q, s)
+
+
+def test_the_int8_entry_point_launches_its_kernel_for_both_types():
+    source = (PORT / "csrc" / "int8_matmul.cu").read_text()
+    assert re.search(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+int8_linear_kernel\(", source)
+    entry = re.search(r"int int8_linear\((?:.|\n)*?\n\}\n", source).group()
+    assert re.findall(r"(\w+)<(\w+)><<<", entry) == [
+        ("int8_linear_kernel", "T"), ("int8_linear_kernel", "float"),
+    ]
+    assert "cudaGetLastError" in entry
+
+
+def test_generate_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = wl.ModelConfig(n_layers=1, d_model=32, d_ff=64, max_seq_len=16)
+    model = wl.TinyLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wl.generate(cfg, model, torch.zeros(1, 2, dtype=torch.long), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wl.quantized_model(cfg, {})

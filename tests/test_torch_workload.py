@@ -164,12 +164,16 @@ def test_create_train_state_matches_flax_init_statistics():
         ("ring_flash", True),
         ("ring_layout", "zigzag"),
         ("remat", True),
-        ("decode", True),
     ],
 )
 def test_config_fields_not_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wl.ModelConfig(**CFG, **{field: value})
+
+
+def test_decode_mode_is_ported():
+    cfg = wl.ModelConfig(**CFG, decode=True)
+    assert cfg.decode and jwl.ModelConfig(**CFG, decode=True).decode
 
 
 # ------------------------------------------------- traps, pinned by name
