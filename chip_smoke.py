@@ -11,9 +11,10 @@ failure (the exit code is then non-zero and no result line is printed):
 1. device: the card's name and power limit; build the CUDA kernels from
    ``k8s_operator_libs_tpu_torch/csrc``, with each kernel's registers,
    shared memory and spills (``ptxas -v``) and its tensor-core
-   instructions (HGMMA/HMMA in the SASS): each bf16 kernel must have
-   them, at every head dim, with no spill and no ptxas note that its
-   wgmma were serialized;
+   instructions (HGMMA/HMMA in the SASS): each bf16 flash kernel must
+   have them, at every head dim, with no spill and no ptxas note that its
+   wgmma were serialized, and the bf16 int8 kernel HMMA, no spill and no
+   ptxas note;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
    long shapes in fp32 and bf16, then timed beside its plain version and
@@ -31,18 +32,40 @@ failure (the exit code is then non-zero and no result line is printed):
    restore and a 2-step resume (inside ``run_smoke``, which also runs the
    decode bench on the just-trained weights: float and int8 tokens/s);
 5. serving: the int8 matmul kernel against its plain version at every
-   decode shape of the smoke configuration (M 8), at M 1 and 13 and at
-   ragged K and N, in bf16 and fp32, two launches bit-equal; timed beside
-   its bytes bound and ``F.linear`` on the dequantized weight.  Then, at
+   decode shape of the smoke configuration (M 8), at M 1, 13, 16 and 17,
+   at ragged K and N, at a K its plan splits unevenly and under a cluster
+   of 8, in bf16 and fp32, two launches bit-equal and a CUDA-graph replay
+   equal to the eager call, every bf16 launch on the tensor-core kernel;
+   timed beside its bytes bound and ``F.linear`` on the dequantized
+   weight, by graph replay (the kernel's events figure beside).  Then, at
    the smoke width from seed-0 weights: fp32 cached greedy decode equals
    full-prefix recompute; a ragged batch equals each row's solo run; bf16
    cached logits match the full prefix, and the int8 kernel route matches
-   the plain route; ``generate`` launches the int8 kernel (6 * n_layers +
-   1) times per step and no flash kernel, with no host synchronisation in
-   the loop (``set_sync_debug_mode("error")``); sampling is seeded and
-   top_k 1 is greedy; a profiled window of decode steps;
+   the plain route computed exactly (each Dense summed in float64 and
+   rounded once; cuBLAS's route is logged beside it); ``generate``
+   launches the int8 kernel (6 * n_layers + 1) times per step, all on the
+   bf16 tensor-core kernel, and no flash kernel, with no host
+   synchronisation in the loop (``set_sync_debug_mode("error")``);
+   sampling is seeded and top_k 1 is greedy; a profiled window of decode
+   steps;
 6. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --int8-turns TREE [TREE ...]
+
+times the int8 kernel of each checkout TREE (a directory holding its own
+``chip_smoke.py`` and package, e.g. an unpacked ``git archive``) at the
+smoke configuration's decode shapes and the long shape, in turns: each
+tree once in the order given, then once in reverse, one process per turn,
+each calling its own tree's ``time_int8``.  It prints one ``turn`` line
+per turn and the card line.
+
+    python3 chip_smoke.py --int8-plans
+
+times the bf16 int8 kernel at the same shapes under every launch plan
+(cluster and warps per block, each 1, 2, 4 or 8, no more slices than K
+has chunks) beside the one ``int8_plan`` chooses, one ``plans`` line per
+shape, then the card line.
 """
 
 from __future__ import annotations
@@ -121,10 +144,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    """Mean device milliseconds of one *fn* call: *calls* calls captured
-    in a CUDA graph, replayed *replays* times between events, so no
-    call's host work (checks, allocation, the ctypes call) is timed."""
+def capture(fn, calls: int = 1):
+    """A CUDA graph of *calls* calls of *fn*, and what the last returned."""
     import torch
 
     side = torch.cuda.Stream()  # warm up off the default stream, as capture wants
@@ -136,7 +157,17 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds of one *fn* call: *calls* calls captured
+    in a CUDA graph, replayed *replays* times between events, so no
+    call's host work (checks, allocation, the ctypes call) is timed."""
+    import torch
+
+    graph, _ = capture(fn, calls)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -521,16 +552,28 @@ def int8_bound_ms(m, k, n, dtype: str):
 
 
 def check_int8(name, m, k, n, dtype: str, seed: int = 0) -> float:
-    """The kernel against its plain version on the same inputs, and two
-    launches bit-equal."""
+    """The kernel against its plain version on the same inputs, two
+    launches and a graph replay bit-equal, and the launch on the dtype's
+    device kernel."""
     import torch
 
     from k8s_operator_libs_tpu_torch.tpu import quantize as qz
 
     x, q, s, bias = int8_inputs(m, k, n, dtype, seed)
+    before = dict(qz.device_launch_counts)
     got = qz.int8_linear(x, q, s, bias)
+    kernel = qz.DEVICE_KERNELS["int8_linear"][getattr(torch, dtype)]
+    launched = {k_: v - before[k_] for k_, v in qz.device_launch_counts.items() if v != before[k_]}
+    if launched != {kernel: 1}:
+        raise RuntimeError(f"int8 {name}: device launches {launched}, want one of {kernel}")
     if not torch.equal(got, qz.int8_linear(x, q, s, bias)):
         raise RuntimeError(f"int8 {name}: two launches differ")
+    graph, replayed = capture(lambda: qz.int8_linear(x, q, s, bias))
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, replayed):
+        raise RuntimeError(f"int8 {name}: a CUDA-graph replay differs from the eager call")
     err = check_close(f"int8 {name}", got, qz.int8_linear_plain(x, q, s, bias), dtype)
     log(f"kernels int8 {name}: M{m} K{k} N{n} {dtype} err={err:.3e}")
     return err
@@ -539,7 +582,9 @@ def check_int8(name, m, k, n, dtype: str, seed: int = 0) -> float:
 def time_int8(m, k, n, dtype: str, graphs: bool, iters: int = 50) -> dict:
     """Device ms of the kernel, its plain version, and ``F.linear`` on the
     already-dequantized weight: the cuBLAS call the kernel replaces, which
-    reads twice the bytes (a yardstick, not the same function)."""
+    reads twice the bytes (a yardstick, not the same function).  With
+    *graphs* they are timed by :func:`graph_ms` and the kernel's
+    back-to-back event figure is kept as ``event_ms``."""
     import torch.nn.functional as F
 
     from k8s_operator_libs_tpu_torch.tpu import quantize as qz
@@ -547,11 +592,14 @@ def time_int8(m, k, n, dtype: str, graphs: bool, iters: int = 50) -> dict:
     x, q, s, bias = int8_inputs(m, k, n, dtype, seed=1)
     w = (q.float() * s[:, None]).to(x.dtype)
     timer = graph_ms if graphs else (lambda fn: cuda_ms(fn, iters))
+    kernel = lambda: qz.int8_linear(x, q, s, bias)  # noqa: E731
     row = {
-        "ms": timer(lambda: qz.int8_linear(x, q, s, bias)),
+        "ms": timer(kernel),
         "plain_ms": timer(lambda: qz.int8_linear_plain(x, q, s, bias)),
         "linear_ms": timer(lambda: F.linear(x, w, bias)),
     }
+    if graphs:
+        row["event_ms"] = cuda_ms(kernel, iters)
     bound, by = int8_bound_ms(m, k, n, dtype)
     row.update(bound_ms=bound, bound_by=by, bound_share=bound / row["ms"])
     return row
@@ -559,17 +607,24 @@ def time_int8(m, k, n, dtype: str, graphs: bool, iters: int = 50) -> dict:
 
 def int8_kernel_phase(config):
     """Hold the kernel to its plain version at every decode shape of
-    *config* (M 8), at M 1 and 13, at ragged K and N, and at the long
-    shape; time the decode shapes by graph replay and the long one by
-    events.  Returns (worst err at the decode shapes, timings)."""
+    *config* (M 8), at M 1, 13, 16 and 17, at ragged K and N, at a K the
+    bf16 plan splits unevenly, under a cluster of 8, and at the long
+    shape; time them all by graph replay: at the long shape too a call's
+    host work is as long as the kernel (``event_ms``).  Returns (worst err
+    at the decode shapes, timings)."""
     errs = []
     for dtype in ("bfloat16", "float32"):
         for name, k, n, _ in int8_decode_shapes(config):
             errs.append(check_int8(f"{name}-{dtype}", 8, k, n, dtype, seed=k + n))
         check_int8(f"m1-{dtype}", 1, 512, 2048, dtype, seed=3)
         check_int8(f"m13-{dtype}", 13, 2048, 512, dtype, seed=4)
+        check_int8(f"m16-{dtype}", 16, 512, 512, dtype, seed=8)
+        check_int8(f"m17-{dtype}", 17, 2048, 2048, dtype, seed=9)
         check_int8(f"ragged-k80-n33-{dtype}", 8, 80, 33, dtype, seed=5)
         check_int8(f"ragged-k77-n40-{dtype}", 13, 77, 40, dtype, seed=6)  # byte loads of q
+        check_int8(f"ragged-n2047-{dtype}", 8, 512, 2047, dtype, seed=10)
+        check_int8(f"uneven-k1040-{dtype}", 8, 1040, 512, dtype, seed=11)  # 17 chunks, 16 slices
+        check_int8(f"cluster8-k8192-n512-{dtype}", 8, 8192, 512, dtype, seed=12)
     check_int8("long-bfloat16", 8, 8192, 8192, "bfloat16", seed=7)
     shapes = {}
     for name, k, n, per_step in int8_decode_shapes(config):
@@ -579,7 +634,7 @@ def int8_kernel_phase(config):
             for key in ("ms", "plain_ms", "linear_ms", "bound_ms")}
     step["launches"] = sum(r["launches_per_step"] for r in shapes.values())
     step["bound_by"] = "/".join(sorted({r["bound_by"] for r in shapes.values()}))
-    long = {"M": 8, "K": 8192, "N": 8192, **time_int8(8, 8192, 8192, "bfloat16", graphs=False)}
+    long = {"M": 8, "K": 8192, "N": 8192, **time_int8(8, 8192, 8192, "bfloat16", graphs=True)}
     timing = {"per_shape": shapes, "per_decode_step": step, "long": long}
     log("timing int8:", json.dumps(timing))
     return max(errs), timing
@@ -600,6 +655,15 @@ def decode_logits(cfg, model, tokens):
             pos = torch.full((b, 1), i, dtype=torch.long, device="cuda")
             steps.append(model(tokens[:, i:i + 1], pos, cache=cache)[:, -1].float())
     return torch.stack(steps, 1)
+
+
+def exact_dense(self, x):
+    """A Dense's forward, x . w^T + b on its compute-dtype operands, summed
+    in float64 and rounded to the compute dtype once."""
+    import torch.nn.functional as F
+
+    dt = self.compute_dtype
+    return F.linear(x.to(dt).double(), self.weight.to(dt).double(), self.bias.to(dt).double()).to(dt)
 
 
 def no_host_sync(fn):
@@ -670,8 +734,12 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     log(f"serving fp32: greedy == recompute over {new_tokens} tokens; ragged {lens} == solo rows; "
         "int8 sampling seeded, top_k=1 == greedy, no host sync")
 
-    # bf16: the cache against the full prefix; int8: kernel route against
-    # the plain route (the dequantized weights through F.linear)
+    # bf16: the cache against the full prefix; int8: the kernel route
+    # against the plain route (the dequantized weights through F.linear)
+    # computed exactly, each Dense in float64 and rounded to bf16 once, as
+    # the kernel's contract states. cuBLAS's bf16 F.linear strays from
+    # that by more than the tolerance itself (PERF.md §6), so its route
+    # is logged beside, not gated.
     bf16 = dataclasses.replace(config, flash_attention=False)
     model = wl.TinyLM(bf16, "cuda", seed=0)
     qstate = qz.quantize_params_int8(model)
@@ -682,25 +750,35 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     with torch.inference_mode():
         full = model(tokens).float()
     out["bf16_cache_err"] = check_close("bf16 decode vs full prefix", decode_logits(bf16, model, tokens), full, "bfloat16")
+    kernel_logits = decode_logits(bf16, int8, tokens)
+    cublas_logits = decode_logits(bf16, plain, tokens)
+    for dense in plain.modules():
+        if isinstance(dense, wl.Dense):
+            dense.forward = exact_dense.__get__(dense)
+    exact_logits = decode_logits(bf16, plain, tokens)
     out["int8_route_err"] = check_close(
-        "int8 kernel route vs plain route",
-        decode_logits(bf16, int8, tokens), decode_logits(bf16, plain, tokens), "bfloat16",
+        "int8 kernel route vs exact plain route", kernel_logits, exact_logits, "bfloat16"
     )
+    out["int8_vs_cublas_route_err"] = max_err(kernel_logits, cublas_logits)
+    out["cublas_vs_exact_route_err"] = max_err(cublas_logits, exact_logits)
 
     # the int8 route's launches, with no host synchronisation in the loop
     qz.reset_launch_counts()
     fa.reset_launch_counts()
     gated = no_host_sync(lambda: wl.generate(bf16, int8, prompt, new_tokens))
     launches = qz.launch_counts["int8_linear"]
+    device_launches = {k: n for k, n in qz.device_launch_counts.items() if n}
     want = (6 * config.n_layers + 1) * (total - 1)
-    if launches != want or any(fa.launch_counts.values()):
+    routed = qz.DEVICE_KERNELS["int8_linear"][config.dtype]
+    if launches != want or device_launches != {routed: want} or any(fa.launch_counts.values()):
         raise RuntimeError(
-            f"int8 launches {launches} (want {want}), flash launches {fa.launch_counts} (want 0)"
+            f"int8 launches {launches} by device kernel {device_launches} (want {want}, all "
+            f"{routed}), flash launches {fa.launch_counts} (want 0)"
         )
     if not torch.equal(gated, tokens):
         raise RuntimeError("two greedy int8 generations differ")
     log(f"serving bf16/int8: errs {json.dumps(out)} (tol {BF16_TOL}); int8 launches {launches} "
-        f"= (6*{config.n_layers}+1)*{total - 1}, flash 0; no host sync in the loop")
+        f"= (6*{config.n_layers}+1)*{total - 1}, all {routed}; flash 0; no host sync in the loop")
 
     # where a decode step's time goes, float and int8 (8 new tokens)
     out["decode_breakdown"] = {
@@ -709,18 +787,23 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     }
     log("decode breakdown (per decode step):", json.dumps(out["decode_breakdown"]))
     out["launches"] = launches
+    out["device_kernel"] = routed
     return out
 
 
 def compiled_report():
     """Per kernel instantiation of every library, ``ptxas -v``'s
     registers, shared memory, spills and notes and the HGMMA/HMMA count of
-    its SASS.  Raises unless each tensor-core kernel is built at every head
-    dim with tensor-core instructions, no spill and no ptxas note that its
-    wgmma were serialized (C7515 for a call, C7512 for want of registers),
-    and unless each int8 instantiation is built."""
+    its SASS.  Raises unless each flash tensor-core kernel is built at
+    every head dim with tensor-core instructions, no spill and no ptxas
+    note that its wgmma were serialized (C7515 for a call, C7512 for want
+    of registers), and unless each int8 device kernel is built, the bf16
+    one with HMMA, no spill and no ptxas note."""
+    import torch
+
     from k8s_operator_libs_tpu_torch import _build
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
 
     report = {}
     for lib in _build.SIGNATURES:
@@ -729,9 +812,12 @@ def compiled_report():
         report.update({name: {**ptxas.get(name, {}), **sass.get(name, {})} for name in sorted(sass)})
     for name, row in report.items():
         log("compiled", name, json.dumps(row))
-    int8 = [f"int8_linear_kernel<{t}>" for t in ("float", "__nv_bfloat16")]
-    if any(name not in report for name in int8):
-        raise RuntimeError(f"int8_matmul: {int8} not all built ({sorted(report)})")
+    int8 = qz.DEVICE_KERNELS["int8_linear"]
+    if any(name not in report for name in int8.values()):
+        raise RuntimeError(f"int8_matmul: {sorted(int8.values())} not all built ({sorted(report)})")
+    tc = report[int8[torch.bfloat16]]
+    if tc["HMMA"] == 0 or tc.get("spill_stores", 1) or tc.get("spill_loads", 1) or tc.get("notes"):
+        raise RuntimeError(f"{int8[torch.bfloat16]}: no HMMA, a spill or a ptxas note ({tc})")
     tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
                    if "_tc_" in k}
     for kernel in sorted(tensor_core):
@@ -750,16 +836,98 @@ def compiled_report():
     return report
 
 
-def main() -> int:
+#: What one turn of ``--int8-turns`` runs inside a tree: only functions
+#: every tree since the int8 kernel's first version has.
+_TURN = """
+import json, torch
+import chip_smoke as c
+from k8s_operator_libs_tpu_torch.tpu import smoke
+cfg = smoke.smoke_config(torch.device("cuda"))
+row = {name: {"launches_per_step": per, **c.time_int8(8, k, n, "bfloat16", graphs=True)}
+       for name, k, n, per in c.int8_decode_shapes(cfg)}
+row["per_decode_step_ms"] = sum(r["ms"] * r["launches_per_step"] for r in row.values())
+row["long"] = c.time_int8(8, 8192, 8192, "bfloat16", graphs=True)
+print("TURN", json.dumps(row), flush=True)
+"""
+
+
+def int8_plans() -> None:
+    """Time the bf16 kernel under every plan at the decode shapes and the
+    long shape (graph replay); print a ``plans`` line each."""
     import torch
 
+    from k8s_operator_libs_tpu_torch import _build
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+
+    lib = _build.load("int8_matmul")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(k, n) for _, k, n, _ in int8_decode_shapes(smoke.smoke_config(torch.device("cuda")))]
+    for k, n in dict.fromkeys(shapes + [(8192, 8192)]):
+        x, q, s, bias = int8_inputs(8, k, n, "bfloat16", seed=1)
+        y = torch.empty(8, n, dtype=x.dtype, device="cuda")
+
+        def launch(k_warps, cluster):
+            _build.check(lib.int8_linear(
+                x.data_ptr(), q.data_ptr(), s.data_ptr(), bias.data_ptr(), y.data_ptr(), 8, k, n,
+                1, k_warps, cluster, torch.cuda.current_stream().cuda_stream,
+            ), "int8_linear")
+
+        chunks = -(-k // qz.INT8_K_CHUNK)
+        us = {
+            f"cluster {c}, {w} warps": 1e3 * graph_ms(lambda w=w, c=c: launch(w, c))
+            for c in (1, 2, 4, 8) for w in (1, 2, 4, 8) if c * w <= chunks
+        }
+        plan = qz.int8_plan(8, k, n, n_sms)
+        log("plans", json.dumps({
+            "M": 8, "K": k, "N": n, "chosen": f"cluster {plan.cluster}, {plan.k_warps} warps",
+            "us": dict(sorted(us.items(), key=lambda kv: kv[1])),
+        }))
+
+
+def int8_turns(trees) -> None:
+    """Time each tree's int8 kernel in turns (the trees in order, then in
+    reverse), one process per turn; print a ``turn`` line for each."""
+    import os
+
+    order = list(trees) + list(reversed(trees))
+    for i, tree in enumerate(order):
+        proc = subprocess.run(
+            [sys.executable, "-c", _TURN], cwd=os.path.abspath(tree),
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn {i} in {tree} failed:\n{proc.stderr[-4000:]}")
+        row = json.loads(proc.stdout.split("TURN ", 1)[1].splitlines()[0])
+        log("turn", json.dumps({"turn": i, "tree": tree, **row}))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--int8-turns", nargs="+", metavar="TREE",
+                      help="time each checkout's int8 kernel in turns instead")
+    args.add_argument("--int8-plans", action="store_true",
+                      help="time the bf16 int8 kernel under every launch plan instead")
+    args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.int8_turns or args.int8_plans:
+        if args.int8_turns:
+            int8_turns(args.int8_turns)
+        else:
+            int8_plans()
+        print(nvidia_smi_line())
+        return 0
     import dataclasses
 
     from k8s_operator_libs_tpu_torch import _build
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
     from k8s_operator_libs_tpu_torch.tpu import smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -889,13 +1057,17 @@ def main() -> int:
             "library_ms": main_timing["sdpa_fwd_ms"] if name == "flash_fwd" else None,
         })
     step = int8_timing["per_decode_step"]
-    built = compiled.get("int8_linear_kernel<__nv_bfloat16>", {})
+    built = compiled.get(serving["device_kernel"], {})
     kernels.append({
         "name": "int8_linear",
         "route": "cuda",
         "source": SOURCE["int8_linear"],
         "replaces": REPLACES["int8_linear"],
         "launches": serving["launches"],
+        "device_kernels": {
+            str(dt).removeprefix("torch."): k for dt, k in qz.DEVICE_KERNELS["int8_linear"].items()
+        },
+        "main_path_device_kernel": serving["device_kernel"],
         "max_abs_err": int8_err,
         # one decode step's int8 matmuls at the smoke config (M 8, bf16),
         # each by graph replay, summed over its launches_per_step

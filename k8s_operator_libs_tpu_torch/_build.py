@@ -54,8 +54,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "flash_bwd_dkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
     },
     "int8_matmul": {
-        # x, q, s, bias (or 0), y, M, K, N, is_bf16, stream
-        "int8_linear": (P, P, P, P, P, I, I, I, I, P),
+        # x, q, s, bias (or 0), y, M, K, N, is_bf16, then the bf16 plan
+        # (tpu/quantize.py int8_plan): k_warps, cluster; stream
+        "int8_linear": (P, P, P, P, P, I, I, I, I, I, I, P),
     },
 }
 

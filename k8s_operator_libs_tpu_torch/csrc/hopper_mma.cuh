@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the tensor-core flash kernels:
-// 16- and 4-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
-// descriptors, and wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands
-// in shared memory (ss) or A in registers (rs). Inline PTX only, so the
-// library builds in seconds; nothing here includes PyTorch or CUTLASS.
+// Hopper (sm_90a) building blocks for the tensor-core kernels: 16- and
+// 4-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
+// descriptors, wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands in
+// shared memory (ss) or A in registers (rs) for the flash kernels, and the
+// warp-level mma.sync m16n8k16 for the int8 decode matmul. Inline PTX only,
+// so a library builds in seconds; nothing here includes PyTorch or CUTLASS.
 //
 // wgmma fragments, for thread t of the warpgroup (warp w = t / 32, lane
 // l = t % 32), in the layout of the PTX ISA ("wgmma ... register
@@ -107,6 +108,22 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t start, uint32_t lbo, uint
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// mma.sync m16n8k16, d += a b in fp32, a bf16 16 x 16 (row-major), b bf16
+// 16 x 8 (column-major), for lane l of the warp (g = l / 4, t = l % 4; PTX
+// ISA "Matrix Fragments for mma.m16n8k16 with floating point type"):
+//   a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8, 2t+9],
+//   a[3] = A[g+8][2t+8, 2t+9]; b[0] = B[2t, 2t+1][g], b[1] = B[2t+8, 2t+9][g];
+//   d[0], d[1] = D[g][2t, 2t+1]; d[2], d[3] = D[g+8][2t, 2t+1].
+// Each pair packs two bf16, the lower k (or column) in the low half.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // wgmma.mma_async m64nNk16, fp32 accumulators d[N / 2] per thread; scale_d

@@ -21,14 +21,19 @@ A quantized state maps each key to a tensor or to a ``{"q", "s"}`` node,
 
 The JAX package relies on XLA to fuse the dequantize into each consuming
 matmul (``quantize.py:74-84``).  Eager PyTorch does not fuse, so the fusion
-is a hand-written CUDA kernel, ``csrc/int8_matmul.cu``: :func:`int8_linear`
-launches it for a CUDA tensor and runs :func:`int8_linear_plain` only for a
-CPU one.  It counts its launches in :data:`launch_counts`.
+is hand-written CUDA, ``csrc/int8_matmul.cu``: :func:`int8_linear` launches
+it for a CUDA tensor and runs :func:`int8_linear_plain` only for a CPU one.
+bf16 runs on the tensor cores (``int8_linear_tc_kernel``, under the launch
+plan of :func:`int8_plan`), fp32 on CUDA cores; :data:`DEVICE_KERNELS`
+names the device kernel of each dtype.  The wrapper counts its launches in
+:data:`launch_counts`, and by device kernel in :data:`device_launch_counts`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import functools
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,11 +47,27 @@ from ..convert import is_quant_node, params_from_jax, params_to_jax
 #: launch was accepted.  The plain version does not count.
 launch_counts: Dict[str, int] = {"int8_linear": 0}
 
+#: The device kernel (in csrc/int8_matmul.cu) the entry point launches, by
+#: dtype.
+DEVICE_KERNELS: Dict[str, Dict[torch.dtype, str]] = {
+    "int8_linear": {
+        torch.bfloat16: "int8_linear_tc_kernel",
+        torch.float32: "int8_linear_kernel<float>",
+    },
+}
+
+#: Launches by device kernel, counted beside :data:`launch_counts`.
+device_launch_counts: Dict[str, int] = {
+    name: 0 for kernels in DEVICE_KERNELS.values() for name in kernels.values()
+}
+
 _X_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reset_launch_counts() -> None:
-    launch_counts["int8_linear"] = 0
+    for counts in (launch_counts, device_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------- the tree functions
@@ -149,6 +170,70 @@ def int8_linear_plain(x, q, s, bias=None):
     return F.linear(x, w, None if bias is None else bias.to(x.dtype))
 
 
+#: The bf16 kernel's tile: 16 output rows per block (mma.sync's m16 side),
+#: 8 rows of x (its n8 side), K in chunks of 64 (16 bytes of q per lane
+#: and row); at most 8 warps per block and 8 blocks per cluster.
+INT8_TILE_ROWS, INT8_TILE_M, INT8_K_CHUNK = 16, 8, 64
+INT8_MAX_WARPS, INT8_MAX_CLUSTER = 8, 8
+#: Chunks of q a warp keeps in flight (the kernel's ring, kTcStages).  A
+#: cluster is formed only while a warp's slice would not fit in it: once
+#: it fits, all of q is requested at the start, and a cluster's barrier
+#: costs more than it saves (PERF.md §6).
+INT8_RING_CHUNKS = 2
+
+
+@dataclass(frozen=True)
+class Int8Plan:
+    """How ``int8_linear_tc_kernel`` covers ``y[m, n] = x[m, k] . q^T``:
+    blocks of ``rows_per_block`` output rows, each cluster of ``cluster``
+    blocks sharing one tile of rows, ``k_warps`` warps per block, and warp
+    ``w`` of the block of cluster rank ``r`` summing K slice ``r * k_warps +
+    w``, ``k_slices[r * k_warps + w]`` (``[begin, end)`` in K)."""
+
+    rows_per_block: int
+    k_warps: int
+    cluster: int
+    grid: Tuple[int, int]
+    k_slices: Tuple[Tuple[int, int], ...]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=256)
+def int8_plan(m: int, k: int, n: int, n_sms: int) -> Int8Plan:
+    """The bf16 kernel's launch plan, a pure function of the shape and the
+    card's SM count.  K is cut into 64-wide chunks, shared out among the
+    warps of a block (8, or 4 once the grid has a block per SM) and, while
+    the grid is smaller than the card and each warp would still walk more
+    than :data:`INT8_RING_CHUNKS` chunks, among the blocks of a cluster
+    (doubling, to at most 8).  The slices are contiguous, as even as the
+    chunks allow, and in K order: the kernel sums them in that order, so a
+    plan fixes the result bit for bit."""
+    if min(m, k, n, n_sms) < 1:
+        raise ValueError(f"int8_plan: m, k, n and n_sms must be >= 1, got {(m, k, n, n_sms)}")
+    tiles = -(-n // INT8_TILE_ROWS)
+    m_tiles = -(-m // INT8_TILE_M)
+    chunks = -(-k // INT8_K_CHUNK)
+    # 8 warps a block while the grid is smaller than the card; past that,
+    # 4, whose smaller blocks pack the SMs more evenly
+    k_warps = min(INT8_MAX_WARPS if tiles * m_tiles < n_sms else INT8_MAX_WARPS // 2, chunks)
+    cluster = 1
+    while (cluster < INT8_MAX_CLUSTER and tiles * cluster * m_tiles < n_sms
+           and chunks > INT8_RING_CHUNKS * k_warps * cluster):
+        cluster *= 2
+    slices = cluster * k_warps
+    cuts = [min(k, INT8_K_CHUNK * (j * chunks // slices)) for j in range(slices + 1)]
+    return Int8Plan(
+        rows_per_block=INT8_TILE_ROWS,
+        k_warps=k_warps,
+        cluster=cluster,
+        grid=(tiles * cluster, m_tiles),
+        k_slices=tuple(zip(cuts, cuts[1:])),
+    )
+
+
 def _check_kernel_inputs(x, q, s, bias) -> None:
     """Raise on what the kernel does not take."""
     if x.dtype not in _X_DTYPES:
@@ -181,16 +266,18 @@ def _int8_linear_cuda(x, q, s, bias=None):
         )
     n, k = q.shape
     m = x.numel() // k
+    plan = int8_plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
     y = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
     _build.check(
         lib.int8_linear(
             x.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            y.data_ptr(), m, k, n, int(x.dtype == torch.bfloat16),
+            y.data_ptr(), m, k, n, int(x.dtype == torch.bfloat16), plan.k_warps, plan.cluster,
             torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "int8_linear",
     )
     launch_counts["int8_linear"] += 1
+    device_launch_counts[DEVICE_KERNELS["int8_linear"][x.dtype]] += 1
     return y
 
 

@@ -193,8 +193,12 @@ def test_each_shipped_library_name_carries_its_own_digest(name):
 
 
 def test_the_int8_entry_point_takes_five_pointers_four_ints_and_the_stream():
+    """x, q, s, bias, y; M, K, N, is_bf16; then the bf16 launch plan
+    (int8_plan's k_warps and cluster), two more ints; the stream."""
     P, I = _build.P, _build.I
-    assert _build.SIGNATURES["int8_matmul"] == {"int8_linear": (P, P, P, P, P, I, I, I, I, P)}
+    assert _build.SIGNATURES["int8_matmul"] == {
+        "int8_linear": (P, P, P, P, P, I, I, I, I, I, I, P)
+    }
     assert _build.source_digest("int8_matmul") != _build.source_digest("flash_attention")
 
 

@@ -152,9 +152,13 @@ def test_a_bf16_train_step_runs_the_tensor_core_kernels(cuda):
 
 #: (M, K, N): every decode shape of the smoke config at M 8 (q/k/v/out,
 #: mlp_up and lm_head, mlp_down), M 1 and 13, ragged K and N (K 77 takes
-#: byte loads of q)
+#: byte loads of q); then every branch of the bf16 plan (int8_plan): the
+#: long shape (no cluster, 4 warps, 2048 of K each), clusters of 4 and 8
+#: (K 4096 and 8192 at N 512), K 1040 (17 chunks in 16 slices), N 2047 (a
+#: ragged last tile), M 16 and M 17 (two and three tiles of x rows)
 INT8_SHAPES = [(8, 512, 512), (8, 512, 2048), (8, 2048, 512), (1, 512, 2048), (13, 2048, 512),
-               (8, 80, 33), (13, 77, 40)]
+               (8, 80, 33), (13, 77, 40), (8, 8192, 8192), (8, 4096, 512), (8, 8192, 512),
+               (8, 1040, 512), (8, 512, 2047), (16, 512, 512), (17, 2048, 2048)]
 
 
 def _int8_inputs(cuda, m, k, n, dtype, seed=0):
@@ -174,8 +178,18 @@ def test_int8_linear_matches_its_plain_version(cuda, m, k, n, dtype):
 
     x, q, s, bias = _int8_inputs(cuda, m, k, n, dtype, seed=m + k + n)
     before = qz.launch_counts["int8_linear"]
+    devices_before = dict(qz.device_launch_counts)
     got = qz.int8_linear(x, q, s, bias)
     assert qz.launch_counts["int8_linear"] == before + 1
+    launched = {
+        name: c - devices_before[name]
+        for name, c in qz.device_launch_counts.items() if c != devices_before[name]
+    }
+    # bf16 on the tensor-core kernel, fp32 on the CUDA-core one
+    assert launched == {
+        torch.bfloat16: {"int8_linear_tc_kernel": 1},
+        torch.float32: {"int8_linear_kernel<float>": 1},
+    }[dtype]
     want = qz.int8_linear_plain(x, q, s, bias)
     assert got.dtype == dtype and got.shape == (m, n)
     assert _close(got, want, BF16_TOL if dtype == torch.bfloat16 else 1e-4)
@@ -189,6 +203,31 @@ def test_int8_linear_is_deterministic(cuda):
 
     x, q, s, bias = _int8_inputs(cuda, 8, 8192, 4096, torch.bfloat16, seed=1)
     assert torch.equal(qz.int8_linear(x, q, s, bias), qz.int8_linear(x, q, s, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 512, 512), (8, 2048, 512), (8, 8192, 512)], ids=str)
+def test_int8_linear_replayed_in_a_cuda_graph_equals_eager(cuda, m, k, n):
+    """The bf16 kernel with no cluster, a cluster of 2 and one of 8: it
+    allocates nothing and does not synchronise, so a graph may hold it, and
+    its fixed summation order makes the replay bit-equal."""
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = _int8_inputs(cuda, m, k, n, torch.bfloat16, seed=2)
+    eager = qz.int8_linear(x, q, s, bias)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qz.int8_linear(x, q, s, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = qz.int8_linear(x, q, s, bias)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

@@ -260,13 +260,16 @@ def test_the_int8_wrapper_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_the_int8_entry_point_launches_its_kernel_for_both_types():
+    """fp32 on the CUDA-core kernel, bf16 on the tensor-core kernel,
+    launched in clusters; either launch's error is returned."""
     source = (PORT / "csrc" / "int8_matmul.cu").read_text()
-    assert re.search(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+int8_linear_kernel\(", source)
+    for kernel in ("int8_linear_kernel", "int8_linear_tc_kernel"):
+        assert re.search(rf"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+{kernel}\(", source)
     entry = re.search(r"int int8_linear\((?:.|\n)*?\n\}\n", source).group()
-    assert re.findall(r"(\w+)<(\w+)><<<", entry) == [
-        ("int8_linear_kernel", "T"), ("int8_linear_kernel", "float"),
-    ]
-    assert "cudaGetLastError" in entry
+    assert re.findall(r"(\w+)<(\w+)><<<", entry) == [("int8_linear_kernel", "float")]
+    assert re.findall(r"cudaLaunchKernelEx\(\s*&config,\s*(\w+)", entry) == ["int8_linear_tc_kernel"]
+    assert "cudaLaunchAttributeClusterDimension" in entry
+    assert entry.count("cudaGetLastError") == 2
 
 
 def test_generate_defaults_to_cuda_and_raises_without_it():

@@ -183,6 +183,7 @@ def test_int8_linear_on_the_cpu_is_the_plain_version_and_counts_nothing():
     qz.reset_launch_counts()
     y = qz.int8_linear(x, q, s, bias)
     assert y.shape == (3, 5, 33) and qz.launch_counts == {"int8_linear": 0}
+    assert set(qz.device_launch_counts.values()) == {0}
     want = x.double() @ (q.double() * s.double()[:, None]).T + bias.double()
     assert float((y.double() - want).abs().max()) < 1e-5
     yb = qz.int8_linear(x.bfloat16(), q, s, bias.bfloat16())  # the weight rounds to bf16
@@ -190,6 +191,7 @@ def test_int8_linear_on_the_cpu_is_the_plain_version_and_counts_nothing():
     ref = x.bfloat16().float() @ wb.T + bias.bfloat16().float()
     assert yb.dtype == torch.bfloat16
     assert float((yb.float() - ref).abs().max()) <= 2.0**-7 * float(ref.abs().max())
+    assert qz.launch_counts == {"int8_linear": 0} and set(qz.device_launch_counts.values()) == {0}
 
 
 def test_int8_kernel_input_checks_reject_what_the_kernel_does_not_take():
@@ -213,3 +215,118 @@ def test_int8_kernel_input_checks_reject_what_the_kernel_does_not_take():
     flat = torch.zeros(4 * 32 + 1)
     with pytest.raises(ValueError, match="16-byte"):
         qz._check_kernel_inputs(flat[1:].view(4, 32), q, s, None)
+
+
+# ------------------------------------------------ the bf16 kernel's plan
+
+#: (M, K, N) of every int8 matmul of a decode step at the smoke config
+#: (q/k/v/out, mlp_up and lm_head, mlp_down), at batch 8
+_SMOKE = dict(d=512, ff=2048, vocab=2048)
+DECODE_SHAPES = [(8, 512, 512), (8, 512, 2048), (8, 2048, 512), (8, 512, 2048)]
+#: M 1 and 13, M 16 and 17, ragged K (K 77 takes byte loads) and N, a K
+#: that 16 slices cut unevenly, the long shape, clusters of 4 and 8, and
+#: the smallest shape
+PLAN_SHAPES = DECODE_SHAPES + [
+    (1, 512, 2048), (13, 2048, 512), (16, 512, 512), (17, 2048, 2048), (8, 80, 33),
+    (13, 77, 40), (8, 512, 2047), (8, 1040, 512), (8, 8192, 8192), (8, 4096, 512),
+    (8, 8192, 512), (1, 1, 1),
+]
+#: H100 SXM, H100 PCIe, and a small card
+SM_COUNTS = [132, 114, 16]
+
+
+def test_the_decode_shapes_are_the_smoke_config_s():
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+
+    cfg = smoke.smoke_config(torch.device("cpu"))
+    assert (cfg.d_model, cfg.d_ff, cfg.vocab_size) == tuple(_SMOKE.values())
+    d, ff, vocab = _SMOKE.values()
+    assert DECODE_SHAPES == [(8, d, d), (8, d, ff), (8, ff, d), (8, d, vocab)]
+
+
+@pytest.mark.parametrize("n_sms", SM_COUNTS)
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES, ids=str)
+def test_int8_plan_k_slices_cover_k_exactly_once_in_order(m, k, n, n_sms):
+    plan = qz.int8_plan(m, k, n, n_sms)
+    assert len(plan.k_slices) == plan.cluster * plan.k_warps
+    assert plan.k_slices[0][0] == 0 and plan.k_slices[-1][1] == k
+    for (_, end), (begin, _) in zip(plan.k_slices, plan.k_slices[1:]):
+        assert end == begin
+    for begin, end in plan.k_slices:
+        assert begin < end  # every warp has work
+        assert begin % qz.INT8_K_CHUNK == 0  # whole chunks but the last
+    assert sorted(kk for b, e in plan.k_slices for kk in range(b, e)) == list(range(k))
+
+
+@pytest.mark.parametrize("n_sms", SM_COUNTS)
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES, ids=str)
+def test_int8_plan_clusters_divide_the_grid_and_tile_every_row(m, k, n, n_sms):
+    plan = qz.int8_plan(m, k, n, n_sms)
+    assert plan.cluster in (1, 2, 4, 8) and 1 <= plan.k_warps <= 8
+    gx, gy = plan.grid
+    assert gx % plan.cluster == 0
+    assert (gx // plan.cluster) * plan.rows_per_block >= n > (gx // plan.cluster - 1) * 16
+    assert gy * qz.INT8_TILE_M >= m > (gy - 1) * qz.INT8_TILE_M
+    assert plan.rows_per_block == qz.INT8_TILE_ROWS == 16
+
+
+@pytest.mark.parametrize("n_sms", [132, 114])
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES + [(1, 512, 2048), (13, 2048, 512)], ids=str)
+def test_int8_plan_puts_all_of_q_in_flight_at_every_decode_shape(m, k, n, n_sms):
+    """Each warp's slice fits in its ring, so every byte of q is requested
+    as the kernel starts."""
+    plan = qz.int8_plan(m, k, n, n_sms)
+    assert max(e - b for b, e in plan.k_slices) <= qz.INT8_RING_CHUNKS * qz.INT8_K_CHUNK
+
+
+def test_int8_plan_at_the_smoke_decode_shapes():
+    """The plans the main path launches on an H100 SXM (132 SMs): no
+    cluster where 8 warps of one block hold all of K; a cluster of 2 at
+    K 2048, where they would each walk 4 chunks."""
+    got = {(k, n): qz.int8_plan(8, k, n, 132) for _, k, n in DECODE_SHAPES}
+    assert {kn: (p.cluster, p.k_warps, p.grid) for kn, p in got.items()} == {
+        (512, 512): (1, 8, (32, 1)),
+        (512, 2048): (1, 8, (128, 1)),
+        (2048, 512): (2, 8, (64, 1)),
+    }
+
+
+@pytest.mark.parametrize("n_sms", SM_COUNTS)
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES, ids=str)
+def test_int8_plan_clusters_only_small_grids_whose_slices_overflow_the_ring(m, k, n, n_sms):
+    plan = qz.int8_plan(m, k, n, n_sms)
+    blocks_per_cluster_grid = plan.blocks // plan.cluster
+    if plan.cluster > 1:
+        half = plan.cluster // 2  # the cluster before the last doubling
+        assert blocks_per_cluster_grid * half < n_sms
+        assert -(-k // qz.INT8_K_CHUNK) > qz.INT8_RING_CHUNKS * plan.k_warps * half
+    assert plan.k_warps == min(8 if blocks_per_cluster_grid < n_sms else 4, -(-k // 64))
+
+
+def test_int8_plan_forms_every_cluster_size():
+    got = {(k, n): qz.int8_plan(8, k, n, 132) for k, n in
+           [(512, 512), (2048, 512), (4096, 512), (8192, 512), (8192, 8192)]}
+    assert {kn: (p.cluster, p.k_warps) for kn, p in got.items()} == {
+        (512, 512): (1, 8), (2048, 512): (2, 8), (4096, 512): (4, 8), (8192, 512): (8, 8),
+        (8192, 8192): (1, 4),
+    }
+
+
+def test_int8_plan_splits_unevenly_when_the_chunks_do_not_divide():
+    plan = qz.int8_plan(8, 1040, 512, 132)  # 17 chunks of 64 (the last 16 wide)
+    assert (plan.cluster, plan.k_warps) == (2, 8)
+    assert [e - b for b, e in plan.k_slices] == [64] * 15 + [64 + 16]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES, ids=str)
+def test_int8_plan_is_a_pure_function_of_the_shape_and_the_sm_count(m, k, n):
+    plan = qz.int8_plan(m, k, n, 132)
+    qz.int8_plan(m + 1, k, n, 114)  # another plan in between changes nothing
+    assert plan == qz.int8_plan.__wrapped__(m, k, n, 132) == qz.int8_plan(m, k, n, 132)
+
+
+def test_int8_plan_refuses_an_empty_shape():
+    with pytest.raises(ValueError, match="n_sms"):
+        qz.int8_plan(8, 512, 512, 0)
+    with pytest.raises(ValueError, match=">= 1"):
+        qz.int8_plan(0, 512, 512, 132)
