@@ -23,14 +23,14 @@ failure (the exit code is then non-zero and no result line is printed):
    figure is logged beside it), at the long shape by events.  SDPA's
    backward alone (its fwd+bwd less its forward) stands beside dQ +
    dK/dV;
-3. main path: the drain-aware trainer (``run_smoke``) at the repo's chip
-   configuration with ``flash_attention=True`` in bf16, with the kernels'
-   launch counts read around it (the forward, dQ and dK/dV launches must
-   all go to the tensor-core kernels), and flash against the dense
-   ("gather") path on identical weights;
-4. drain: request, checkpoint, acknowledgement with the echoed token,
-   restore and a 2-step resume (inside ``run_smoke``, which also runs the
-   decode bench on the just-trained weights: float and int8 tokens/s);
+3. main path: the drain-aware trainer (``run_smoke`` without its benches)
+   at the repo's chip configuration with ``flash_attention=True`` in bf16,
+   with the kernels' launch counts read around it (the forward, dQ and
+   dK/dV launches must all go to the tensor-core kernels), and flash
+   against the dense ("gather") path on identical weights;
+4. drain: request, checkpoint, acknowledgement (``run_smoke`` checks the
+   echoed token and records ``"done"``, as the JAX package does), restore
+   and a 2-step resume (inside ``run_smoke``);
 5. serving: the int8 matmul kernel against its plain version at every
    decode shape of the smoke configuration (M 8), at M 1, 13, 16 and 17,
    at ragged K and N, at a K its plan splits unevenly and under a cluster
@@ -48,7 +48,19 @@ failure (the exit code is then non-zero and no result line is printed):
    synchronisation in the loop (``set_sync_debug_mode("error")``);
    sampling is seeded and top_k 1 is greedy; a profiled window of decode
    steps;
-6. a ``{"kernels": [...]}`` line, the card line, and last
+6. stages: every stage of ``smoke.STAGES`` in order, in process, each
+   gated: ``touch`` (checksum 512), ``matmul`` (n 4096, bf16; its TFLOP/s
+   logged with the card line), ``train`` (MFU, no bench sections),
+   ``attention`` (flash against the dense reference at s 1024 and 2048,
+   fwd+bwd at s 8192; every flash launch on the tensor-core kernels),
+   ``decode`` (the decode bench from seed-0 weights, float and int8;
+   every int8 launch on the tensor-core kernel) and ``drain`` (ack
+   ``"done"``, checkpoint at step 2, 2 steps resumed).  Then the drain
+   trace: the script plays the orchestrator's gate with the port's
+   tracer (a ``drain-handshake`` span whose traceparent it writes beside
+   the request), the trainer drains in another thread, and its
+   ``checkpoint-drain`` span must be a child of that span, in its trace;
+7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -791,6 +803,147 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 6
+
+
+#: The attention stage's flash launches: a warm and 30 timed forwards at
+#: each of s 1024 and 2048, then a warm and 5 timed fwd+bwd at s 8192.
+ATTENTION_STAGE_LAUNCHES = {"flash_fwd": 2 * 31 + 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+
+
+def stage_phase(card: str) -> dict:
+    """Run every stage of ``smoke.STAGES`` in order, in this process,
+    each gated (every gate raises), with the flash and int8 launch counts
+    set to 0 before each stage and read after it.  Returns the records
+    by stage."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+
+    stamp = {"platform": "gpu", "device_kind": torch.cuda.get_device_name(0)}
+    records = {}
+    for stage in smoke.STAGES:
+        fa.reset_launch_counts()
+        qz.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = records[stage] = smoke.run_stage(stage)
+        seconds = time.perf_counter() - t0
+        flash = dict(fa.launch_counts)
+        flash_devices = {k: n for k, n in fa.device_launch_counts.items() if n}
+        int8 = qz.launch_counts["int8_linear"]
+        int8_devices = {k: n for k, n in qz.device_launch_counts.items() if n}
+        if {k: rec.get(k) for k in stamp} != stamp:
+            raise RuntimeError(f"stage {stage}: stamped {rec}, want {stamp}")
+        if stage == "touch" and rec["touch"]["checksum"] != 512.0:
+            raise RuntimeError(f"touch: {rec['touch']}")
+        if stage == "matmul":
+            mm = rec["matmul"]
+            if (mm["n"], mm["dtype"]) != (4096, "bfloat16") or not mm["tflops"] > 0:
+                raise RuntimeError(f"matmul: {mm}")
+            log("stage matmul:", json.dumps(mm), "|", card)
+        if stage == "train":
+            if ("mfu_pct" not in rec or {"attention_kernel", "decode"} & set(rec)
+                    or not math.isfinite(rec["final_loss"])):
+                raise RuntimeError(f"train: {rec}")
+            log("stage train:", json.dumps({k: rec[k] for k in (
+                "step_time_ms", "tokens_per_s", "achieved_tflops", "mfu_pct", "final_loss"
+            )}), "|", card)
+        if stage == "attention":
+            want_devices = {
+                fa.DEVICE_KERNELS[e][torch.bfloat16]: n for e, n in ATTENTION_STAGE_LAUNCHES.items()
+            }
+            if flash != ATTENTION_STAGE_LAUNCHES or flash_devices != want_devices:
+                raise RuntimeError(
+                    f"attention: flash launches {flash} by device kernel {flash_devices}, "
+                    f"want {ATTENTION_STAGE_LAUNCHES}, all on {want_devices}"
+                )
+            for row, timing in rec["attention_kernel"].items():
+                log(f"stage attention {row}:", json.dumps(timing), "|", card)
+        if stage == "decode":
+            dec = rec["decode"]
+            cfg = smoke.smoke_config(torch.device("cuda"))
+            # a warm and a timed generation over 16 + new_tokens positions
+            want = (6 * cfg.n_layers + 1) * (16 + dec["new_tokens"] - 1) * 2
+            routed = qz.DEVICE_KERNELS["int8_linear"][torch.bfloat16]
+            if int8 != want or int8_devices != {routed: want} or any(flash.values()):
+                raise RuntimeError(
+                    f"decode: int8 launches {int8} by device kernel {int8_devices}, want "
+                    f"{want} on {routed}; flash launches {flash}, want 0"
+                )
+            log("decode bench:", json.dumps(dec), "|", card)
+        if stage == "drain":
+            hs = rec["drain_handshake"]
+            if hs != {**hs, "checkpoint_step": 2, "ack": "done", "resumed_steps": 2}:
+                raise RuntimeError(f"drain: {hs}")
+            log("stage drain:", json.dumps(hs))
+        log(f"stage {stage}: ok in {seconds:.1f} s; flash launches {flash_devices}, "
+            f"int8 launches {int8_devices}")
+    return records
+
+
+def drain_trace_phase(config) -> dict:
+    """Play the orchestrator's gate with the port's own tracer: open a
+    ``drain-handshake`` span, write ``requested:<token>`` and the span's
+    traceparent to the node, and wait for the acknowledgement while the
+    trainer runs in another thread until it drains.  The trainer's
+    ``checkpoint-drain`` span must carry the gate span's trace id and
+    have that span as its parent.  Returns both spans."""
+    import uuid
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.obs import tracing
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    tracer = tracing.Tracer()
+    previous = tracing.set_default_tracer(tracer)
+    try:
+        nodes = InMemoryNodeStore()
+        nodes.create(make_node("gpu-host"))
+        key = util.get_pre_drain_checkpoint_annotation_key()
+        token = uuid.uuid4().hex[:12]
+        ack = f"{consts.PRE_DRAIN_CHECKPOINT_DONE}:{token}"
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as ckpt, \
+                ThreadPoolExecutor(1) as pool:
+            trainer = wl.CheckpointingTrainer(
+                config, ckpt, watcher=DrainSignalWatcher(nodes, "gpu-host"), device="cuda"
+            )
+            trainer.run(2)
+            run = pool.submit(trainer.run, 1000)  # a thread: no span context is inherited
+            with tracing.start_span("drain-handshake", attributes={"node": "gpu-host"}) as gate:
+                nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {
+                    key: f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}",
+                    util.get_pre_drain_traceparent_annotation_key(): gate.traceparent,
+                }}})
+                deadline = time.monotonic() + 120
+                while nodes.get("Node", "gpu-host")["metadata"]["annotations"][key] != ack:
+                    if run.done() or time.monotonic() > deadline:
+                        raise RuntimeError(f"drain trace: no acknowledgement ({run})")
+                    time.sleep(0.01)
+            step = run.result(timeout=120)
+            if not trainer.drained or wl.restore_checkpoint(ckpt, step)["step"] != step:
+                raise RuntimeError(f"drain trace: drained {trainer.drained} at step {step}")
+        spans = {s["name"]: s for t in tracer.traces(complete_only=False) for s in t["spans"]}
+        gate_span, drain_span = spans["drain-handshake"], spans["checkpoint-drain"]
+        if (drain_span["trace_id"], drain_span["parent_id"], drain_span["status"]) != (
+            gate_span["trace_id"], gate_span["span_id"], "ok"
+        ):
+            raise RuntimeError(f"drain trace: gate span {gate_span}, drain span {drain_span}")
+        log("drain trace:", json.dumps({
+            "trace_id": gate_span["trace_id"],
+            "drain-handshake": {k: gate_span[k] for k in ("span_id", "duration_s")},
+            "checkpoint-drain": {k: drain_span[k] for k in ("parent_id", "duration_s", "status")},
+            "drained_at_step": step,
+        }))
+        return {"drain-handshake": gate_span, "checkpoint-drain": drain_span}
+    finally:
+        tracing.set_default_tracer(previous)
+
+
 def compiled_report():
     """Per kernel instantiation of every library, ``ptxas -v``'s
     registers, shared memory, spills and notes and the HGMMA/HMMA count of
@@ -979,7 +1132,11 @@ def main(argv=None) -> int:
     warmup, steps = 2, 10
     fa.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as ckpt:
-        result = smoke.run_smoke(ckpt, steps=steps, warmup=warmup, config=config)
+        # without the benches: the attention bench's flash launches would
+        # land inside this path's launch counts (phase 6 runs them)
+        result = smoke.run_smoke(
+            ckpt, steps=steps, warmup=warmup, config=config, kernel_sections=False
+        )
     launches = dict(fa.launch_counts)
     device_launches = dict(fa.device_launch_counts)
     drain = result["drain_handshake"]
@@ -998,7 +1155,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"device kernel launches {device_launches}, want {want} of {routed}")
     if not math.isfinite(result["final_loss"]):
         raise RuntimeError(f"non-finite loss {result['final_loss']}")
-    if drain != {**drain, "checkpoint_step": steps, "ack": "done:smoke-1", "resumed_steps": 2}:
+    if drain != {**drain, "checkpoint_step": steps, "ack": "done", "resumed_steps": 2}:
         raise RuntimeError(f"drain handshake: {drain}")
     log("main path:", json.dumps({
         "step_time_ms": result["step_time_ms"],
@@ -1022,10 +1179,14 @@ def main(argv=None) -> int:
     # ---- 5. serving: the int8 kernel, then the decode path's gates ----
     int8_err, int8_timing = int8_kernel_phase(config)
     serving = serving_gates(config)
-    log("decode bench:", json.dumps(result["decode"]), "|", card)
     log("phase 5 done", f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- 6. the result lines ----
+    # ---- 6. every stage, then the drain trace ----
+    stage_phase(card)
+    drain_trace_phase(config)
+    log("phase 6 done", f"{time.perf_counter() - t_start:.1f} s")
+
+    # ---- 7. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):

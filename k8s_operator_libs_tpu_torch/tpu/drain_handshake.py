@@ -8,17 +8,25 @@ steps, saves a checkpoint and answers ``done:<token>``, echoing the token
 so that the orchestrator can reject an acknowledgement left over from an
 earlier cycle.
 
+The save and the acknowledgement run under a ``checkpoint-drain`` span
+(:mod:`..obs.tracing`), parented by the W3C traceparent that the
+orchestrator writes beside the request
+(``tpu.google.com/<component>-pre-drain-traceparent``) from its own
+``drain-handshake`` span: the cross-process leg of the reconcile trace.
+A missing or malformed traceparent starts a new root.
+
 The watcher takes any client with ``get("Node", name)`` and
 ``patch("Node", name, merge_patch)``: the port's
 :class:`~..cluster.inmem.InMemoryNodeStore`, or the orchestrator's own
-cluster client.  The ``checkpoint-drain`` tracing span of the JAX
-package is not ported yet (ROADMAP).
+cluster client.  The orchestrator side, ``CheckpointDrainGate``, comes
+with the port of the JAX package's control plane.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..obs import tracing
 from ..upgrade import consts, util
 
 
@@ -35,21 +43,25 @@ class DrainSignalWatcher:
 
     :meth:`check_and_acknowledge` is the one-call integration point:
     returns True (after running ``on_checkpoint`` and acknowledging)
-    when a checkpoint was requested.  *read_annotation* replaces the
-    client read (e.g. a downward-API file reader)."""
+    when a checkpoint was requested.  *read_annotation* and
+    *read_traceparent* replace the client reads (e.g. downward-API file
+    readers)."""
 
     def __init__(
         self,
         cluster,
         node_name: str,
         read_annotation: Optional[Callable[[], str]] = None,
+        read_traceparent: Optional[Callable[[], str]] = None,
     ) -> None:
         self._cluster = cluster
         self.node_name = node_name
         self._key = util.get_pre_drain_checkpoint_annotation_key()
+        self._tp_key = util.get_pre_drain_traceparent_annotation_key()
         self._read = read_annotation or self._read_from_cluster
+        self._read_tp = read_traceparent or self._read_traceparent_from_cluster
 
-    def _read_from_cluster(self) -> str:
+    def _read_node_annotation(self, key: str) -> str:
         if self._cluster is None:
             return ""
         try:
@@ -59,7 +71,13 @@ class DrainSignalWatcher:
                 return ""
             raise
         annotations = (node.get("metadata") or {}).get("annotations") or {}
-        return annotations.get(self._key, "")
+        return annotations.get(key, "")
+
+    def _read_from_cluster(self) -> str:
+        return self._read_node_annotation(self._key)
+
+    def _read_traceparent_from_cluster(self) -> str:
+        return self._read_node_annotation(self._tp_key)
 
     def checkpoint_requested(self) -> bool:
         value = self._read()
@@ -80,9 +98,17 @@ class DrainSignalWatcher:
 
     def check_and_acknowledge(self, on_checkpoint: Callable[[], None]) -> bool:
         """If a checkpoint was requested: run ``on_checkpoint`` (the
-        trainer's save), acknowledge, and return True."""
+        trainer's save), acknowledge, and return True.  Both run under a
+        ``checkpoint-drain`` span parented by the traceparent the gate
+        wrote next to the request."""
         if not self.checkpoint_requested():
             return False
-        on_checkpoint()
-        self.acknowledge()
+        traceparent = self._read_tp() or None
+        with tracing.start_span(
+            "checkpoint-drain",
+            attributes={"node": self.node_name},
+            traceparent=traceparent,
+        ):
+            on_checkpoint()
+            self.acknowledge()
         return True

@@ -57,7 +57,7 @@ class ModelConfig:
     max_seq_len: int = 64
     dtype: Any = torch.float32  # bfloat16 on the card
     #: The fields below exist in the JAX config; the port runs none of
-    #: them yet and raises rather than ignore one (ROADMAP, queue A).
+    #: them yet and raises rather than ignore one.
     seq_axis: Any = None
     n_experts: int = 0
     ring_attention: bool = False
@@ -72,21 +72,21 @@ class ModelConfig:
     decode: bool = False
 
     def __post_init__(self) -> None:
+        spmd = "the SPMD part of k8s_operator_libs_tpu/tpu/workload.py"
+        ring = "k8s_operator_libs_tpu/tpu/ring_attention.py"
         not_ported = {
-            "n_experts": (self.n_experts > 0, "A8 (SPMD: MoE/EP)"),
-            "seq_axis": (self.seq_axis is not None, "A8 (SPMD: sequence parallelism)"),
-            "ring_attention": (self.ring_attention, "A9 (ring_attention.py)"),
-            "ring_flash": (self.ring_flash, "A9 (ring_attention.py)"),
-            "ring_layout": (
-                self.ring_layout != "contiguous", "A9 (ring_attention.py)"
-            ),
-            "remat": (self.remat, "A8 (SPMD: remat)"),
+            "n_experts": (self.n_experts > 0, f"{spmd} (MoE, expert parallelism)"),
+            "seq_axis": (self.seq_axis is not None, f"{spmd} (sequence parallelism)"),
+            "ring_attention": (self.ring_attention, ring),
+            "ring_flash": (self.ring_flash, ring),
+            "ring_layout": (self.ring_layout != "contiguous", ring),
+            "remat": (self.remat, f"{spmd} (remat)"),
         }
-        for field, (set_, item) in not_ported.items():
+        for field, (set_, module) in not_ported.items():
             if set_:
                 raise NotImplementedError(
-                    f"ModelConfig.{field} is not ported to PyTorch yet "
-                    f"(ROADMAP item {item})"
+                    f"ModelConfig.{field} is not ported to PyTorch yet: it waits "
+                    f"for the port of {module}"
                 )
 
 

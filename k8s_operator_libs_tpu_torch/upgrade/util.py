@@ -2,7 +2,8 @@
 
 A copy of the component-name setting of
 ``k8s_operator_libs_tpu/upgrade/util.py``: the name parameterizes the
-annotation key (``tpu.google.com/<name>-pre-drain-checkpoint``)."""
+annotation keys (``tpu.google.com/<name>-pre-drain-checkpoint`` and
+``tpu.google.com/<name>-pre-drain-traceparent``)."""
 
 from __future__ import annotations
 
@@ -31,3 +32,8 @@ def get_component_name() -> str:
 def get_pre_drain_checkpoint_annotation_key() -> str:
     """The checkpoint-on-drain handshake annotation key."""
     return consts.PRE_DRAIN_CHECKPOINT_ANNOTATION_KEY_FMT % get_component_name()
+
+
+def get_pre_drain_traceparent_annotation_key() -> str:
+    """The trace-context carrier of the checkpoint handshake."""
+    return consts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT % get_component_name()

@@ -6,6 +6,8 @@
 * Its entry points default to the card and raise without one; the kernel
   loader raises without nvcc; a CUDA tensor never falls back to a plain
   version.
+* Its measurement surface (tpu/smoke.py and the hack runners) turns no
+  failure into a record entry.
 """
 
 import ast
@@ -18,7 +20,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from k8s_operator_libs_tpu_torch import _build
+from k8s_operator_libs_tpu_torch import _build, graft_entry
+from k8s_operator_libs_tpu_torch.examples import generate as gen_example
 from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
 from k8s_operator_libs_tpu_torch.tpu import smoke
 from k8s_operator_libs_tpu_torch.tpu import workload as wl
@@ -91,6 +94,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         wl.create_train_state(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.run_smoke(str(tmp_path), config=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.run_stage("touch")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_example.main(["--steps", "0"])
 
 
 def test_tinylm_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -221,6 +230,29 @@ def test_launch_counts_start_at_zero_and_reset():
 def test_the_scans_see_the_serving_modules():
     scanned = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
     assert {"tpu/quantize.py", "tpu/workload.py", "convert.py"} <= scanned
+    assert {
+        "obs/tracing.py", "graft_entry.py", "examples/generate.py",
+        "hack/gpu_smoke.py", "hack/gpu_stage.py",
+    } <= scanned
+
+
+#: The one exception handler the measurement surface keeps: gpu_stage
+#: reports a stage's timeout as that stage's outcome, and then exits
+#: non-zero (tests/test_torch_entry_points.py).
+MEASUREMENT_HANDLERS = {"hack/gpu_stage.py": ["subprocess.TimeoutExpired"]}
+
+
+@pytest.mark.parametrize("rel", ["tpu/smoke.py", "hack/gpu_smoke.py", "hack/gpu_stage.py"])
+def test_the_measurement_surface_turns_no_failure_into_a_record_entry(rel):
+    """Unlike the JAX smoke module's per-section ``{"error": ...}``
+    entries, a failing section raises: a run on the card cannot exit 0
+    around a caught failure."""
+    tree = ast.parse((PORT / rel).read_text())
+    handlers = [
+        ast.unparse(node.type) if node.type is not None else "bare"
+        for node in ast.walk(tree) if isinstance(node, ast.ExceptHandler)
+    ]
+    assert handlers == MEASUREMENT_HANDLERS.get(rel, [])
 
 
 def test_quantize_module_has_no_try_to_fall_back_on():

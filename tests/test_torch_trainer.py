@@ -18,6 +18,7 @@ import torch
 from k8s_operator_libs_tpu.api import PreDrainCheckpointSpec
 from k8s_operator_libs_tpu.cluster import InMemoryCluster
 from k8s_operator_libs_tpu.cluster.objects import make_node as jax_make_node
+from k8s_operator_libs_tpu.obs import tracing as jtracing
 from k8s_operator_libs_tpu.tpu import smoke as jsmoke
 from k8s_operator_libs_tpu.tpu import workload as jwl
 from k8s_operator_libs_tpu.tpu.drain_handshake import CheckpointDrainGate
@@ -29,6 +30,7 @@ from k8s_operator_libs_tpu_torch.cluster.inmem import (
     make_node,
     merge_patch,
 )
+from k8s_operator_libs_tpu_torch.obs import tracing
 from k8s_operator_libs_tpu_torch.tpu import smoke
 from k8s_operator_libs_tpu_torch.tpu import workload as wl
 from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
@@ -78,10 +80,27 @@ def test_trainer_checkpoints_and_stops_on_drain(client, request_value, tmp_path)
     assert trainer.losses == straight.losses[:3]
 
 
-def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path):
+@pytest.fixture
+def tracers():
+    """Fresh default tracers for both packages: (JAX's, the port's)."""
+    jax_tracer, port_tracer = jtracing.Tracer(), tracing.Tracer()
+    previous = jtracing.set_default_tracer(jax_tracer), tracing.set_default_tracer(port_tracer)
+    yield jax_tracer, port_tracer
+    jtracing.set_default_tracer(previous[0])
+    tracing.set_default_tracer(previous[1])
+
+
+def _spans(tracer, name):
+    return [s for t in tracer.traces(complete_only=False) for s in t["spans"] if s["name"] == name]
+
+
+def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
     """The JAX package's CheckpointDrainGate (orchestrator side) requests
     a checkpoint with a fresh token and blocks; the port's trainer, in
-    another thread, saves and acknowledges with that token."""
+    another thread, saves and acknowledges with that token.  Its
+    checkpoint-drain span joins the gate's trace as a child of the
+    gate's drain-handshake span, through the traceparent annotation."""
+    jax_tracer, port_tracer = tracers
     cluster = _jax_cluster()
     gate = CheckpointDrainGate(
         cluster, PreDrainCheckpointSpec(enable=True, timeout_second=20), poll_seconds=0.01
@@ -100,6 +119,49 @@ def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path):
     # the gate cleared the handshake after the acknowledgement
     annotations = cluster.get("Node", "gpu-host")["metadata"].get("annotations") or {}
     assert jutil.get_pre_drain_checkpoint_annotation_key() not in annotations
+    assert jutil.get_pre_drain_traceparent_annotation_key() not in annotations
+    # the cross-process leg of the trace
+    [gate_span] = _spans(jax_tracer, "drain-handshake")
+    [drain_span] = _spans(port_tracer, "checkpoint-drain")
+    assert gate_span["attributes"]["result"] == "acknowledged"
+    assert drain_span["trace_id"] == gate_span["trace_id"]
+    assert drain_span["parent_id"] == gate_span["span_id"]
+    assert drain_span["status"] == "ok"
+    assert drain_span["attributes"] == {"node": "gpu-host"}
+
+
+@pytest.mark.parametrize("carrier", ["", "garbage", f"00-{'0' * 32}-{'1' * 16}-01"])
+def test_a_missing_or_malformed_traceparent_starts_a_new_root(carrier, tracers):
+    _, port_tracer = tracers
+    nodes = _port_store()
+    key = util.get_pre_drain_checkpoint_annotation_key()
+    nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {
+        key: "requested:t", util.get_pre_drain_traceparent_annotation_key(): carrier,
+    }}})
+    saved = []
+    assert DrainSignalWatcher(nodes, "gpu-host").check_and_acknowledge(lambda: saved.append(1))
+    assert saved == [1]
+    [trace] = port_tracer.traces()  # complete: the span is its own root
+    [span] = trace["spans"]
+    assert (span["name"], span["parent_id"], span["status"]) == ("checkpoint-drain", "", "ok")
+
+
+def test_an_injected_traceparent_reader_parents_the_span(tracers):
+    _, port_tracer = tracers
+    carrier = tracing.format_traceparent("ab" * 16, "cd" * 8)
+    nodes = _port_store()
+    key = util.get_pre_drain_checkpoint_annotation_key()
+    nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {key: "requested"}}})
+    watcher = DrainSignalWatcher(nodes, "gpu-host", read_traceparent=lambda: carrier)
+    assert watcher.check_and_acknowledge(lambda: None)
+    [span] = _spans(port_tracer, "checkpoint-drain")
+    assert (span["trace_id"], span["parent_id"]) == ("ab" * 16, "cd" * 8)
+    # a failing save ends the span in error and propagates: no acknowledgement
+    nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {key: "requested"}}})
+    with pytest.raises(OSError):
+        watcher.check_and_acknowledge(lambda: (_ for _ in ()).throw(OSError("disk full")))
+    assert _spans(port_tracer, "checkpoint-drain")[-1]["status"] == "error"
+    assert nodes.get("Node", "gpu-host")["metadata"]["annotations"][key] == "requested"
 
 
 def test_handshake_constants_equal_the_orchestrators():
@@ -108,13 +170,22 @@ def test_handshake_constants_equal_the_orchestrators():
     )
     assert consts.PRE_DRAIN_CHECKPOINT_REQUESTED == jconsts.PRE_DRAIN_CHECKPOINT_REQUESTED
     assert consts.PRE_DRAIN_CHECKPOINT_DONE == jconsts.PRE_DRAIN_CHECKPOINT_DONE
+    assert consts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT == (
+        jconsts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT
+    )
     assert util.get_component_name() == "tpu-runtime"
+    assert util.get_pre_drain_traceparent_annotation_key() == (
+        jutil.get_pre_drain_traceparent_annotation_key()
+    )
     try:
         util.set_component_name("gpu")
         jutil.set_component_name("gpu")
         assert util.get_pre_drain_checkpoint_annotation_key() == (
             jutil.get_pre_drain_checkpoint_annotation_key()
         ) == "tpu.google.com/gpu-pre-drain-checkpoint"
+        assert util.get_pre_drain_traceparent_annotation_key() == (
+            jutil.get_pre_drain_traceparent_annotation_key()
+        ) == "tpu.google.com/gpu-pre-drain-traceparent"
     finally:
         util.set_component_name("tpu-runtime")
         jutil.set_component_name("tpu-runtime")
@@ -150,7 +221,7 @@ def test_run_smoke_drives_train_drain_restore_resume_on_cpu(tmp_path):
     assert result["drain_handshake"] == {
         **result["drain_handshake"],
         "checkpoint_step": 2,
-        "ack": "done:smoke-1",
+        "ack": "done",  # the reference's record: the token is checked, not reported
         "resumed_steps": 2,
     }
     assert torch.isfinite(torch.tensor(result["final_loss"]))
