@@ -60,7 +60,24 @@ failure (the exit code is then non-zero and no result line is printed):
    tracer (a ``drain-handshake`` span whose traceparent it writes beside
    the request), the trainer drains in another thread, and its
    ``checkpoint-drain`` span must be a child of that span, in its trace;
-7. a ``{"kernels": [...]}`` line, the card line, and last
+7. the multi-process path (``k8s_operator_libs_tpu_torch.tpu.distributed``,
+   ``multihost_trainer`` and ``ring_attention``): 7a, one NCCL rank in this
+   process (``host_allreduce_max`` and the barrier, then
+   ``MultihostDrainLoop`` over the data-parallel trainer at the main
+   path's configuration, drained by a gate thread after step 3: saved,
+   past the barrier, acknowledged ``done:<token>``, restored; 4 flash
+   launches of each kind per step, all on the tensor-core kernels).  7b,
+   two worker ranks on the one card (``hack.dist_worker``): NCCL is first
+   expected to refuse them as a duplicate GPU, and gloo then carries
+   them (its all-reduce takes CUDA tensors; the rings stage each block
+   through pinned host memory); the data-parallel drain, with both ranks
+   stopped at one step, identical losses within ``LOSS_TOL["bfloat16"]``
+   of 7a's, the ack and every rank's checkpoint; then the causal and
+   non-causal contiguous flash rings and the zigzag ring at b 4, global
+   s 8192, h 8, d 64, bf16, output and gradients within ``BF16_TOL`` of
+   single-device flash, each rank's launches equal to the pairs it
+   computes, timed by events beside single-device flash;
+8. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -71,6 +88,14 @@ smoke configuration's decode shapes and the long shape, in turns: each
 tree once in the order given, then once in reverse, one process per turn,
 each calling its own tree's ``time_int8``.  It prints one ``turn`` line
 per turn and the card line.
+
+    python3 chip_smoke.py --ranks N
+
+runs phase 7's multi-process path over N NCCL ranks, one card each: the
+data-parallel drain (losses identical across ranks and within
+``LOSS_TOL["bfloat16"]`` of one rank's plain step on the same batches)
+and every flash ring at s 8192 against single-device flash, with the
+same gates and timings, then the card line.
 
     python3 chip_smoke.py --int8-plans
 
@@ -944,6 +969,270 @@ def drain_trace_phase(config) -> dict:
         tracing.set_default_tracer(previous)
 
 
+# ------------------------------------------------------------ phase 7
+
+
+#: The rings of 7b, at the attention bench's width: (case, function, causal).
+RING_SHAPE = (4, 8192, 8, 64)  # b, global s, h, d; bf16
+RING_CASES = (
+    ("ring-causal", "ring_flash_attention", True),
+    ("ring", "ring_flash_attention", False),
+    ("zigzag", "zigzag_ring_flash_attention", True),
+)
+#: seconds a group of worker ranks may take, start to exit
+RANKS_DEADLINE = 180
+
+
+def _drain_request(nodes, token: str) -> None:
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {
+        util.get_pre_drain_checkpoint_annotation_key():
+            f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}",
+    }}})
+
+
+def _check_drained(what: str, nodes, token: str, ckpt: str, results) -> int:
+    """Every rank drained at one step, the node carries ``done:<token>``,
+    and the checkpoint of every rank restores at that step.  Returns the
+    step."""
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.tpu.multihost_trainer import shadow_dir
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    steps = {r["stopped_at_step"] for r in results}
+    ack = nodes.get("Node", "gpu-host")["metadata"]["annotations"].get(
+        util.get_pre_drain_checkpoint_annotation_key())
+    if not all(r["drained"] for r in results) or len(steps) != 1:
+        raise RuntimeError(f"{what}: not one drained step: {results}")
+    step = steps.pop()
+    if ack != f"{consts.PRE_DRAIN_CHECKPOINT_DONE}:{token}":
+        raise RuntimeError(f"{what}: ack {ack!r}, want done:{token}")
+    for rank in range(len(results)):
+        if wl.restore_checkpoint(shadow_dir(ckpt, rank), step)["step"] != step:
+            raise RuntimeError(f"{what}: rank {rank}'s checkpoint does not restore at step {step}")
+    return step
+
+
+def _check_flash_launches(what: str, counts: dict, want: dict) -> None:
+    """*counts* by device kernel must be *want* by entry point, each on
+    its bf16 tensor-core kernel."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    expect = {fa.DEVICE_KERNELS[e][torch.bfloat16]: n for e, n in want.items() if n}
+    if counts != expect or any("_tc_" not in k for k in expect):
+        raise RuntimeError(f"{what}: flash launches {counts}, want {expect}")
+
+
+def one_rank_drain(config, card: str) -> dict:
+    """7a: one NCCL rank in this process.  Its collectives, then
+    ``MultihostDrainLoop`` over the data-parallel trainer at *config*,
+    drained by a gate thread after step 3.  Returns the loop's record."""
+    import threading
+    import uuid
+
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.hack import dist_worker
+    from k8s_operator_libs_tpu_torch.tpu import distributed
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(dist_worker.free_port()),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    identity = distributed.initialize_from_env(env)
+    try:
+        if (*identity, dist.get_backend()) != (0, 1, "nccl"):
+            raise RuntimeError(f"7a: rank, world, backend {identity}, {dist.get_backend()}")
+        if distributed.host_allreduce_max(2.0) != 2.0:
+            raise RuntimeError("7a: host_allreduce_max(2.0) != 2.0")
+        distributed.sync_global_devices("chip-smoke-7a")
+        nodes = InMemoryNodeStore()
+        nodes.create(make_node("gpu-host"))
+        token = uuid.uuid4().hex[:12]
+        reached = threading.Event()
+
+        def gate():
+            if reached.wait(timeout=RANKS_DEADLINE):
+                _drain_request(nodes, token)
+
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-7a-") as ckpt:
+            thread = threading.Thread(target=gate, daemon=True)
+            thread.start()
+            fa.reset_launch_counts()
+            rec = dist_worker.drain_job(
+                config, distributed.global_mesh(), 0, torch.device("cuda", torch.cuda.current_device()),
+                DrainSignalWatcher(nodes, "gpu-host"), ckpt, max_steps=200, max_seconds=120,
+                on_step=lambda step, loss: step >= 3 and reached.set(),
+            )
+            thread.join(timeout=10)
+            if thread.is_alive():
+                raise RuntimeError("7a: the gate thread did not finish")
+            step = _check_drained("7a", nodes, token, ckpt, [rec])
+        n = config.n_layers * step
+        rec["flash_launches"] = dist_worker.flash_device_launches()
+        _check_flash_launches("7a", rec["flash_launches"], dict.fromkeys(fa.launch_counts, n))
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise RuntimeError(f"7a: losses {rec['losses']}")
+        log("phase 7a one NCCL rank:", json.dumps(rec), "|", card)
+        return rec
+    finally:
+        dist.destroy_process_group()
+
+
+def start_nccl_probe():
+    """Two NCCL ranks on the one card, started (they run beside 7a; as a
+    context manager, leaving it kills them)."""
+    from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
+
+    args = ["train", "--device", "cuda", "--backend", "nccl", "--steps", "1"]
+    return Ranks(2, args, env={"NCCL_DEBUG": "WARN"})
+
+
+def nccl_probe(probe) -> str:
+    """NCCL is expected to refuse two ranks on one card (a duplicate
+    GPU).  Returns the backend 7b uses: gloo after that refusal, NCCL had
+    it accepted them; anything else raises."""
+    with probe as ranks:
+        try:
+            ranks_out = ranks.finish(60)
+        except TimeoutError as err:  # a refusal by hanging: killed, and said so
+            log("phase 7b NCCL probe: two ranks on one card hung for 60 s; killed |",
+                str(err)[-300:])
+            return "gloo"
+    codes = [code for code, _, _ in ranks_out]
+    lines = [ln for _, _, err in ranks_out for ln in err]
+    duplicate = [ln for ln in lines if "duplicate gpu" in ln.lower()]
+    if codes == [0, 0]:
+        log("phase 7b NCCL probe: two ranks on one card accepted; 7b runs NCCL")
+        return "nccl"
+    if all(codes) and duplicate:
+        log("phase 7b NCCL probe: refused, exit codes", codes, "|", duplicate[0].strip()[:300])
+        return "gloo"
+    raise RuntimeError(f"7b NCCL probe: exit codes {codes}, no duplicate-GPU refusal:\n"
+                       + "\n".join(lines[-40:]))
+
+
+def ranks_drain(config, backend: str, reference: list, card: str, n: int = 2,
+                what: str = "7b") -> dict:
+    """The data-parallel drain of *n* worker ranks (7b: two on the one
+    card).  Rank 0 watches the node over HTTP (the port's client and node
+    server); the losses must be identical across ranks and within
+    ``LOSS_TOL["bfloat16"]`` of the *reference* losses of one rank on the
+    same global batches."""
+    import uuid
+
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    nodes = InMemoryNodeStore()
+    nodes.create(make_node("gpu-host"))
+    token = uuid.uuid4().hex[:12]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-7b-") as ckpt, NodeStoreServer(nodes) as server:
+        env = {"FACADE_URL": server.url, "DRAIN_NODE_NAME": "gpu-host", "DRAIN_CKPT_DIR": ckpt,
+               "DRAIN_MAX_STEPS": "200", "DRAIN_MAX_SECONDS": "120"}
+        args = ["drain", "--device", "cuda", "--backend", backend, "--config", "smoke"]
+        with Ranks(n, args, env) as ranks:
+            ranks.wait_for(0, "] step 3 ", RANKS_DEADLINE)
+            _drain_request(nodes, token)
+            results = ranks.results(RANKS_DEADLINE)
+        step = _check_drained(what, nodes, token, ckpt, results)
+    losses = [r["losses"] for r in results]
+    if any(x != losses[0] for x in losses) or len(losses[0]) != step:
+        raise RuntimeError(f"{what}: loss sequences differ across ranks: {losses}")
+    common = min(step, len(reference))
+    diff = max(abs(a - b) for a, b in zip(losses[0][:common], reference[:common]))
+    if diff > LOSS_TOL["bfloat16"]:
+        raise RuntimeError(f"{what}: losses {losses[0]} vs one rank's {reference}: {diff:.3e}")
+    launches = config.n_layers * step
+    for r in results:
+        _check_flash_launches(f"{what} rank {r['rank']}", r["flash_launches"],
+                              dict.fromkeys(fa.launch_counts, launches))
+    rec = {"backend": backend, "stopped_at_step": step, "losses": losses[0],
+           "max_diff_vs_one_rank": diff, "steps_compared": common,
+           "step_ms": [r["step_ms"] for r in results],
+           "loop_ms_per_step": [r["loop_ms_per_step"] for r in results],
+           "worker_seconds": [r["seconds"] for r in results]}
+    log(f"phase {what}, {n} ranks, drain:", json.dumps(rec), "|", card)
+    return rec
+
+
+def ranks_rings(backend: str, card: str, n: int = 2, what: str = "7b") -> dict:
+    """Every flash ring over *n* worker ranks (7b: two on the one card),
+    at b 4, global s 8192, h 8, d 64, bf16; output and gradients against
+    single-device ``flash_attention`` on the whole sequence with the same
+    dO, at ``BF16_TOL``; each rank's launches equal its pairs
+    (``ring_schedule``), all on the tensor-core kernels.  Returns the
+    per-case launches and timings."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import ring_attention as ra
+
+    b, s, h, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ring-") as tmp:
+        host = {"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "do": do.cpu()}
+        torch.save({"cases": [{"name": name, "fn": fn, "causal": causal, "block": 128, **host}
+                              for name, fn, causal in RING_CASES]}, f"{tmp}/inputs.pt")
+        args = ["ring", "--device", "cuda", "--backend", backend,
+                "--inputs", f"{tmp}/inputs.pt", "--out", f"{tmp}/rank{{rank}}.pt"]
+        with Ranks(n, args) as ranks:
+            lines = ranks.results(RANKS_DEADLINE)
+        shards = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(n)]
+    report = {"backend": backend, "transport": lines[0]["transport"], "cases": {},
+              "worker_seconds": [line["seconds"] for line in lines]}
+    for name, fn, causal in RING_CASES:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal)
+        ref = (out, *torch.autograd.grad(out, leaves, do))
+        layout = "zigzag" if fn.startswith("zigzag") else "contiguous"
+        errs, rel = {}, {}
+        for i, key in enumerate(("out", "dq", "dk", "dv")):
+            got = torch.cat([sh[name][key] for sh in shards], dim=1).cuda()
+            got = ra.from_zigzag(got, n) if layout == "zigzag" else got
+            errs[key] = check_close(f"{what} {name} {key}", got, ref[i], "bfloat16")
+            # the error as check_close holds it: against max(1, max |ref|)
+            rel[key] = errs[key] / max(1.0, float(ref[i].detach().float().abs().max()))
+        pairs = [len(ra.ring_schedule(n, r, causal, layout)) for r in range(n)]
+        for r, line in enumerate(lines):
+            row = line["cases"][name]
+            if row["pairs"] != pairs[r] or row["launches"] != dict.fromkeys(fa.launch_counts, pairs[r]):
+                raise RuntimeError(f"{what} {name} rank {r}: launches {row['launches']}, want {pairs[r]} each")
+            _check_flash_launches(f"{what} {name} rank {r}", row["device_launches"],
+                                  dict.fromkeys(fa.launch_counts, pairs[r]))
+        report["cases"][name] = {
+            "pairs": pairs, "max_abs_err": errs, "err_over_scale": rel,
+            "fwd_ms": [line["cases"][name]["fwd_ms"] for line in lines],
+            "bwd_ms": [line["cases"][name]["bwd_ms"] for line in lines],
+        }
+    # contiguous causal: rank r computes the r + 1 blocks at or below it
+    if report["cases"]["ring-causal"]["pairs"] != list(range(1, n + 1)):
+        raise RuntimeError(f"{what}: causal ring pairs {report['cases']['ring-causal']['pairs']}")
+    # single-device flash at the same global shape, by events
+    for causal in (True, False):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        fwd = [cuda_ms(lambda: fa.flash_attention(*leaves, causal), 1, warmup=1) for _ in range(3)]
+        bwd = []
+        for _ in range(3):
+            out = fa.flash_attention(*leaves, causal)
+            bwd.append(cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 1, warmup=0))
+        report["single_device_causal" if causal else "single_device"] = {"fwd_ms": fwd, "bwd_ms": bwd}
+    log(f"phase {what}, {n} ranks, rings:", json.dumps(report), "|", card)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return report
+
+
 def compiled_report():
     """Per kernel instantiation of every library, ``ptxas -v``'s
     registers, shared memory, spills and notes and the HGMMA/HMMA count of
@@ -1055,6 +1344,36 @@ def int8_turns(trees) -> None:
         log("turn", json.dumps({"turn": i, "tree": tree, **row}))
 
 
+def nccl_ranks(n: int) -> None:
+    """The multi-process path over *n* NCCL ranks, one card each: the
+    data-parallel drain, held to one rank's plain step on the same global
+    batches, and every flash ring at s 8192, held to single-device flash
+    on the first card."""
+    import dataclasses
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch import _build
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"--ranks {n} needs {n} cards, torch sees {torch.cuda.device_count()}")
+    card = nvidia_smi_line()
+    log("device:", card, "x", torch.cuda.device_count(), "| torch", torch.__version__)
+    _build.build_all()  # before the ranks start, which then load it
+    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), flash_attention=True)
+    model, optimizer = wl.create_train_state(config, "cuda", seed=0)
+    step = wl.make_train_step(model, optimizer)
+    reference = [float(step(wl.make_batch(config, 8, seed=i, device="cuda"))) for i in range(8)]
+    del model, optimizer, step
+    t0 = time.perf_counter()
+    ranks_drain(config, "nccl", reference, card, n, what=f"{n} cards")
+    t1 = time.perf_counter()
+    ranks_rings("nccl", card, n, what=f"{n} cards")
+    log(f"{n} cards: drain {t1 - t0:.1f} s, rings {time.perf_counter() - t1:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1065,13 +1384,17 @@ def main(argv=None) -> int:
                       help="time each checkout's int8 kernel in turns instead")
     args.add_argument("--int8-plans", action="store_true",
                       help="time the bf16 int8 kernel under every launch plan instead")
+    args.add_argument("--ranks", type=int, metavar="N",
+                      help="run the multi-process path over N NCCL ranks, a card each, instead")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    if args.int8_turns or args.int8_plans:
+    if args.int8_turns or args.int8_plans or args.ranks:
         if args.int8_turns:
             int8_turns(args.int8_turns)
+        elif args.ranks:
+            nccl_ranks(args.ranks)
         else:
             int8_plans()
         print(nvidia_smi_line())
@@ -1186,7 +1509,22 @@ def main(argv=None) -> int:
     drain_trace_phase(config)
     log("phase 6 done", f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- 7. the result lines ----
+    # ---- 7. the multi-process path: one NCCL rank, then two ranks ----
+    t7 = [time.perf_counter()]
+    with start_nccl_probe() as probe:
+        one_rank = one_rank_drain(config, card)
+        t7.append(time.perf_counter())
+        backend = nccl_probe(probe)
+    t7.append(time.perf_counter())
+    ranks_drain(config, backend, one_rank["losses"], card)
+    t7.append(time.perf_counter())
+    rings = ranks_rings(backend, card)
+    t7.append(time.perf_counter())
+    log(f"phase 7 done {t7[-1] - t_start:.1f} s (phase 7 {t7[-1] - t7[0]:.1f} s: 7a "
+        f"{t7[1] - t7[0]:.1f}, probe after it {t7[2] - t7[1]:.1f}, 7b drain "
+        f"{t7[3] - t7[2]:.1f}, 7b rings {t7[4] - t7[3]:.1f})")
+
+    # ---- 8. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -1216,6 +1554,12 @@ def main(argv=None) -> int:
             # alone or dK/dV alone (time_shape logs SDPA's whole backward,
             # sdpa_bwd_ms, beside dq_plus_dkv_ms instead)
             "library_ms": main_timing["sdpa_fwd_ms"] if name == "flash_fwd" else None,
+            # phase 7's paths: the one-rank drain loop, and per rank of
+            # each two-rank ring (fwd: forward; dq, dkv: backward)
+            "ring_path_launches": {
+                "7a drain loop (1 rank)": one_rank["flash_launches"][routed[name]],
+                **{f"7b {case} (per rank)": row["pairs"] for case, row in rings["cases"].items()},
+            },
         })
     step = int8_timing["per_decode_step"]
     built = compiled.get(serving["device_kernel"], {})

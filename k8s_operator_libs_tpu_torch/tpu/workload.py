@@ -6,7 +6,9 @@ The port of the single-device gather and flash paths of
 * :class:`ModelConfig`, :class:`Block` and :class:`TinyLM` — embed, pre-LN
   blocks (causal attention, then a GELU MLP), LN, LM head;
 * :func:`loss_fn` — next-token NLL; :func:`make_train_step` — one AdamW
-  update;
+  update, data-parallel over the ``data`` axis of a
+  :func:`.distributed.global_mesh` when given one (the rest of the JAX
+  module's SPMD mesh is not ported yet);
 * :func:`save_checkpoint` / :func:`restore_checkpoint` — ``torch.save`` of
   the step, the model and the optimizer;
 * :class:`CheckpointingTrainer` — polls the drain watcher between steps,
@@ -73,7 +75,9 @@ class ModelConfig:
 
     def __post_init__(self) -> None:
         spmd = "the SPMD part of k8s_operator_libs_tpu/tpu/workload.py"
-        ring = "k8s_operator_libs_tpu/tpu/ring_attention.py"
+        # the ring functions are ported (.ring_attention); their model
+        # seam, ring_attention_sharded inside Block, comes with the mesh
+        ring = f"{spmd} (ring attention inside Block)"
         not_ported = {
             "n_experts": (self.n_experts > 0, f"{spmd} (MoE, expert parallelism)"),
             "seq_axis": (self.seq_axis is not None, f"{spmd} (sequence parallelism)"),
@@ -288,11 +292,46 @@ class TinyLM(nn.Module):
 # ------------------------------------------------------------ train state
 
 
-def create_train_state(config: ModelConfig, device="cuda", seed: int = 0):
+def _data_axis(mesh):
+    """(group, size, index) of this rank on *mesh*'s ``data`` axis.  Only
+    the data axis is ported: any other axis larger than 1 raises."""
+    wider = {name: mesh[name].size() for name in ("seq", "model", "expert") if mesh[name].size() > 1}
+    if wider:
+        raise NotImplementedError(
+            f"mesh axes {wider} are not ported to PyTorch yet: only the data axis "
+            "is; the rest waits for the port of the SPMD part of "
+            "k8s_operator_libs_tpu/tpu/workload.py (tensor, sequence and expert parallelism)"
+        )
+    return mesh.get_group("data"), mesh["data"].size(), mesh.get_local_rank("data")
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflatten_into(flat: torch.Tensor, tensors) -> None:
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def create_train_state(config: ModelConfig, device="cuda", seed: int = 0, mesh=None):
     """(model, optimizer): TinyLM from *seed* and ``optax.adamw(3e-4)``'s
-    torch counterpart."""
+    torch counterpart.  With a *mesh* (:func:`.distributed.global_mesh`)
+    the parameters are broadcast from the data axis's first rank, so
+    every replica starts from the same weights."""
     device = resolve_device(device)
     model = TinyLM(config, device=device, seed=seed)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        group, _, _ = _data_axis(mesh)
+        params = list(model.parameters())
+        with torch.no_grad():
+            flat = _flat(params)
+            dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+            _unflatten_into(flat, params)
     optimizer = torch.optim.AdamW(model.parameters(), **ADAMW)
     return model, optimizer
 
@@ -308,17 +347,49 @@ def loss_fn(model: TinyLM, tokens):
     return _token_nll(model(tokens[:, :-1]), tokens[:, 1:])
 
 
-def make_train_step(model: TinyLM, optimizer):
-    """``step(tokens) -> loss``: one AdamW update, in place."""
+def make_train_step(model: TinyLM, optimizer, mesh=None):
+    """``step(tokens) -> loss``: one AdamW update, in place.
 
-    def step(tokens):
+    With a *mesh* the step is data-parallel over its ``data`` axis, as
+    the JAX step is under its ``P("data")`` batch sharding: every rank
+    passes the same global batch and takes its own contiguous shard of
+    rows; the gradients and the loss travel in one flat buffer through
+    one all-reduce over the data group and are divided by its size
+    before AdamW.  So every rank applies the same update and returns the
+    same loss, the mean over the global batch.  A plain all-reduce, not
+    ``DistributedDataParallel``: one collective per step, and the model
+    keeps TinyLM's state_dict keys for checkpoints and :mod:`..convert`."""
+    if mesh is None:
+
+        def step(tokens):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, tokens)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        return step
+
+    import torch.distributed as dist
+
+    group, dp, index = _data_axis(mesh)
+    params = list(model.parameters())
+
+    def dp_step(tokens):
+        if tokens.shape[0] % dp:
+            raise ValueError(f"global batch {tokens.shape[0]} not divisible by the data axis ({dp})")
+        rows = tokens.shape[0] // dp
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens)
+        loss = loss_fn(model, tokens[index * rows:(index + 1) * rows])
         loss.backward()
+        flat = _flat([p.grad for p in params] + [loss.detach().float().reshape(1)])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(dp)
+        _unflatten_into(flat[:-1], [p.grad for p in params])
         optimizer.step()
-        return loss.detach()
+        return flat[-1]
 
-    return step
+    return dp_step
 
 
 def make_batch(config: ModelConfig, batch_size: int, seed: int = 0, device="cpu"):

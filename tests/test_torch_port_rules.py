@@ -11,6 +11,7 @@
 """
 
 import ast
+import os
 import re
 import shutil
 import subprocess
@@ -313,3 +314,48 @@ def test_generate_defaults_to_cuda_and_raises_without_it():
         wl.generate(cfg, model, torch.zeros(1, 2, dtype=torch.long), 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         wl.quantized_model(cfg, {})
+
+
+def test_the_scans_see_the_multi_process_modules():
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {
+        "tpu/distributed.py", "tpu/multihost_trainer.py", "tpu/ring_attention.py",
+        "cluster/kubeclient.py", "hack/dist_worker.py",
+    } <= scanned
+
+
+@pytest.mark.parametrize("rel", ["tpu/distributed.py", "tpu/multihost_trainer.py", "tpu/ring_attention.py"])
+def test_the_multi_process_modules_swallow_no_failure(rel):
+    """Every ``except`` ends in a ``raise`` (identity parsing turns a bad
+    integer into its ValueError): a failed collective, shift or save
+    raises out of the rank, and the job fails."""
+    tree = ast.parse((PORT / rel).read_text())
+    handlers = [node for node in ast.walk(tree) if isinstance(node, ast.ExceptHandler)]
+    assert all(isinstance(h.body[-1], ast.Raise) for h in handlers), [ast.unparse(h) for h in handlers]
+    assert len(handlers) == (1 if rel == "tpu/distributed.py" else 0)
+
+
+def test_the_multi_process_entry_points_raise_without_a_card(monkeypatch):
+    from k8s_operator_libs_tpu_torch.hack import dist_worker
+    from k8s_operator_libs_tpu_torch.tpu import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1", "WORLD_SIZE": "1", "RANK": "0"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize_from_env(env)
+    assert dist_worker.main(["train"]) == 1  # the default device is the card
+    assert dist_worker.main(["ring", "--device", "cuda"]) == 1
+
+
+def test_the_worker_refuses_a_card_it_lacks_and_an_unknown_mode():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    base = [sys.executable, "-m", "k8s_operator_libs_tpu_torch.hack.dist_worker"]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1",
+           "WORLD_SIZE": "1", "RANK": "0"}
+    cuda = subprocess.run(base + ["drain", "--device", "cuda"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert cuda.returncode != 0 and "no CUDA device" in cuda.stderr
+    unknown = subprocess.run(base + ["serve", "--device", "cpu"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=120)
+    assert unknown.returncode != 0 and "invalid choice" in unknown.stderr
