@@ -17,7 +17,9 @@ failure (the exit code is then non-zero and no result line is printed):
    ptxas note;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
-   long shapes in fp32 and bf16, then timed beside its plain version and
+   long shapes in fp32 and bf16, and at phase 8's ring pairs (bf16, 128
+   and 64 positions, causal and unmasked, and two pairs merged forward
+   and run backward with the final lse), then timed beside its plain version and
    SDPA: at the trainer's shape by replaying a CUDA graph of captured
    calls (free of each call's host work; the old back-to-back event
    figure is logged beside it), at the long shape by events.  SDPA's
@@ -77,7 +79,22 @@ failure (the exit code is then non-zero and no result line is printed):
    s 8192, h 8, d 64, bf16, output and gradients within ``BF16_TOL`` of
    single-device flash, each rank's launches equal to the pairs it
    computes, timed by events beside single-device flash;
-8. a ``{"kernels": [...]}`` line, the card line, and last
+8. the sharded train step (``workload.make_train_step`` on a mesh):
+   four worker ranks on the one card, over the transport 7b chose, on a
+   dp 1 x sp 2 x tp 2 mesh at the smoke width with 257 tokens (128
+   positions a seq rank), bf16, 2 steps each of gather SP with dense
+   attention, the contiguous and zigzag flash rings, and the flash ring
+   under remat, then a drain after one step on the flash ring.  Losses
+   identical across ranks and within ``LOSS_TOL["bfloat16"]`` of one
+   device's flash step on the same weights and batches, the gathered
+   first-step gradients within ``SPMD_GRAD_TOL`` of its; each rank's
+   flash launches ``n_layers`` x its ring pairs per step for each
+   kernel, the forward doubled under remat, none on the gather path, all
+   on the tensor-core kernels; the drain stops every rank at one step,
+   acknowledges after the barrier, and its checkpoint, the full state,
+   restored into a one-device trainer takes the mesh's next step within
+   ``LOSS_TOL["bfloat16"]``;
+9. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -95,7 +112,8 @@ runs phase 7's multi-process path over N NCCL ranks, one card each: the
 data-parallel drain (losses identical across ranks and within
 ``LOSS_TOL["bfloat16"]`` of one rank's plain step on the same batches)
 and every flash ring at s 8192 against single-device flash, with the
-same gates and timings, then the card line.
+same gates and timings; then, N a multiple of 4, phase 8 on a dp N/4 x
+sp 2 x tp 2 mesh; then the card line.
 
     python3 chip_smoke.py --int8-plans
 
@@ -358,6 +376,48 @@ def check_lse_cotangent():
     for what, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
         check_close(f"lse-cotangent {what}", a, r, "float32")
     log("kernels lse-cotangent: ok")
+
+
+def check_ring_pairs(name, b, s, h, d, seed):
+    """A flash ring's two pairs of one query chunk of *s* positions, as
+    phase 8 runs them (bf16): the unmasked pair of the chunk below and
+    the causal diagonal pair, each through the forward kernel, merged in
+    the logsumexp frame (``ring_attention._merge``); then both backward
+    kernels of each pair with the FINAL lse and ``dvec = rowsum(dO * O)``
+    of the merged output, the dQ partials summed, as ``_RingFlash`` does.
+    Held against autograd of the plain attention of the chunk's queries
+    over both chunks' keys (causal), within ``BF16_TOL``."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda n: torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = mk(s), mk(2 * s), mk(2 * s), mk(s)
+    qf, kf, vf, dof = (fa._fold(x) for x in (q, k, v, do))
+    pairs = [(kf[:, :s].contiguous(), vf[:, :s].contiguous(), False),  # the chunk below
+             (kf[:, s:].contiguous(), vf[:, s:].contiguous(), True)]  # the diagonal
+    o = torch.zeros(qf.shape, dtype=torch.float32, device="cuda")
+    lse = torch.full(qf.shape[:2], -1e30, dtype=torch.float32, device="cuda")
+    for kp, vp, causal in pairs:
+        o, lse = ra._merge(o, lse, *fa.flash_forward(qf, kp, vp, 1, causal))
+    out = o.to(torch.bfloat16)
+    dvec = (out.float() * dof.float()).sum(-1)
+    dq = sum(fa.flash_bwd_dq(qf, kp, vp, dof, lse, dvec, 1, causal).float() for kp, vp, causal in pairs)
+    dkv = [fa.flash_bwd_dkv(qf, kp, vp, dof, lse, dvec, 1, causal) for kp, vp, causal in pairs]
+    dk, dv = (torch.cat([x[i] for x in dkv], 1) for i in (0, 1))
+    # the plain side: queries at s..2s-1 over keys 0..2s-1
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    scores = torch.einsum("bqhd,bkhd->bhqk", leaves[0], leaves[1]) / math.sqrt(d)
+    visible = (torch.arange(s, 2 * s, device="cuda")[:, None] >= torch.arange(2 * s, device="cuda"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", scores.masked_fill(~visible, -1e30).softmax(-1), leaves[2])
+    ref_grads = torch.autograd.grad(ref, leaves, do.float())
+    errs = {"O": check_close(f"{name} merged O", fa._unfold(out, b), ref, "bfloat16")}
+    for what, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+        errs[what] = check_close(f"{name} {what} (final lse)", fa._unfold(a, b), r, "bfloat16")
+    log(f"kernels {name}: b{b} chunk s{s} h{h} d{d} bf16, two pairs merged "
+        + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items()))
 
 
 def time_shape(b, s, h, d, dtype, iters, plain_iters, graphs: bool):
@@ -1233,6 +1293,156 @@ def ranks_rings(backend: str, card: str, n: int = 2, what: str = "7b") -> dict:
     return report
 
 
+# ------------------------------------------------------------ phase 8
+
+
+#: The sharded train step at the smoke width on dp 1 x sp 2 x tp 2: 257
+#: tokens, so the 256 positions after the shift split 128 a seq rank.
+SPMD_MESH = (1, 2, 2)
+SPMD_SEQ = 257
+SPMD_STEPS = 2
+#: Phase 8's first-step gradients, gathered to the full state, against one
+#: device's on the same weights and batch: per layer (the leaves of one
+#: module, so a key bias, whose exact gradient is zero since softmax
+#: ignores a constant added to a query's scores, is read on its weight's
+#: scale), max |mesh - one device| / max |one device|, held below
+#: SPMD_GRAD_TOL: twice the worst reading on an H100 (0.0276, a key
+#: projection, in every run, gather SP's too: bf16 rounding at other
+#: points), far below the error of a wrong merge or a wrong collective.
+SPMD_GRAD_TOL = 0.055
+
+
+def layer_rel_err(got: dict, ref: dict):
+    """(the largest per-layer relative error of *got* against *ref*, its
+    layer): max |got - ref| / max |ref| over the leaves of each module."""
+    layers: dict = {}
+    for name, r in ref.items():
+        err, scale = layers.get(name.rsplit(".", 1)[0], (0.0, 0.0))
+        layers[name.rsplit(".", 1)[0]] = (max(err, float((got[name].float() - r).abs().max())),
+                                          max(scale, float(r.abs().max())))
+    return max((err / scale, layer) for layer, (err, scale) in layers.items())
+_RING_FLASH = {"seq_axis": "seq", "ring_attention": True, "ring_flash": True}
+SPMD_RUNS = (
+    ("gather-sp", {"seq_axis": "seq", "flash_attention": False}),
+    ("ring-flash", _RING_FLASH),
+    ("zigzag", {**_RING_FLASH, "ring_layout": "zigzag"}),
+    ("remat-ring-flash", {**_RING_FLASH, "remat": True}),
+)
+
+
+def _spmd_launches(config, row, remat: bool) -> dict:
+    """The flash launches by entry point a rank of an SPMD run must make:
+    per step and layer, each of its ring pairs once forward and once in
+    each backward kernel, the forward again under remat's recompute; none
+    on the gather path (no pairs)."""
+    per = config.n_layers * row["pairs"] * row["steps"]
+    return {"flash_fwd": per * (2 if remat else 1), "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
+    """The sharded train step (``dist_worker spmd``) over *n* ranks on a
+    dp (n/4) x sp 2 x tp 2 mesh at the smoke width, bf16, 2 steps per run:
+    gather SP with dense attention, the contiguous and zigzag flash rings,
+    the flash ring under remat, then a drain after one step on the flash
+    ring.  Gates: losses identical across ranks and within
+    ``LOSS_TOL["bfloat16"]`` of one device's flash step on the same
+    weights and batches; each rank's flash launches as
+    :func:`_spmd_launches` says, all on the tensor-core kernels; the drain
+    stopped every rank at one step and acknowledged, and its checkpoint,
+    the full state, restored into a one-device trainer on the card takes
+    the mesh's next step within ``LOSS_TOL["bfloat16"]``; each run's
+    first-step gradients, gathered to the full state, within
+    ``SPMD_GRAD_TOL`` of one device's.  Returns the per-run record."""
+    import dataclasses
+    import uuid
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    mesh = [n // 4, *SPMD_MESH[1:]]
+    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), max_seq_len=SPMD_SEQ,
+                                 flash_attention=True)
+    model, optimizer = wl.create_train_state(config, "cuda", seed=0)
+    step = wl.make_train_step(model, optimizer)
+    reference = [float(step(wl.make_batch(config, 8, seed=0, device="cuda")))]
+    ref_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    reference += [float(step(wl.make_batch(config, 8, seed=i, device="cuda"))) for i in range(1, SPMD_STEPS)]
+    del model, optimizer, step
+    runs = [{"name": name, "mesh": mesh, "config": {"max_seq_len": SPMD_SEQ, **fields},
+             "steps": SPMD_STEPS, "grads": True} for name, fields in SPMD_RUNS]
+    runs.append({"name": "drain", "mesh": mesh, "config": {"max_seq_len": SPMD_SEQ, **_RING_FLASH},
+                 "steps": 5, "drain": True})
+    nodes = InMemoryNodeStore()
+    nodes.create(make_node("gpu-host"))
+    token = uuid.uuid4().hex[:12]
+    _drain_request(nodes, token)  # standing: the drain stops the job at its first poll
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-8-") as tmp, NodeStoreServer(nodes) as server:
+        with open(f"{tmp}/runs.json", "w") as f:
+            json.dump({"runs": runs}, f)
+        env = {"FACADE_URL": server.url, "DRAIN_NODE_NAME": "gpu-host", "DRAIN_CKPT_DIR": f"{tmp}/ckpt"}
+        args = ["spmd", "--device", "cuda", "--backend", backend, "--config", "smoke",
+                "--inputs", f"{tmp}/runs.json", "--out", f"{tmp}/rank{{rank}}.pt"]
+        with Ranks(n, args, env) as ranks:
+            lines = ranks.results(RANKS_DEADLINE)
+        grads = torch.load(f"{tmp}/rank0.pt", weights_only=True)
+        drained = [line["runs"]["drain"] for line in lines]
+        step = _check_drained(f"{what} drain", nodes, token, f"{tmp}/ckpt/drain", drained)
+        state = wl.restore_checkpoint(f"{tmp}/ckpt/drain", step)
+        trainer = wl.CheckpointingTrainer(dataclasses.replace(config, seq_axis=None), f"{tmp}/one",
+                                          device="cuda")
+        trainer.load(state)
+        trainer.run(1)
+    report = {"backend": backend, "mesh": mesh, "transport": lines[0]["runs"]["ring-flash"]["transport"],
+              "reference_losses": reference, "runs": {},
+              "worker_seconds": [line["seconds"] for line in lines]}
+    for name, fields in SPMD_RUNS + (("drain", _RING_FLASH),):
+        rows = [line["runs"][name] for line in lines]
+        losses = rows[0]["losses"]  # the drain's: its one step before the stop
+        if any(r["losses"] != losses for r in rows):
+            raise RuntimeError(f"{what} {name}: losses differ across ranks: {[r['losses'] for r in rows]}")
+        diff = max(abs(a - b) for a, b in zip(losses, reference))
+        if diff > LOSS_TOL["bfloat16"] or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{what} {name}: losses {losses} vs one device's {reference}: {diff:.3e}")
+        if any(r["warnings"] for r in rows):
+            raise RuntimeError(f"{what} {name}: the workload warned: {rows[0]['warnings']}")
+        grad_err = None
+        if name in grads:
+            got = grads[name]
+            if set(got) != set(ref_grads):
+                raise RuntimeError(f"{what} {name}: gradients of {sorted(got)}")
+            grad_err = layer_rel_err(got, ref_grads)
+            if not grad_err[0] <= SPMD_GRAD_TOL:
+                raise RuntimeError(f"{what} {name}: first-step gradient of {grad_err[1]} off one "
+                                   f"device's by {grad_err[0]:.3e} of its max > {SPMD_GRAD_TOL}")
+        for r, row in enumerate(rows):
+            want = _spmd_launches(config, row, bool(fields.get("remat")))
+            if row["launches"] != want:
+                raise RuntimeError(f"{what} {name} rank {r}: launches {row['launches']}, want {want}")
+            _check_flash_launches(f"{what} {name} rank {r}", row["device_launches"], want)
+        report["runs"][name] = {
+            "plan": rows[0]["plan"], "losses": losses, "max_diff_vs_one_device": diff,
+            "grad_rel_err_vs_one_device": grad_err,
+            "pairs": [row["pairs"] for row in rows],
+            "launches": [row["launches"] for row in rows],
+            "step_ms": [row["step_ms"] for row in rows],
+        }
+    next_diff = abs(trainer.losses[0] - drained[0]["next_loss"])
+    if len({r["next_loss"] for r in drained}) != 1 or next_diff > LOSS_TOL["bfloat16"]:
+        raise RuntimeError(f"{what} drain: restored one-device step {trainer.losses} vs the mesh's "
+                           f"next {[r['next_loss'] for r in drained]}")
+    report["runs"]["drain"].update(stopped_at_step=step, next_loss=drained[0]["next_loss"],
+                                   restored_next_loss=trainer.losses[0], next_diff=next_diff)
+    log(f"phase {what}, {n} ranks, sharded step:", json.dumps(report), "|", card)
+    del trainer
+    torch.cuda.empty_cache()
+    return report
+
+
 def compiled_report():
     """Per kernel instantiation of every library, ``ptxas -v``'s
     registers, shared memory, spills and notes and the HGMMA/HMMA count of
@@ -1371,7 +1581,11 @@ def nccl_ranks(n: int) -> None:
     ranks_drain(config, "nccl", reference, card, n, what=f"{n} cards")
     t1 = time.perf_counter()
     ranks_rings("nccl", card, n, what=f"{n} cards")
-    log(f"{n} cards: drain {t1 - t0:.1f} s, rings {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    if n % 4 == 0:
+        spmd_phase("nccl", card, n, what=f"{n} cards")
+    log(f"{n} cards: drain {t1 - t0:.1f} s, rings {t2 - t1:.1f} s, sharded step "
+        f"{time.perf_counter() - t2:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1441,6 +1655,13 @@ def main(argv=None) -> int:
     check_case("mqa-bf16", 2, 256, 8, 1, 16, True, "bfloat16", seed=2)
     # s % 4 != 0: a row of lse or dvec starts only 4-byte aligned
     check_case("ragged-s203-gqa-bf16", 2, 203, 8, 2, 64, True, "bfloat16", block=203, seed=12)
+    # phase 8's ring pairs: b 8, 4 heads a model rank, the 128 positions a
+    # seq rank (the contiguous ring) and their 64-long zigzag halves
+    for span in (128, 64):
+        check_case(f"ring-pair-s{span}-bf16", 8, span, 4, 4, 64, True, "bfloat16", block=span, seed=13)
+        check_case(f"ring-pair-s{span}-unmasked-bf16", 8, span, 4, 4, 64, False, "bfloat16",
+                   block=span, seed=14)
+        check_ring_pairs(f"ring-pairs-s{span}", 8, span, 4, 64, seed=15)
     check_lse_cotangent()
     log("kernels worst err / max(1, max|ref|):", json.dumps(worst_rel),
         f"(tol fp32 {FP32_TOL}, bf16 {BF16_TOL})")
@@ -1524,7 +1745,12 @@ def main(argv=None) -> int:
         f"{t7[1] - t7[0]:.1f}, probe after it {t7[2] - t7[1]:.1f}, 7b drain "
         f"{t7[3] - t7[2]:.1f}, 7b rings {t7[4] - t7[3]:.1f})")
 
-    # ---- 8. the result lines ----
+    # ---- 8. the sharded train step: four ranks on the one card ----
+    t8 = time.perf_counter()
+    spmd = spmd_phase(backend, card)
+    log(f"phase 8 done {time.perf_counter() - t_start:.1f} s (phase 8 {time.perf_counter() - t8:.1f} s)")
+
+    # ---- 9. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -1559,6 +1785,12 @@ def main(argv=None) -> int:
             "ring_path_launches": {
                 "7a drain loop (1 rank)": one_rank["flash_launches"][routed[name]],
                 **{f"7b {case} (per rank)": row["pairs"] for case, row in rings["cases"].items()},
+            },
+            # phase 8's sharded step, per rank over each run (2 steps; the
+            # drain's 1 and the step after it)
+            "spmd_path_launches": {
+                f"8 {run} (per rank)": [counts[name] for counts in row["launches"]]
+                for run, row in spmd["runs"].items()
             },
         })
     step = int8_timing["per_decode_step"]

@@ -1,5 +1,5 @@
 """One rank of a multi-process job: data-parallel training, the drain loop,
-the ring attention functions, or the mesh.
+the ring attention functions, the mesh, or the sharded train step.
 
     python -m k8s_operator_libs_tpu_torch.hack.dist_worker MODE [--device cpu|cuda]
         [--backend gloo|nccl] [--config tiny|smoke] [--steps N] [--inputs FILE] [--out FILE]
@@ -33,6 +33,21 @@ package's ``tests/distributed_worker.py`` and
 * ``mesh``: :func:`..tpu.distributed.global_mesh` with ``--tp`` model
   ranks and the rest data: its axis names and shape, and
   ``host_allreduce_max`` of the rank.
+* ``spmd``: every run of ``--inputs`` (JSON: ``{"runs": [{"name",
+  "mesh": [dp, sp, tp], "config": {ModelConfig fields over --config},
+  "steps", "batch" (default 8), "fixed_batch", "grads", "drain"}, ...]}``)
+  as SPMD train steps from seed-0 weights on the global batches
+  ``make_batch(cfg, batch, seed=step)`` (seed 0 every step with
+  ``fixed_batch``), each mesh built once, in the order the runs first
+  name it.  Per run the JSON line holds the losses, the step ms, the
+  attention plan, the rank's indices and ring pairs, its parameter
+  shard shapes, the flash launches and the workload's warnings; with
+  ``grads`` the gradients of the first step, gathered to the full
+  state_dict, go to rank 0's ``--out``.  A ``drain`` run is the drain job on its
+  mesh (rank 0 watches ``DRAIN_NODE_NAME`` at ``FACADE_URL``, every rank
+  saves under ``DRAIN_CKPT_DIR``/<name>) for at most ``steps`` steps, then
+  one step more, whose loss (``next_loss``) a trainer restored from the
+  checkpoint must reproduce.
 
 :class:`Ranks` starts every rank of such a job on this host, as the tests
 and ``chip_smoke.py`` do.
@@ -48,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import socket
 import subprocess
@@ -110,19 +126,22 @@ def train_steps(cfg, mesh, device, steps: int) -> dict:
 
 def drain_job(cfg, mesh, rank: int, device, watcher, ckpt_dir: str,
               max_steps: int = 1_000_000, max_seconds: float = float("inf"),
-              on_step=None) -> dict:
-    """The data-parallel trainer under :class:`MultihostDrainLoop`: every
-    rank saves its state to ``shadow_dir(ckpt_dir, rank)`` when drained.
-    *on_step(step, loss)* sees each step's all-reduced loss."""
+              on_step=None, next_step: bool = False) -> dict:
+    """A :class:`..tpu.workload.CheckpointingTrainer` on *mesh* under
+    :class:`MultihostDrainLoop`: when drained, every rank saves the full
+    state to ``shadow_dir(ckpt_dir, rank)``.  *on_step(step, loss)* sees
+    each step's all-reduced loss.  With *next_step*, one more step after
+    the loop records its loss as ``next_loss``."""
     from ..tpu.multihost_trainer import MultihostDrainLoop, shadow_dir
 
-    model, optimizer = wl.create_train_state(cfg, device, seed=0, mesh=mesh)
-    step_fn = wl.make_train_step(model, optimizer, mesh)
+    trainer = wl.CheckpointingTrainer(
+        cfg, shadow_dir(ckpt_dir, rank), batch_size=GLOBAL_BATCH, device=device, mesh=mesh
+    )
     losses, step_ms = [], []
 
     def do_step(state, step):
         t0 = time.perf_counter()
-        loss = float(step_fn(wl.make_batch(cfg, GLOBAL_BATCH, seed=step, device=device)))
+        loss = float(trainer.step_fn(wl.make_batch(cfg, GLOBAL_BATCH, seed=step, device=device)))
         step_ms.append((time.perf_counter() - t0) * 1e3)  # float() waited for the device
         losses.append(loss)
         if on_step is not None:
@@ -130,7 +149,8 @@ def drain_job(cfg, mesh, rank: int, device, watcher, ckpt_dir: str,
         return state, loss
 
     def do_save(state, step):
-        wl.save_checkpoint(shadow_dir(ckpt_dir, rank), step, model, optimizer)
+        trainer.step = step
+        trainer.save()
 
     loop = MultihostDrainLoop(
         do_step, do_save, watcher=watcher, max_steps=max_steps, max_seconds=max_seconds
@@ -139,7 +159,7 @@ def drain_job(cfg, mesh, rank: int, device, watcher, ckpt_dir: str,
     t0 = time.perf_counter()
     _, stopped, drained = loop.run(None)
     seconds = time.perf_counter() - t0
-    return {
+    rec = {
         "stopped_at_step": stopped,
         "drained": drained,
         "final_loss": losses[-1] if losses else 0.0,
@@ -147,6 +167,17 @@ def drain_job(cfg, mesh, rank: int, device, watcher, ckpt_dir: str,
         "step_ms": step_ms,
         "loop_ms_per_step": seconds / max(1, stopped) * 1e3,
     }
+    if next_step:
+        batch = wl.make_batch(cfg, GLOBAL_BATCH, seed=stopped, device=device)
+        rec["next_loss"] = float(trainer.step_fn(batch))
+    rec["plan"] = _plan(trainer.model)
+    return rec
+
+
+def _plan(model) -> dict:
+    """The attention plan *model* cached for its training shape."""
+    cfg = model.config
+    return dataclasses.asdict(model.plan(cfg.max_seq_len - 1, cfg.seq_axis is not None))
 
 
 def _shard(x, rank: int, n: int):
@@ -207,6 +238,84 @@ def ring_cases(cases, group, device) -> tuple:
             row.update(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
         report[case["name"]] = row
     return tensors, report
+
+
+class _Warnings(logging.Handler):
+    """The workload's warnings, as messages."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def coordinator_watcher(rank: int):
+    """Rank 0's drain watcher of node ``DRAIN_NODE_NAME`` at
+    ``FACADE_URL``; None on every other rank."""
+    if rank != 0:
+        return None
+    from ..cluster.kubeclient import KubeApiClient
+    from ..tpu.drain_handshake import DrainSignalWatcher
+
+    client = KubeApiClient(os.environ["FACADE_URL"], timeout=10.0)
+    return DrainSignalWatcher(client, os.environ["DRAIN_NODE_NAME"])
+
+
+def spmd_runs(runs, base, device, out_path: str) -> dict:
+    """Every run of the ``spmd`` mode (module docstring); returns the
+    report by run and writes the gathered gradients to *out_path*."""
+    rank = dist.get_rank()
+    meshes, tensors, report = {}, {}, {}
+    warnings = _Warnings()
+    logger = logging.getLogger(wl.__name__)
+    logger.addHandler(warnings)
+    for run in runs:
+        dp, sp, tp = run["mesh"]
+        if (dp, sp, tp) not in meshes:
+            meshes[dp, sp, tp] = distributed.global_mesh(dp=dp, tp=tp, sp=sp)
+        mesh = meshes[dp, sp, tp]
+        cfg = dataclasses.replace(base, **run.get("config", {}))
+        batch = run.get("batch", GLOBAL_BATCH)
+        warnings.messages = []
+        fa.reset_launch_counts()
+        _sync(device)
+        if run.get("drain"):
+            row = drain_job(cfg, mesh, rank, device, coordinator_watcher(rank),
+                            os.path.join(os.environ["DRAIN_CKPT_DIR"], run["name"]),
+                            max_steps=run["steps"], max_seconds=120, next_step=True)
+            steps = row["stopped_at_step"] + 1
+        else:
+            model, optimizer = wl.create_train_state(cfg, device, seed=0, mesh=mesh)
+            step = wl.make_train_step(model, optimizer, mesh)
+            row = {"losses": [], "step_ms": []}
+            for i in range(run["steps"]):
+                tokens = wl.make_batch(cfg, batch, seed=0 if run.get("fixed_batch") else i, device=device)
+                t0 = time.perf_counter()
+                row["losses"].append(float(step(tokens)))  # float() waits for the device
+                row["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and run.get("grads"):  # the same on every rank: rank 0 keeps them
+                    grads = wl.gather_params({n: p.grad for n, p in model.named_parameters()}, mesh)
+                    if rank == 0:
+                        tensors[run["name"]] = {n: g.cpu() for n, g in grads.items()}
+            row["shard_shapes"] = {n: list(p.shape) for n, p in model.named_parameters()}
+            row["plan"] = _plan(model)
+            steps = run["steps"]
+        plan = row["plan"]
+        seq_index = mesh.get_local_rank("seq")
+        row.update(
+            steps=steps, warnings=list(warnings.messages),
+            index={axis: mesh.get_local_rank(axis) for axis in ("data", "seq", "model")},
+            pairs=(len(ra.ring_schedule(sp, seq_index, True, plan["layout"]))
+                   if plan["tier"] == "ring" and plan["use_flash"] else 0),
+            launches=dict(fa.launch_counts), device_launches=flash_device_launches(),
+            transport=ra.ring_transport(mesh.get_group("seq"), device),
+        )
+        report[run["name"]] = row
+    logger.removeHandler(warnings)
+    torch.save(tensors, out_path)
+    return report
 
 
 def free_port() -> int:
@@ -313,14 +422,14 @@ class Ranks:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("train", "drain", "ring", "mesh"))
+    parser.add_argument("mode", choices=("train", "drain", "ring", "mesh", "spmd"))
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                         help="default: nccl on the card, gloo on the CPU")
     parser.add_argument("--config", choices=("tiny", "smoke"), default="tiny")
     parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--inputs", help="ring: the cases, from torch.save")
-    parser.add_argument("--out", help="ring: where this rank's tensors go")
+    parser.add_argument("--inputs", help="ring: the cases, from torch.save; spmd: the runs, JSON")
+    parser.add_argument("--out", help="ring, spmd: where this rank's tensors go")
     parser.add_argument("--tp", type=int, default=1, help="mesh: the model axis")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
@@ -328,8 +437,8 @@ def main(argv=None) -> int:
         print("dist_worker: torch sees no CUDA device; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 1
-    if args.mode == "ring" and not (args.inputs and args.out):
-        parser.error("ring needs --inputs and --out")
+    if args.mode in ("ring", "spmd") and not (args.inputs and args.out):
+        parser.error(f"{args.mode} needs --inputs and --out")
     t_start = time.perf_counter()
     rank, world = distributed.initialize_from_env(device=device, backend=args.backend)
     if device.type == "cuda":
@@ -349,25 +458,21 @@ def main(argv=None) -> int:
         line.update(train_steps(cfg, distributed.global_mesh(), device, args.steps))
         line["flash_launches"] = flash_device_launches()
     elif args.mode == "drain":
-        from ..cluster.kubeclient import KubeApiClient
-        from ..tpu.drain_handshake import DrainSignalWatcher
-
-        watcher = None
-        if rank == 0:
-            client = KubeApiClient(os.environ["FACADE_URL"], timeout=10.0)
-            watcher = DrainSignalWatcher(client, os.environ["DRAIN_NODE_NAME"])
-
         def progress(step, loss):
             print(f"[rank {rank}] step {step} loss {loss}", file=sys.stderr, flush=True)
 
         line.update(drain_job(
-            cfg, distributed.global_mesh(), rank, device, watcher,
+            cfg, distributed.global_mesh(), rank, device, coordinator_watcher(rank),
             os.environ["DRAIN_CKPT_DIR"],
             max_steps=int(os.environ.get("DRAIN_MAX_STEPS", "1000000")),
             max_seconds=float(os.environ.get("DRAIN_MAX_SECONDS", "180")),
             on_step=progress,
         ))
         line["flash_launches"] = flash_device_launches()
+    elif args.mode == "spmd":
+        with open(args.inputs) as f:
+            runs = json.load(f)["runs"]
+        line["runs"] = spmd_runs(runs, cfg, device, args.out)
     else:
         group = distributed.global_mesh(dp=1, sp=world).get_group("seq")
         cases = torch.load(args.inputs, weights_only=True)["cases"]

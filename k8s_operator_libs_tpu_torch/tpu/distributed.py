@@ -16,7 +16,13 @@ jitted XLA reductions over the global mesh; here the backend is
   every rank, one device per rank;
 * :func:`host_allreduce_max` and :func:`sync_global_devices`: one
   all-reduce of a one-element tensor each, the drain poll and the named
-  barrier of :mod:`.multihost_trainer`.
+  barrier of :mod:`.multihost_trainer`;
+* :func:`all_reduce_sum`, :func:`all_gather` and :func:`reduce_scatter_sum`:
+  the tensor collectives of the sharded train step (:mod:`.workload`)
+  over one mesh group.  Under gloo a CUDA tensor (ranks sharing one card,
+  which NCCL refuses) goes through a pinned host buffer
+  (:func:`host_buffer`, which the rings of :mod:`.ring_attention` use
+  too), the compute staying on the card.
 """
 
 from __future__ import annotations
@@ -28,8 +34,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-
-from .workload import resolve_device
 
 AXES = ("data", "seq", "model", "expert")
 
@@ -92,6 +96,8 @@ def initialize_from_env(
     to its device, ``LOCAL_RANK`` or else the rank modulo the cards
     seen.  Calling it twice raises, as ``jax.distributed.initialize``
     does: a second call is a deployment bug worth seeing."""
+    from .workload import resolve_device  # workload imports this module
+
     device = resolve_device(device)
     env = dict(os.environ if env is None else env)
     addr, world, rank = resolve_identity(env)
@@ -169,3 +175,89 @@ def sync_global_devices(name: str = "barrier") -> None:
     total, world = int(buf.item()), dist.get_world_size()
     if total != world:
         raise RuntimeError(f"{name}: barrier sum {total} != world size {world}")
+
+
+# ------------------------------------------------- tensor collectives
+
+
+def via_host(device, group) -> bool:
+    """Whether a collective over *group* on a tensor on *device* goes
+    through host memory: a CUDA tensor over a gloo group (ranks sharing
+    one card, which NCCL refuses), since gloo reads host memory."""
+    return torch.device(device).type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+#: Pinned host buffers of the staged collectives and the rings'
+#: transport, by (use, bytes).  A train step issues the same few sizes
+#: every step, so each is allocated once per process, as the one-element
+#: tensors above are.
+_pinned: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def host_buffer(t: torch.Tensor, group, use: str, shape=None) -> Optional[torch.Tensor]:
+    """The staging of a collective over *group* on *t*: None where the
+    backend reads *t* where it lies (:func:`via_host` is false); else a
+    pinned host buffer of *t*'s dtype and *shape* (*t*'s by default), one
+    per *use* and size.  Its contents last until the next call for the
+    same use and size."""
+    if not via_host(t.device, group):
+        return None
+    shape = t.shape if shape is None else torch.Size(shape)
+    nbytes = shape.numel() * t.element_size()
+    buf = _pinned.get((use, nbytes))
+    if buf is None:
+        buf = _pinned[use, nbytes] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    return buf.view(t.dtype).view(shape)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """*t* summed over *group*, in place; returns *t*.  A group of one
+    issues nothing."""
+    if dist.get_world_size(group) == 1:
+        return t
+    host = host_buffer(t, group, "all_reduce")
+    if host is None:
+        dist.all_reduce(t, group=group)
+        return t
+    host.copy_(t)
+    dist.all_reduce(host, group=group)
+    return t.copy_(host)
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's *t* of *group*, concatenated along *dim* in rank
+    order.  The bytes travel as uint8, so any dtype gathers on either
+    backend.  A group of one issues nothing."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    src = t.contiguous().view(torch.uint8)
+    host = host_buffer(src, group, "all_gather")
+    if host is not None:
+        src = host.copy_(src)
+    out = host_buffer(src, group, "all_gather_out", (n, *src.shape))
+    if out is None:
+        out = src.new_empty((n, *src.shape))
+    dist.all_gather(list(out.unbind(0)), src, group=group)
+    whole = torch.cat(out.unbind(0), dim % t.dim()).view(t.dtype)
+    return whole.to(t.device)
+
+
+def reduce_scatter_sum(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along *dim* of *t* summed over *group*: of the
+    group's equal chunks, the rank's.  A group of one issues nothing."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    chunks = torch.stack(t.chunk(n, dim))  # [n, chunk]: rank r's is row r
+    flat = chunks.reshape(-1)  # gloo splits a flat input along its first dim
+    out = flat.new_empty(flat.numel() // n)
+    host_in = host_buffer(flat, group, "reduce_scatter")
+    if host_in is None:
+        dist.reduce_scatter_tensor(out, flat, group=group)
+    else:
+        host_out = host_buffer(out, group, "reduce_scatter_out")
+        host_in.copy_(flat)
+        dist.reduce_scatter_tensor(host_out, host_in, group=group)
+        out.copy_(host_out)
+    return out.view(chunks.shape[1:])

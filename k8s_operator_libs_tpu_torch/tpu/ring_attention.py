@@ -38,22 +38,22 @@ when None); chunks are contiguous, rank i holding global positions
 
 The transport follows the group: NCCL sends CUDA tensors; gloo sends CPU
 tensors, and a CUDA tensor under gloo (two ranks sharing one card, which
-NCCL refuses) is staged through a pinned host buffer, the compute
-staying on the card.
+NCCL refuses) is staged through pinned host buffers
+(:func:`.distributed.host_buffer`), the compute staying on the card.
 
-``ring_attention_sharded``, the model seam over a mesh (the ``seq`` axis,
-heads over ``model``, the zigzag permutation), waits for the port of the
-SPMD part of ``k8s_operator_libs_tpu/tpu/workload.py``, with the
-DeviceMesh placements it needs.
+* :func:`ring_attention_sharded`: the model seam over a mesh, the ring
+  over this rank's ``seq`` group on its own heads.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import List
 
 import torch
 import torch.distributed as dist
+
+from . import distributed
 
 _NEG = -1e30  # mask value: large-negative, not -inf (no NaN via exp)
 
@@ -74,13 +74,6 @@ def dense_reference(q, k, v, causal: bool = True):
 # ------------------------------------------------------------ transport
 
 
-#: Pinned host buffers (send, receive) of the staged transport, by
-#: message size.  A ring sends a few sizes (K/V forward; dK/dV with K/V,
-#: then dK/dV alone, backward), every call: allocated once per process,
-#: as distributed.py keeps its one-element tensors.
-_pinned: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
 class _Ring:
     """One ring over *group*: the neighbours and the transport."""
 
@@ -90,20 +83,15 @@ class _Ring:
         self.rank = dist.get_rank(self.group)
         self.next = dist.get_global_rank(self.group, (self.rank + 1) % self.n)
         self.prev = dist.get_global_rank(self.group, (self.rank - 1) % self.n)
-        backend = dist.get_backend(self.group)
-        self.staged = device.type == "cuda" and backend == "gloo"
-        self.transport = "gloo via pinned host buffers" if self.staged else backend
+        staged = distributed.via_host(device, self.group)
+        self.transport = "gloo via pinned host buffers" if staged else dist.get_backend(self.group)
 
     def _exchange(self, flat: torch.Tensor, to: int, frm: int) -> torch.Tensor:
-        if self.staged:
-            pair = _pinned.get(flat.numel())
-            if pair is None:
-                pair = _pinned[flat.numel()] = tuple(
-                    torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
-                    for _ in range(2)
-                )
-            send, recv = pair
+        send = distributed.host_buffer(flat, self.group, "ring_send")
+        staged = send is not None
+        if staged:
             send.copy_(flat)  # synchronous: the stream has produced flat
+            recv = distributed.host_buffer(flat, self.group, "ring_recv")
         else:
             send, recv = flat, torch.empty_like(flat)
         reqs = dist.batch_isend_irecv([
@@ -112,7 +100,7 @@ class _Ring:
         ])
         for req in reqs:
             req.wait()
-        return recv.to(flat.device) if self.staged else recv
+        return recv.to(flat.device) if staged else recv
 
     def shift(self, tensors: List[torch.Tensor], reverse: bool = False) -> List[torch.Tensor]:
         """Send *tensors* to ``rank + 1`` and receive the same shapes and
@@ -390,3 +378,33 @@ def zigzag_ring_flash_attention(q, k, v, group=None, block: int = 128):
     ring = _Ring(group, q.device)
     schedule = ring_schedule(ring.n, ring.rank, True, "zigzag")
     return _RingFlash.apply(q, k, v, ring, schedule, 2)
+
+
+def ring_attention_sharded(q, k, v, mesh, seq_axis: str, causal: bool = True,
+                           use_flash: bool = False, flash_block: int = 128,
+                           layout: str = "contiguous"):
+    """The model seam over a :func:`.distributed.global_mesh`: a ring over
+    *seq_axis*'s group of this rank's (data, model) coordinate.
+
+    *q*, *k* and *v* are this rank's shards ``[b/dp, s/sp, h_local, d]``:
+    its rows, its chunk of the sequence and its heads.  The projections
+    before the seam split heads over ``model`` (the workload's
+    ``param_partition_spec``), which is what the JAX seam's
+    ``heads_axis="model"`` does: each model rank rings over its own
+    heads.  The einsum ring, or with *use_flash* the flash ring
+    (*flash_block* must divide the local sequence), or with
+    ``layout="zigzag"`` (flash and causal only) the zigzag ring.  The JAX
+    seam permutes natural-order arrays into the zigzag layout and back;
+    here zigzag shards arrive in the layout, because the train step keeps
+    its token batch zigzag-resident (the production setup the JAX
+    docstring names)."""
+    if layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"layout must be 'contiguous' or 'zigzag', got {layout!r}")
+    if layout == "zigzag" and not (use_flash and causal):
+        raise ValueError("layout='zigzag' requires use_flash=True and causal=True")
+    group = mesh.get_group(seq_axis)
+    if layout == "zigzag":
+        return zigzag_ring_flash_attention(q, k, v, group, flash_block)
+    if use_flash:
+        return ring_flash_attention(q, k, v, group, causal, flash_block)
+    return ring_attention(q, k, v, group, causal)

@@ -1,16 +1,15 @@
 """The training job the orchestrator drains — TinyLM in PyTorch.
 
-The port of the single-device gather and flash paths of
-``k8s_operator_libs_tpu/tpu/workload.py``:
+The port of ``k8s_operator_libs_tpu/tpu/workload.py``:
 
 * :class:`ModelConfig`, :class:`Block` and :class:`TinyLM` — embed, pre-LN
   blocks (causal attention, then a GELU MLP), LN, LM head;
 * :func:`loss_fn` — next-token NLL; :func:`make_train_step` — one AdamW
-  update, data-parallel over the ``data`` axis of a
-  :func:`.distributed.global_mesh` when given one (the rest of the JAX
-  module's SPMD mesh is not ported yet);
+  update, on one device or SPMD over a :func:`.distributed.global_mesh`
+  (below);
 * :func:`save_checkpoint` / :func:`restore_checkpoint` — ``torch.save`` of
-  the step, the model and the optimizer;
+  the step, the model and the optimizer, the full state even from a
+  sharded model;
 * :class:`CheckpointingTrainer` — polls the drain watcher between steps,
   checkpoints, acknowledges and stops;
 * :func:`generate` / :func:`greedy_generate` — the serving path: one token
@@ -18,6 +17,44 @@ The port of the single-device gather and flash paths of
   temperature/top-k sampling, ragged prompts, and weight-only int8
   (:func:`quantized_model`, whose layers run the int8 kernel of
   :mod:`.quantize`).
+
+The SPMD step on a ``(data, seq, model, expert)`` mesh is the JAX
+module's jitted step under its shardings, with the collectives that XLA
+inserts there written out, Megatron-style:
+
+* ``model``, tensor parallelism: :func:`param_partition_spec` names the
+  dimension of each parameter that a model rank holds a slice of
+  (attention by whole heads); :func:`shard_params` and
+  :func:`gather_params` move between the full state_dict and a rank's.
+  Column-parallel layers (q/k/v, ``mlp_up``, ``lm_head``) take their
+  input through an identity whose backward sums the gradient over the
+  group; row-parallel ones (``out``, ``mlp_down``) sum their partial
+  products in fp32 and then add the bias.  The embeddings' feature
+  slices and the head's vocabulary slices are all-gathered, so every
+  model rank computes the whole logits and the loss one device would.
+* ``seq``, with ``seq_axis`` set: a rank holds ``[b/dp, S/sp, d]``
+  outside attention, at global positions.  Attention runs one of three
+  ways, chosen per shape by :func:`attention_plan` with the JAX module's
+  loud fallbacks: gathered (an all-gather of the LN output, a
+  reduce-scatter in the backward; this rank's chunk of the attention
+  taken before ``out``), per-device flash on the local heads (the
+  sequence whole on each rank), or a ring over the ``seq`` group
+  (:func:`.ring_attention.ring_attention_sharded`).  For the zigzag ring
+  the step keeps its token batch zigzag-resident: token ids, targets and
+  position ids are permuted before the embedding, so attention finds
+  its layout with no transfer; everything outside attention is per
+  position and the loss is a mean.
+* ``data``: each data rank takes its rows of the global batch.
+* the loss of a rank is its NLL sum over the global token count; the
+  gradients and the loss travel in one flat buffer, summed over
+  ``data`` and, when the sequence is split, ``seq``.  Never over
+  ``model``: the identities' backward already summed what crosses it.
+* ``remat`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, non-reentrant).  Every rank issues the
+  same collectives in the same order, the recompute's included.
+
+The soft-gated MoE with expert parallelism (``n_experts``, the
+``expert`` axis) and the GPipe pipeline are not ported yet (ROADMAP A6b).
 
 Numerics follow flax: parameters are fp32 masters and every layer casts
 its input and parameters to ``config.dtype`` in its forward (no
@@ -31,22 +68,27 @@ decode attends over the cache densely, as flax's decode mode does.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from . import quantize
+from . import distributed, quantize
 
 #: optax.adamw(3e-4)'s settings (optax 0.2 defaults: b1 0.9, b2 0.999,
 #: eps 1e-8, weight decay 1e-4 on every parameter).
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 #: flax LayerNorm's default epsilon (torch's is 1e-5).
 LN_EPS = 1e-6
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,40 +100,38 @@ class ModelConfig:
     d_ff: int = 256
     max_seq_len: int = 64
     dtype: Any = torch.float32  # bfloat16 on the card
-    #: The fields below exist in the JAX config; the port runs none of
-    #: them yet and raises rather than ignore one.
+    #: Mesh axis name of sequence parallelism (None = off).  On a mesh,
+    #: activations outside attention are split over it (Megatron SP).
     seq_axis: Any = None
+    #: Mixture-of-experts width (0 = dense MLP).  Not ported: it raises.
     n_experts: int = 0
+    #: With ``seq_axis``: ring attention over the seq group (Q stays
+    #: split, K/V travel the ring) instead of gathering the sequence.
     ring_attention: bool = False
+    #: With ``ring_attention``: the flash kernels as the ring's block-pair
+    #: engine; the block must tile the local sequence, or the einsum ring
+    #: runs, loudly.
     ring_flash: bool = False
+    #: With ``ring_flash``: "zigzag" runs the balanced causal ring.
     ring_layout: str = "contiguous"
+    #: Recompute each block's activations in the backward instead of
+    #: keeping them.  Same loss; gradients equal up to rounding.
     remat: bool = False
     #: Route attention through the CUDA flash kernels
-    #: (:mod:`.flash_attention`), padding the sequence to a whole block.
+    #: (:mod:`.flash_attention`), padding the sequence to a whole block,
+    #: where the sequence is whole on each rank.
     flash_attention: bool = False
     #: Decode mode: :class:`TinyLM` takes one token per call with a
     #: :class:`KVCache` (``generate`` sets it, as the JAX package does).
     decode: bool = False
 
     def __post_init__(self) -> None:
-        spmd = "the SPMD part of k8s_operator_libs_tpu/tpu/workload.py"
-        # the ring functions are ported (.ring_attention); their model
-        # seam, ring_attention_sharded inside Block, comes with the mesh
-        ring = f"{spmd} (ring attention inside Block)"
-        not_ported = {
-            "n_experts": (self.n_experts > 0, f"{spmd} (MoE, expert parallelism)"),
-            "seq_axis": (self.seq_axis is not None, f"{spmd} (sequence parallelism)"),
-            "ring_attention": (self.ring_attention, ring),
-            "ring_flash": (self.ring_flash, ring),
-            "ring_layout": (self.ring_layout != "contiguous", ring),
-            "remat": (self.remat, f"{spmd} (remat)"),
-        }
-        for field, (set_, module) in not_ported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"ModelConfig.{field} is not ported to PyTorch yet: it waits "
-                    f"for the port of {module}"
-                )
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                "ModelConfig.n_experts is not ported to PyTorch yet: the soft-gated MoE "
+                "with expert parallelism of k8s_operator_libs_tpu/tpu/workload.py waits "
+                "for ROADMAP A6b"
+            )
 
 
 def resolve_device(device) -> torch.device:
@@ -104,6 +144,266 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+# ------------------------------------------------------------- the mesh
+
+
+class _Spmd:
+    """This rank's place on a :func:`.distributed.global_mesh`: the axis
+    sizes, its index on each, and the groups of the step's collectives
+    (``model`` is None when the axis has one rank; ``data_seq`` spans
+    this rank's (data, seq) submesh, the ranks that hold the same
+    parameter slices)."""
+
+    def __init__(self, mesh) -> None:
+        sizes = {name: mesh[name].size() for name in distributed.AXES}
+        if sizes["expert"] > 1:
+            raise NotImplementedError(
+                f"a mesh with expert axis {sizes['expert']} is not ported to PyTorch yet: "
+                "expert parallelism (the soft-gated MoE of "
+                "k8s_operator_libs_tpu/tpu/workload.py) waits for ROADMAP A6b"
+            )
+        self.mesh = mesh
+        self.dp, self.sp, self.tp = sizes["data"], sizes["seq"], sizes["model"]
+        self.data_index = mesh.get_local_rank("data")
+        self.seq_index = mesh.get_local_rank("seq")
+        self.data = mesh.get_group("data")
+        self.seq = mesh.get_group("seq")
+        self.model = mesh.get_group("model") if self.tp > 1 else None
+        if self.sp == 1:
+            self.data_seq = self.data
+        elif self.dp == 1:
+            self.data_seq = self.seq
+        else:  # a group per (model, expert) coordinate, made on every rank
+            ranks = mesh.mesh.reshape(self.dp * self.sp, -1).T.tolist()
+            self.data_seq, _ = dist.new_subgroups_by_enumeration(ranks)
+
+
+def _own(x, group, dim: int):
+    """This rank's chunk of *x* along *dim*, of the group's equal chunks."""
+    return x.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)].contiguous()
+
+
+class _ToModel(torch.autograd.Function):
+    """Megatron's f, before column-parallel layers: identity forward; the
+    gradient summed over the model group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = distributed.all_reduce_sum(grad.to(torch.float32, copy=True), ctx.group)
+        return summed.to(grad.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g, after row-parallel layers: the partial products
+    summed over the model group (in fp32, returned fp32) forward;
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.dtype = x.dtype
+        return distributed.all_reduce_sum(x.to(torch.float32, copy=True), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along *dim* over *group*.  Backward: this rank's chunk
+    of the gradient, summed over the group when *reduce* (a
+    reduce-scatter, in fp32: the ranks use the gathered sequence for
+    different outputs) and as it is otherwise (the ranks hold the same
+    gradient: the model axis's features and logits)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, reduce):
+        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
+        return distributed.all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.reduce:
+            summed = distributed.reduce_scatter_sum(grad.float(), ctx.group, ctx.dim)
+            return summed.to(grad.dtype), None, None, None
+        return _own(grad, ctx.group, ctx.dim), None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's chunk along *dim* of a tensor every rank of *group*
+    holds whole.  Backward: the gradient in that chunk and zero in the
+    others, whose gradients arise on their own ranks (the gather's
+    reduce-scatter sums them)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.shape = group, dim, x.shape
+        return _own(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        full = grad.new_zeros(ctx.shape)
+        n = grad.shape[ctx.dim]
+        full.narrow(ctx.dim, dist.get_rank(ctx.group) * n, n).copy_(grad)
+        return full, None, None
+
+
+def param_partition_spec(name: str) -> Optional[int]:
+    """The dimension of state_dict entry *name* that the ``model`` axis
+    splits, or None where every model rank holds it whole: the JAX
+    module's path rule over torch's layouts (``Dense.weight`` is ``[out,
+    in]``, the transpose of flax's kernel).
+
+    * ``query``/``key``/``value``/``mlp_up`` split their output, weight
+      and bias (column-parallel);
+    * ``out``/``mlp_down`` split their input; their bias replicates
+      (row-parallel);
+    * ``embed``/``pos_embed`` split their features;
+    * ``lm_head`` splits the vocabulary, weight and bias;
+    * LayerNorms replicate.
+
+    Attention splits by whole heads, not by head_dim as flax's 3-D
+    kernel spec reads: the flash kernels need whole heads on a rank, and
+    the rows of a ``[h*hd, d]`` weight are head-major, so a contiguous
+    row slice is a set of heads (:func:`shard_params` checks that the
+    heads divide)."""
+    layer, leaf = name.split(".")[-2:]
+    if layer in ("query", "key", "value", "mlp_up", "lm_head"):
+        return 0
+    if layer in ("out", "mlp_down"):
+        return 1 if leaf == "weight" else None
+    if layer in ("embed", "pos_embed"):
+        return 1
+    return None
+
+
+def shard_params(state_dict, mesh, n_heads: int) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a full *state_dict* (a TinyLM's, or
+    :func:`..convert.params_from_jax`'s) per :func:`param_partition_spec`:
+    of each split dimension the model axis's equal chunks, this rank's
+    one.  Raises ValueError when the axis does not divide the heads or a
+    split dimension."""
+    tp, index = mesh["model"].size(), mesh.get_local_rank("model")
+    if n_heads % tp:
+        raise ValueError(
+            f"param_partition_spec splits attention by whole heads: n_heads ({n_heads}) "
+            f"is not divisible by the model axis ({tp})"
+        )
+    out = {}
+    for name, t in state_dict.items():
+        dim = param_partition_spec(name)
+        if dim is None or tp == 1:
+            out[name] = t
+            continue
+        if t.shape[dim] % tp:
+            raise ValueError(
+                f"param_partition_spec splits {name} on dim {dim} ({t.shape[dim]}), "
+                f"which the model axis ({tp}) does not divide"
+            )
+        out[name] = t.chunk(tp, dim)[index].contiguous()
+    return out
+
+
+def gather_params(state_dict, mesh) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params`: the full state_dict from every
+    model rank's slices.  A collective over the model group: every rank
+    of it calls, and each gets the whole."""
+    if mesh["model"].size() == 1:
+        return dict(state_dict)
+    group = mesh.get_group("model")
+    out = {}
+    for name, t in state_dict.items():
+        dim = param_partition_spec(name)
+        out[name] = t if dim is None else distributed.all_gather(t, group, dim)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How attention runs for one shape (:func:`attention_plan`)."""
+
+    tier: str  # "ring", "flash" (per-device kernel) or "gather" (dense)
+    #: The sequence is split over the seq axis outside attention.
+    seq_split: bool = False
+    #: ring: the flash kernels as the pair engine, the layout, the block
+    use_flash: bool = False
+    layout: str = "contiguous"
+    block: int = 128
+
+
+#: (seq_len, sp) combinations already warned about: the fallback from an
+#: indivisible sequence is logged once per shape, as the JAX module does.
+_ring_fallback_warned: set = set()
+
+
+def attention_plan(config: ModelConfig, seq_len: int, sp: int = 1,
+                   seq_sharding: bool = False) -> AttentionPlan:
+    """Block's choice of attention for a sequence of *seq_len* (after the
+    teacher-forcing shift): the JAX module's three tiers and their loud
+    fallbacks.  *seq_sharding*: the step runs on a mesh with the seq
+    axis configured, of *sp* ranks.
+
+    * ring, when ``ring_attention`` is set and *seq_len* divides by *sp*;
+      with ``ring_flash`` its block is ``min(128, span)``, the span being
+      the local sequence, or its half for zigzag; an untileable span
+      warns and runs the einsum ring;
+    * flash, when ``flash_attention`` is set and the sequence is whole on
+      each rank;
+    * gather otherwise; ``flash_attention`` under sequence sharding warns.
+
+    An indivisible *seq_len* warns once per ``(seq_len, sp)`` and
+    gathers, as in JAX; here the sequence then also replicates over the
+    seq axis for that shape, where XLA pads an uneven split."""
+    cfg = config
+    split = seq_sharding and seq_len % sp == 0
+    if seq_sharding and not split and (seq_len, sp) not in _ring_fallback_warned:
+        _ring_fallback_warned.add((seq_len, sp))
+        if cfg.ring_attention:
+            _log.warning(
+                "ring_attention requested but seq length %d is not divisible by the %r "
+                "mesh axis (size %d); falling back to all-gather attention (O(seq) "
+                "memory) for this shape — pad/choose a divisible sequence length to "
+                "get the ring", seq_len, cfg.seq_axis, sp,
+            )
+        else:
+            _log.warning(
+                "sequence parallelism: seq length %d is not divisible by the %r mesh "
+                "axis (size %d); the sequence replicates over that axis for this "
+                "shape — pad/choose a divisible sequence length to split it",
+                seq_len, cfg.seq_axis, sp,
+            )
+    if cfg.ring_attention and split:
+        s_loc = max(1, seq_len // sp)
+        use_flash = cfg.ring_flash
+        layout = cfg.ring_layout if use_flash else "contiguous"
+        if use_flash:
+            span = s_loc // 2 if layout == "zigzag" else s_loc
+            blk = min(128, max(1, span))
+            if span <= 0 or span % blk or (layout == "zigzag" and s_loc % 2):
+                _log.warning(
+                    "ring_flash(%s): flash block %d does not tile the local sequence "
+                    "%d — falling back to the einsum ring for this shape",
+                    layout, blk, s_loc,
+                )
+                use_flash, layout = False, "contiguous"
+        else:
+            blk = min(128, s_loc)
+        return AttentionPlan("ring", True, use_flash, layout, blk)
+    if cfg.flash_attention and not seq_sharding:
+        return AttentionPlan("flash")
+    if cfg.flash_attention:
+        _log.warning(
+            "flash_attention=True but sequence sharding is active: the per-chip flash "
+            "kernel needs the full sequence — falling back to all-gather attention "
+            "(use ring_attention for the sharded path)"
+        )
+    return AttentionPlan("gather", split)
 
 
 # ------------------------------------------------------------- layers
@@ -120,18 +420,29 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
 class Dense(nn.Linear):
     """``nn.Linear`` with fp32 master weights and flax Dense numerics:
     input, weight and bias cast to *dtype* in the forward.  The weight is
-    torch's ``[out, in]``; flax's kernel is its transpose."""
+    torch's ``[out, in]``; flax's kernel is its transpose.
 
-    def __init__(self, in_f, out_f, dtype, device, generator) -> None:
+    *parallel* is its role once its weight is split over a model group
+    (``group``, set by :class:`TinyLM`): "column" splits the output (the
+    caller passes the input through :class:`_ToModel`), "row" the input:
+    the partial products are summed over the group in fp32, then the
+    bias, whole on every rank, is added."""
+
+    def __init__(self, in_f, out_f, dtype, device, generator, parallel=None) -> None:
         super().__init__(in_f, out_f, device=device, dtype=torch.float32)
         self.compute_dtype = dtype
+        self.parallel = parallel
+        self.group = None
         with torch.no_grad():
             _lecun_normal_(self.weight, in_f, generator)
             self.bias.zero_()
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.group is None or self.parallel == "column":
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = _ReduceFromModel.apply(F.linear(x.to(dt), self.weight.to(dt)), self.group)
+        return (y + self.bias.to(dt).float()).to(dt)
 
 
 class Embed(nn.Module):
@@ -195,23 +506,21 @@ class KVCache:
 class Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (qkv_features = d_model):
     query/key/value/out projections with biases, causal attention between
-    them — dense, or the flash kernels; over a :class:`KVCache` in
-    decode."""
+    them as the :class:`AttentionPlan` says — dense, the flash kernels or
+    a ring; over a :class:`KVCache` in decode.  On a model axis its
+    projections hold this rank's heads, ``head_dim`` wide each."""
 
     def __init__(self, cfg: ModelConfig, device, generator) -> None:
         super().__init__()
         d = cfg.d_model
-        self.n_heads = cfg.n_heads
+        self.seq_axis = cfg.seq_axis
+        self.head_dim = d // cfg.n_heads
         for name in ("query", "key", "value", "out"):
-            self.add_module(name, Dense(d, d, cfg.dtype, device, generator))
-        if cfg.flash_attention:
-            from .flash_attention import make_flash_attention_fn
+            role = "row" if name == "out" else "column"
+            self.add_module(name, Dense(d, d, cfg.dtype, device, generator, role))
 
-            self.attention_fn = make_flash_attention_fn()
-        else:
-            self.attention_fn = self._dense_causal
-
-    def _dense_causal(self, q, k, v):
+    @staticmethod
+    def _dense_causal(q, k, v):
         """Causal attention in the compute dtype (the "gather" path)."""
         s = q.shape[1]
         return _attend(q, k, v, torch.ones(s, s, dtype=torch.bool, device=q.device).tril())
@@ -226,15 +535,35 @@ class Attention(nn.Module):
         visible = torch.arange(keys.shape[1], device=q.device) <= i
         return _attend(q, keys, values, visible)
 
-    def forward(self, x, cache: KVCache = None, layer: int = 0):
-        b, s, d = x.shape
-        split = lambda t: t.reshape(b, s, self.n_heads, d // self.n_heads)  # noqa: E731
+    def forward(self, x, plan: AttentionPlan, cache: KVCache = None, layer: int = 0,
+                spmd: Optional[_Spmd] = None):
+        gathered = plan.tier == "gather" and plan.seq_split
+        if gathered:  # Megatron SP: attention sees the whole sequence
+            x = _Gather.apply(x, spmd.seq, 1, True)
+        if spmd is not None and spmd.model is not None:
+            x = _ToModel.apply(x, spmd.model)
+        b, s, _ = x.shape
+        split = lambda t: t.reshape(b, s, -1, self.head_dim)  # noqa: E731
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        if cache is None:
-            h = self.attention_fn(q, k, v)
-        else:
+        if cache is not None:
             h = self._cached(q, k, v, cache, layer)
-        return self.out(h.reshape(b, s, d))
+        elif plan.tier == "ring":
+            from .ring_attention import ring_attention_sharded
+
+            h = ring_attention_sharded(
+                q, k, v, spmd.mesh, self.seq_axis, causal=True, use_flash=plan.use_flash,
+                flash_block=plan.block, layout=plan.layout,
+            )
+        elif plan.tier == "flash":
+            from .flash_attention import make_flash_attention_fn
+
+            h = make_flash_attention_fn()(q, k, v)
+        else:
+            h = self._dense_causal(q, k, v)
+        h = h.reshape(b, s, -1)
+        if gathered:  # back to this rank's chunk, before the out projection
+            h = _Slice.apply(h, spmd.seq, 1)
+        return self.out(h)
 
 
 class Block(nn.Module):
@@ -246,21 +575,29 @@ class Block(nn.Module):
         self.ln_attn = LayerNorm(cfg.d_model, dt, device)
         self.attn = Attention(cfg, device, generator)
         self.ln_mlp = LayerNorm(cfg.d_model, dt, device)
-        self.mlp_up = Dense(cfg.d_model, cfg.d_ff, dt, device, generator)
-        self.mlp_down = Dense(cfg.d_ff, cfg.d_model, dt, device, generator)
+        self.mlp_up = Dense(cfg.d_model, cfg.d_ff, dt, device, generator, "column")
+        self.mlp_down = Dense(cfg.d_ff, cfg.d_model, dt, device, generator, "row")
 
-    def forward(self, x, cache: KVCache = None, layer: int = 0):
-        x = x + self.attn(self.ln_attn(x), cache, layer)
-        h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
+    def forward(self, x, plan: AttentionPlan, cache: KVCache = None, layer: int = 0,
+                spmd: Optional[_Spmd] = None):
+        x = x + self.attn(self.ln_attn(x), plan, cache, layer, spmd)
+        h = self.ln_mlp(x)
+        if spmd is not None and spmd.model is not None:
+            h = _ToModel.apply(h, spmd.model)
+        h = F.gelu(self.mlp_up(h), approximate="tanh")
         return x + self.mlp_down(h)
 
 
 class TinyLM(nn.Module):
     """Causal LM: embed → blocks → LN → logits.  Submodule names follow
     the flax param tree (``block_0/attn/query`` is ``block_0.attn.query``)
-    so :mod:`..convert` maps one onto the other."""
+    so :mod:`..convert` maps one onto the other.
 
-    def __init__(self, config: ModelConfig, device="cuda", seed: int = 0) -> None:
+    With a *mesh* (:func:`.distributed.global_mesh`) the model is built
+    whole from *seed* on every rank, then keeps this rank's slice of each
+    parameter (:func:`shard_params`); its state_dict keys stay TinyLM's."""
+
+    def __init__(self, config: ModelConfig, device="cuda", seed: int = 0, mesh=None) -> None:
         super().__init__()
         cfg = self.config = config
         device = resolve_device(device)
@@ -270,39 +607,67 @@ class TinyLM(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}", Block(cfg, device, gen))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device, gen)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device, gen, "column")
+        self.spmd: Optional[_Spmd] = None
+        self._plans: Dict[tuple, AttentionPlan] = {}
+        if mesh is not None:
+            self._place(mesh)
 
-    def forward(self, tokens, positions=None, cache: KVCache = None):
+    def _place(self, mesh) -> None:
+        spmd = self.spmd = _Spmd(mesh)
+        if spmd.tp > 1:
+            shards = shard_params(self.state_dict(), mesh, self.config.n_heads)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    p.data = shards[name].clone()  # not a view that keeps the whole alive
+        for module in self.modules():
+            if isinstance(module, Dense):
+                module.group = spmd.model
+
+    def plan(self, seq_len: int, seq_sharding: bool = False) -> AttentionPlan:
+        """:func:`attention_plan` for this model, once per shape (its
+        warnings with it, as the JAX module's come once per trace)."""
+        key = (seq_len, seq_sharding)
+        if key not in self._plans:
+            sp = self.spmd.sp if self.spmd is not None else 1
+            self._plans[key] = attention_plan(self.config, seq_len, sp, seq_sharding)
+        return self._plans[key]
+
+    def forward(self, tokens, positions=None, cache: KVCache = None, plan: AttentionPlan = None):
         """Logits [b, s, vocab].  With a *cache* (decode) *tokens* is one
-        token per row, written at ``cache.index``, which then advances."""
+        token per row, written at ``cache.index``, which then advances.
+        On a mesh *tokens* are this rank's, at global *positions*, and
+        *plan* says how attention runs (the whole sequence on every rank
+        when None)."""
         if cache is None and self.config.decode:
             raise ValueError("a decode-mode TinyLM takes a KVCache")
         if cache is not None and tokens.shape[1] != 1:
             raise ValueError(f"decode feeds one token per row, got {tokens.shape[1]}")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        if plan is None:
+            plan = self.plan(tokens.shape[1])
+        model_group = self.spmd.model if self.spmd is not None else None
         x = self.embed(tokens) + self.pos_embed(positions)
+        if model_group is not None:  # feature slices -> whole features
+            x = _Gather.apply(x, model_group, -1, False)
+        remat = self.config.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.config.n_layers):
-            x = getattr(self, f"block_{i}")(x, cache, i)
+            block = getattr(self, f"block_{i}")
+            if remat:
+                x = checkpoint(block, x, plan, None, i, self.spmd, use_reentrant=False)
+            else:
+                x = block(x, plan, cache, i, self.spmd)
         if cache is not None:
             cache.index += 1
-        return self.lm_head(self.ln_f(x))
+        x = self.ln_f(x)
+        if model_group is None:
+            return self.lm_head(x)
+        logits = self.lm_head(_ToModel.apply(x, model_group))
+        return _Gather.apply(logits, model_group, -1, False)  # vocabulary slices
 
 
 # ------------------------------------------------------------ train state
-
-
-def _data_axis(mesh):
-    """(group, size, index) of this rank on *mesh*'s ``data`` axis.  Only
-    the data axis is ported: any other axis larger than 1 raises."""
-    wider = {name: mesh[name].size() for name in ("seq", "model", "expert") if mesh[name].size() > 1}
-    if wider:
-        raise NotImplementedError(
-            f"mesh axes {wider} are not ported to PyTorch yet: only the data axis "
-            "is; the rest waits for the port of the SPMD part of "
-            "k8s_operator_libs_tpu/tpu/workload.py (tensor, sequence and expert parallelism)"
-        )
-    return mesh.get_group("data"), mesh["data"].size(), mesh.get_local_rank("data")
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -318,20 +683,10 @@ def _unflatten_into(flat: torch.Tensor, tensors) -> None:
 
 def create_train_state(config: ModelConfig, device="cuda", seed: int = 0, mesh=None):
     """(model, optimizer): TinyLM from *seed* and ``optax.adamw(3e-4)``'s
-    torch counterpart.  With a *mesh* (:func:`.distributed.global_mesh`)
-    the parameters are broadcast from the data axis's first rank, so
-    every replica starts from the same weights."""
-    device = resolve_device(device)
-    model = TinyLM(config, device=device, seed=seed)
-    if mesh is not None:
-        import torch.distributed as dist
-
-        group, _, _ = _data_axis(mesh)
-        params = list(model.parameters())
-        with torch.no_grad():
-            flat = _flat(params)
-            dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
-            _unflatten_into(flat, params)
+    torch counterpart.  With a *mesh* every rank builds the same whole
+    model from *seed* and keeps its slice, as the JAX module inits its
+    params and places them on the mesh."""
+    model = TinyLM(config, device=resolve_device(device), seed=seed, mesh=mesh)
     optimizer = torch.optim.AdamW(model.parameters(), **ADAMW)
     return model, optimizer
 
@@ -347,18 +702,48 @@ def loss_fn(model: TinyLM, tokens):
     return _token_nll(model(tokens[:, :-1]), tokens[:, 1:])
 
 
+def _rank_loss(model: TinyLM, tokens):
+    """(this rank's share of the loss of the global batch *tokens*, the
+    attention plan).  The share covers the rank's rows (data axis) and,
+    when the sequence is split, its chunk of positions (the zigzag pair
+    of chunks for the zigzag ring); its NLL sum over the global token
+    count, so the shares sum to the mean over the ranks that the step
+    reduces over."""
+    spmd = model.spmd
+    if tokens.shape[0] % spmd.dp:
+        raise ValueError(f"global batch {tokens.shape[0]} not divisible by the data axis ({spmd.dp})")
+    rows = tokens.shape[0] // spmd.dp
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    n_tokens = targets.numel()
+    inputs, targets = (t[spmd.data_index * rows:(spmd.data_index + 1) * rows] for t in (inputs, targets))
+    s = inputs.shape[1]
+    plan = model.plan(s, seq_sharding=model.config.seq_axis is not None)
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    if plan.seq_split:
+        if plan.layout == "zigzag":
+            from .ring_attention import to_zigzag
+
+            inputs, targets, positions = (to_zigzag(t, spmd.sp) for t in (inputs, targets, positions))
+        n = s // spmd.sp
+        inputs, targets, positions = (
+            t[:, spmd.seq_index * n:(spmd.seq_index + 1) * n] for t in (inputs, targets, positions)
+        )
+    nll = _token_nll(model(inputs, positions, plan=plan), targets)
+    return nll * (targets.numel() / n_tokens), plan
+
+
 def make_train_step(model: TinyLM, optimizer, mesh=None):
     """``step(tokens) -> loss``: one AdamW update, in place.
 
-    With a *mesh* the step is data-parallel over its ``data`` axis, as
-    the JAX step is under its ``P("data")`` batch sharding: every rank
-    passes the same global batch and takes its own contiguous shard of
-    rows; the gradients and the loss travel in one flat buffer through
-    one all-reduce over the data group and are divided by its size
-    before AdamW.  So every rank applies the same update and returns the
-    same loss, the mean over the global batch.  A plain all-reduce, not
-    ``DistributedDataParallel``: one collective per step, and the model
-    keeps TinyLM's state_dict keys for checkpoints and :mod:`..convert`."""
+    With a *mesh* (the one *model* was built on) the step is SPMD, as the
+    JAX step is under its shardings: every rank passes the same global
+    batch, computes its share of the loss (:func:`_rank_loss`), and the
+    gradients and the loss travel in one flat buffer, summed over the
+    data group, or the (data, seq) group when the sequence is split,
+    before AdamW.  So every rank applies the update the unsharded model would
+    and returns the same loss, the mean over the global batch.  Plain
+    collectives, not ``DistributedDataParallel``: the model keeps
+    TinyLM's state_dict keys for checkpoints and :mod:`..convert`."""
     if mesh is None:
 
         def step(tokens):
@@ -370,26 +755,22 @@ def make_train_step(model: TinyLM, optimizer, mesh=None):
 
         return step
 
-    import torch.distributed as dist
-
-    group, dp, index = _data_axis(mesh)
+    spmd = model.spmd
+    if spmd is None or spmd.mesh is not mesh:
+        raise ValueError("the model was not built on this mesh: create_train_state(..., mesh=mesh)")
     params = list(model.parameters())
 
-    def dp_step(tokens):
-        if tokens.shape[0] % dp:
-            raise ValueError(f"global batch {tokens.shape[0]} not divisible by the data axis ({dp})")
-        rows = tokens.shape[0] // dp
+    def spmd_step(tokens):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens[index * rows:(index + 1) * rows])
+        loss, plan = _rank_loss(model, tokens)
         loss.backward()
         flat = _flat([p.grad for p in params] + [loss.detach().float().reshape(1)])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(dp)
+        distributed.all_reduce_sum(flat, spmd.data_seq if plan.seq_split else spmd.data)
         _unflatten_into(flat[:-1], [p.grad for p in params])
         optimizer.step()
         return flat[-1]
 
-    return dp_step
+    return spmd_step
 
 
 def make_batch(config: ModelConfig, batch_size: int, seed: int = 0, device="cpu"):
@@ -407,19 +788,40 @@ def _checkpoint_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step}.pt")
 
 
+def _moments_by_rule(model, opt_state, fn):
+    """*opt_state* (AdamW's) with its moments passed through *fn*, a map
+    of ``{parameter name: tensor}`` dicts such as :func:`gather_params`:
+    each moment is split as its parameter is."""
+    names = [name for name, _ in model.named_parameters()]
+    per_param = opt_state["state"]
+    moments = {
+        key: fn({names[i]: s[key] for i, s in per_param.items()}) for key in ("exp_avg", "exp_avg_sq")
+    }
+    return {**opt_state, "state": {
+        i: {**s, **{key: moments[key][names[i]] for key in moments}} for i, s in per_param.items()
+    }}
+
+
+def _full_state(model, optimizer):
+    """(model state_dict, optimizer state_dict) of the whole model.  A
+    model split over a model axis gathers both (:func:`gather_params`),
+    as orbax saves the ``jax.device_get`` of sharded arrays: a collective
+    over the model group, which every rank of it calls."""
+    model_state, opt_state = model.state_dict(), optimizer.state_dict()
+    spmd = getattr(model, "spmd", None)
+    if spmd is None or spmd.model is None:
+        return model_state, opt_state
+    gather = lambda d: gather_params(d, spmd.mesh)  # noqa: E731
+    return gather(model_state), _moments_by_rule(model, opt_state, gather)
+
+
 def save_checkpoint(directory: str, step: int, model, optimizer) -> None:
-    """``torch.save`` of the full training state."""
+    """``torch.save`` of the full training state (:func:`_full_state`)."""
+    model_state, opt_state = _full_state(model, optimizer)
     os.makedirs(directory, exist_ok=True)
     path = _checkpoint_path(directory, step)
     tmp = path + ".tmp"
-    torch.save(
-        {
-            "step": step,
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
-        },
-        tmp,
-    )
+    torch.save({"step": step, "model": model_state, "optimizer": opt_state}, tmp)
     os.replace(tmp, path)  # a reader never sees half a checkpoint
 
 
@@ -435,6 +837,14 @@ class CheckpointingTrainer:
     Runs train steps; between steps polls the drain watcher — when the
     orchestrator requests a pre-drain checkpoint the trainer saves,
     acknowledges, and stops cleanly so the eviction finds an idle process.
+
+    With a *mesh* it holds this rank's share of the sharded state and
+    steps SPMD; :meth:`save` writes the full state (a collective) and
+    :meth:`load` takes one.  A job of several ranks drives ``step_fn``
+    and ``save`` under :class:`.multihost_trainer.MultihostDrainLoop`,
+    which stops every rank at one step: :meth:`run` refuses a watcher on
+    such a mesh, since polled by one rank alone it would stop only that
+    rank, whose save then waits for ranks that never join.
     """
 
     def __init__(
@@ -445,14 +855,16 @@ class CheckpointingTrainer:
         batch_size: int = 8,
         device="cuda",
         seed: int = 0,
+        mesh=None,
     ) -> None:
         self.config = config
         self.checkpoint_dir = checkpoint_dir
         self.watcher = watcher
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.model, self.optimizer = create_train_state(config, self.device, seed)
-        self.step_fn = make_train_step(self.model, self.optimizer)
+        self.mesh = mesh
+        self.model, self.optimizer = create_train_state(config, self.device, seed, mesh)
+        self.step_fn = make_train_step(self.model, self.optimizer, mesh)
         self.step = 0
         self.drained = False
         self.losses: list = []
@@ -461,14 +873,27 @@ class CheckpointingTrainer:
         save_checkpoint(self.checkpoint_dir, self.step, self.model, self.optimizer)
 
     def load(self, state: Dict[str, Any]) -> None:
-        """Continue from a :func:`restore_checkpoint` result."""
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Continue from a :func:`restore_checkpoint` result, the full
+        state; on a mesh this rank keeps its slice (:func:`shard_params`,
+        AdamW's moments by their parameter's rule)."""
+        model_state, opt_state = state["model"], state["optimizer"]
+        if self.model.spmd is not None and self.model.spmd.tp > 1:
+            shard = lambda d: shard_params(d, self.mesh, self.config.n_heads)  # noqa: E731
+            model_state = shard(model_state)
+            opt_state = _moments_by_rule(self.model, opt_state, shard)
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict(opt_state)
         self.step = state["step"]
 
     def run(self, n_steps: int) -> int:
         """Train up to *n_steps*; returns the step counter (it stops
-        early when a drain checkpoint ends the loop)."""
+        early when a drain checkpoint ends the loop).  Raises ValueError
+        for a watcher on a mesh of more than one rank."""
+        if self.watcher is not None and self.mesh is not None and self.mesh.size() > 1:
+            raise ValueError(
+                "a watcher polled by one rank of a mesh stops only that rank: drive "
+                "step_fn and save under multihost_trainer.MultihostDrainLoop instead"
+            )
         for _ in range(n_steps):
             if self.watcher is not None and self.watcher.check_and_acknowledge(
                 self.save
@@ -555,6 +980,11 @@ def _serving_model(config: ModelConfig, model_or_state, device: torch.device) ->
         fields = ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff", "max_seq_len", "dtype")
         if any(getattr(mc, f) != getattr(config, f) for f in fields):
             raise ValueError(f"model config {mc} does not match {config}")
+        if getattr(model_or_state, "spmd", None) is not None and model_or_state.spmd.tp > 1:
+            raise ValueError(
+                "decode runs on one device: this model is split over a model axis; "
+                "pass gather_params(model.state_dict(), mesh) instead"
+            )
         where = {t.device.type for t in model_or_state.state_dict().values()}
         if where != {device.type}:
             raise ValueError(f"model on {where}, generate on {device}")
