@@ -94,7 +94,25 @@ failure (the exit code is then non-zero and no result line is printed):
    acknowledges after the barrier, and its checkpoint, the full state,
    restored into a one-device trainer takes the mesh's next step within
    ``LOSS_TOL["bfloat16"]``;
-9. a ``{"kernels": [...]}`` line, the card line, and last
+9. the MoE, expert parallelism, the pipeline and the dryrun, at the
+   smoke width with 4 experts where an MoE runs: 9a, one-device MoE train
+   steps (the loss falls; each flash kernel ``n_layers`` times a step on
+   its tensor-core kernel; where a step's time goes); 9b, the int8
+   kernel at the router's shape (N = E = 4) against its plain version,
+   then MoE decode, float and int8, each cached within ``BF16_TOL`` of its
+   full-prefix recompute, the int8 kernel launched ((5 + 2E) x n_layers +
+   1) times a step on its tensor-core kernel, no flash, no host sync;
+   9c, phase 8's job on dp 1 x tp 2 x ep 2 (the MoE's experts split over
+   ``expert``, their hidden dimension over ``model``) with phase 8's
+   gates; 9d, the GPipe pipeline over four stages of one block, 4
+   microbatches of 2 rows, its losses within ``LOSS_TOL["bfloat16"]`` of
+   the sequential steps, its first-step gradients (the rest equal on every
+   stage) within ``SPMD_GRAD_TOL`` of theirs, and each stage's flash
+   launches one a microbatch;
+   9e, ``graft_entry.dryrun_multichip(4)``, every check held.  9c-9e run
+   four worker ranks on the one card over phase 7b's transport; phase 8
+   and 9c-9d trace one step more a rank for where its time goes;
+10. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -113,7 +131,8 @@ data-parallel drain (losses identical across ranks and within
 ``LOSS_TOL["bfloat16"]`` of one rank's plain step on the same batches)
 and every flash ring at s 8192 against single-device flash, with the
 same gates and timings; then, N a multiple of 4, phase 8 on a dp N/4 x
-sp 2 x tp 2 mesh; then the card line.
+sp 2 x tp 2 mesh and 9c on dp N/4 x tp 2 x ep 2; 9d where N is the smoke
+config's 4 layers; 9e; then the card line.
 
     python3 chip_smoke.py --int8-plans
 
@@ -526,60 +545,21 @@ def flash_vs_gather(config, dtype_name: str):
     return max(diffs)
 
 
-def _union_us(spans) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            total += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    return total + cur_end - cur_start
-
-
 def device_window(run, steps: int):
     """Host-clock ms per step of *run* (which runs *steps* steps and
     returns), then from a torch.profiler trace of another call the
-    device's busy ms per step (the union of its kernels' intervals), its
-    ops per step, the idle share of the traced window, and the kernels
-    that take most device time."""
+    device's busy ms per step, its ops per step, the idle share of the
+    traced window, and the kernels that take most device time
+    (``smoke.device_busy``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_operator_libs_tpu_torch.tpu import smoke
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    row = {"wall_ms_per_step": (time.perf_counter() - t0) / steps * 1e3}
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
-    ) as prof:
-        run()
-        torch.cuda.synchronize()
-    # device work only: a user annotation's device range spans the gaps
-    # between the kernels it encloses
-    device = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-    ]
-    if not device:
-        row["device_trace"] = "not measured: the profiler recorded no CUDA events"
-        return row
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy = _union_us(spans)
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    row.update(
-        device_busy_ms_per_step=busy / 1e3 / steps,
-        device_ops_per_step=len(device) / steps,
-        idle_pct_of_traced_window=100.0 * (1 - busy / (spans[-1][1] - spans[0][0])),
-        top_device_ms_per_step={n[:70]: t / 1e3 / steps for n, t in top},
-    )
-    return row
+    return {"wall_ms_per_step": (time.perf_counter() - t0) / steps * 1e3, **smoke.device_busy(run, steps)}
 
 
 def step_breakdown(config, steps: int = 5):
@@ -1328,31 +1308,40 @@ SPMD_RUNS = (
     ("zigzag", {**_RING_FLASH, "ring_layout": "zigzag"}),
     ("remat-ring-flash", {**_RING_FLASH, "remat": True}),
 )
+#: A job of the sharded step: the mesh's (sp, tp, ep) beside dp = ranks /
+#: 4, the config's fields over the smoke config with flash, the runs (2
+#: steps each, the first step's gradients gathered, one step more traced),
+#: and the fields of the drain's run.  Phase 8: dp 1 x sp 2 x tp 2 at 257
+#: tokens (128 positions a seq rank).
+SPMD_JOB = {"name": "sharded step", "mesh": SPMD_MESH[1:] + (1,), "config": {"max_seq_len": SPMD_SEQ},
+            "runs": SPMD_RUNS, "drain": _RING_FLASH}
 
 
 def _spmd_launches(config, row, remat: bool) -> dict:
     """The flash launches by entry point a rank of an SPMD run must make:
-    per step and layer, each of its ring pairs once forward and once in
-    each backward kernel, the forward again under remat's recompute; none
-    on the gather path (no pairs)."""
-    per = config.n_layers * row["pairs"] * row["steps"]
+    per step and layer, each of its ring pairs (one where attention is
+    per-device flash) once forward and once in each backward kernel, the
+    forward again under remat's recompute; none on the gather path."""
+    pairs = 1 if row["plan"]["tier"] == "flash" else row["pairs"]
+    per = config.n_layers * pairs * row["steps"]
     return {"flash_fwd": per * (2 if remat else 1), "flash_bwd_dq": per, "flash_bwd_dkv": per}
 
 
-def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
-    """The sharded train step (``dist_worker spmd``) over *n* ranks on a
-    dp (n/4) x sp 2 x tp 2 mesh at the smoke width, bf16, 2 steps per run:
-    gather SP with dense attention, the contiguous and zigzag flash rings,
-    the flash ring under remat, then a drain after one step on the flash
-    ring.  Gates: losses identical across ranks and within
-    ``LOSS_TOL["bfloat16"]`` of one device's flash step on the same
-    weights and batches; each rank's flash launches as
+def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8", job=SPMD_JOB) -> dict:
+    """The sharded train step (``dist_worker spmd``) of *job* over *n*
+    ranks at the smoke width, bf16, 2 steps per run, then a drain after
+    one step (phase 8: dp (n/4) x sp 2 x tp 2; gather SP with dense
+    attention, the contiguous and zigzag flash rings, the flash ring under
+    remat, the drain on the flash ring).  Gates: losses identical across
+    ranks and within ``LOSS_TOL["bfloat16"]`` of one device's flash step on
+    the same weights and batches; each rank's flash launches as
     :func:`_spmd_launches` says, all on the tensor-core kernels; the drain
     stopped every rank at one step and acknowledged, and its checkpoint,
     the full state, restored into a one-device trainer on the card takes
     the mesh's next step within ``LOSS_TOL["bfloat16"]``; each run's
     first-step gradients, gathered to the full state, within
-    ``SPMD_GRAD_TOL`` of one device's.  Returns the per-run record."""
+    ``SPMD_GRAD_TOL`` of one device's.  Returns the per-run record, with
+    each rank's device busy time of one traced step."""
     import dataclasses
     import uuid
 
@@ -1364,18 +1353,18 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
     from k8s_operator_libs_tpu_torch.tpu import smoke
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
 
-    mesh = [n // 4, *SPMD_MESH[1:]]
-    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), max_seq_len=SPMD_SEQ,
-                                 flash_attention=True)
+    mesh = [n // 4, *job["mesh"]]
+    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), flash_attention=True,
+                                 **job["config"])
     model, optimizer = wl.create_train_state(config, "cuda", seed=0)
     step = wl.make_train_step(model, optimizer)
     reference = [float(step(wl.make_batch(config, 8, seed=0, device="cuda")))]
     ref_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
     reference += [float(step(wl.make_batch(config, 8, seed=i, device="cuda"))) for i in range(1, SPMD_STEPS)]
     del model, optimizer, step
-    runs = [{"name": name, "mesh": mesh, "config": {"max_seq_len": SPMD_SEQ, **fields},
-             "steps": SPMD_STEPS, "grads": True} for name, fields in SPMD_RUNS]
-    runs.append({"name": "drain", "mesh": mesh, "config": {"max_seq_len": SPMD_SEQ, **_RING_FLASH},
+    runs = [{"name": name, "mesh": mesh, "config": {**job["config"], **fields},
+             "steps": SPMD_STEPS, "grads": True} for name, fields in job["runs"]]
+    runs.append({"name": "drain", "mesh": mesh, "config": {**job["config"], **job["drain"]},
                  "steps": 5, "drain": True})
     nodes = InMemoryNodeStore()
     nodes.create(make_node("gpu-host"))
@@ -1397,10 +1386,10 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
                                           device="cuda")
         trainer.load(state)
         trainer.run(1)
-    report = {"backend": backend, "mesh": mesh, "transport": lines[0]["runs"]["ring-flash"]["transport"],
+    report = {"backend": backend, "mesh": mesh, "transport": lines[0]["runs"][job["runs"][0][0]]["transport"],
               "reference_losses": reference, "runs": {},
               "worker_seconds": [line["seconds"] for line in lines]}
-    for name, fields in SPMD_RUNS + (("drain", _RING_FLASH),):
+    for name, fields in job["runs"] + (("drain", job["drain"]),):
         rows = [line["runs"][name] for line in lines]
         losses = rows[0]["losses"]  # the drain's: its one step before the stop
         if any(r["losses"] != losses for r in rows):
@@ -1430,6 +1419,7 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
             "pairs": [row["pairs"] for row in rows],
             "launches": [row["launches"] for row in rows],
             "step_ms": [row["step_ms"] for row in rows],
+            "device": [row.get("device") for row in rows],
         }
     next_diff = abs(trainer.losses[0] - drained[0]["next_loss"])
     if len({r["next_loss"] for r in drained}) != 1 or next_diff > LOSS_TOL["bfloat16"]:
@@ -1437,10 +1427,231 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8") -> dict:
                            f"next {[r['next_loss'] for r in drained]}")
     report["runs"]["drain"].update(stopped_at_step=step, next_loss=drained[0]["next_loss"],
                                    restored_next_loss=trainer.losses[0], next_diff=next_diff)
-    log(f"phase {what}, {n} ranks, sharded step:", json.dumps(report), "|", card)
+    log(f"phase {what}, {n} ranks, {job['name']}:", json.dumps(report), "|", card)
     del trainer
     torch.cuda.empty_cache()
     return report
+
+
+# ------------------------------------------------------------ phase 9
+
+
+#: Phase 9's MoE: the smoke width with 4 experts, the E of the JAX tests
+#: and dryrun.
+N_EXPERTS = 4
+#: 9a: one-device MoE steps on a fixed batch (the loss must fall).
+MOE_STEPS = 6
+#: 9c: the MoE on dp (n/4) x tp 2 x ep 2, 2 steps and a drain after one.
+EP_JOB = {"name": "EP step", "mesh": (1, 2, 2), "config": {"n_experts": N_EXPERTS},
+          "runs": (("ep", {}),), "drain": {}}
+#: 9d: GPipe over 4 stages (the smoke config's 4 layers), 4 microbatches
+#: of 2 rows of the batch of 8.
+PIPE_MICROBATCHES = 4
+PIPE_STEPS = 3
+
+
+def moe_config():
+    """The smoke config with ``N_EXPERTS`` experts and flash attention."""
+    import dataclasses
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+
+    return dataclasses.replace(smoke.smoke_config(torch.device("cuda")), flash_attention=True,
+                               n_experts=N_EXPERTS)
+
+
+def moe_train_phase(config, card: str) -> dict:
+    """9a: ``MOE_STEPS`` one-device MoE train steps on a fixed batch, the
+    launch counts read around them.  Gates: the loss falls and is finite;
+    each flash kernel launched ``n_layers`` times a step, all on the
+    tensor-core kernels.  Then where a step's time goes
+    (:func:`device_window`)."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    model, optimizer = wl.create_train_state(config, "cuda", seed=0)
+    step = wl.make_train_step(model, optimizer)
+    batch = wl.make_batch(config, 8, seed=0, device="cuda")
+    fa.reset_launch_counts()
+    losses = [float(step(batch)) for _ in range(MOE_STEPS)]
+    launches = dict(fa.launch_counts)
+    device_launches = {k: n for k, n in fa.device_launch_counts.items() if n}
+    want = dict.fromkeys(launches, config.n_layers * MOE_STEPS)
+    if launches != want:
+        raise RuntimeError(f"9a MoE step: flash launches {launches}, want {want}")
+    _check_flash_launches("9a MoE step", device_launches, want)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"9a MoE step: losses {losses} do not fall")
+
+    def run():
+        for _ in range(5):
+            step(batch)
+
+    rec = {"n_experts": config.n_experts, "losses": losses,
+           "launches_per_step": {k: n / MOE_STEPS for k, n in launches.items()},
+           "device_kernel_launches_per_step": {k: n / MOE_STEPS for k, n in device_launches.items()},
+           "timing": device_window(run, 5)}
+    log("phase 9a MoE train step (one device):", json.dumps(rec), "|", card)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_decode_phase(config, card: str, prompt_len: int = 16, new_tokens: int = 32) -> dict:
+    """9b: the MoE serving path from seed-0 weights, float and int8.  The
+    int8 kernel first at the router's shape (M 8, K d_model, N = E = 4:
+    fewer weight rows than the kernel's 16-row tile, which no earlier phase
+    ran) against its plain version; then gates: each model's cached decode
+    logits within ``BF16_TOL`` of its full-prefix recompute; the int8
+    model's ``generate`` launches the int8 kernel ``(5 + 2E) n_layers + 1``
+    times a step, all on the bf16 tensor-core kernel, no flash kernel, no
+    host synchronisation in the loop.  Then where a decode step's time
+    goes, float and int8."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    e, layers = config.n_experts, config.n_layers
+    out = {"router_err": check_int8(f"router-n{e}-bfloat16", 8, config.d_model, e, "bfloat16", seed=21)}
+    check_int8(f"router-n{e}-float32", 8, config.d_model, e, "float32", seed=21)
+    bf16 = dataclasses.replace(config, flash_attention=False)
+    b, total = 8, prompt_len + new_tokens
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, config.vocab_size, (b, prompt_len))).cuda()
+    model = wl.TinyLM(bf16, "cuda", seed=0)
+    int8 = wl.quantize_model(model)
+    tokens = wl.greedy_generate(bf16, int8, prompt, new_tokens)
+    for name, m in (("float", model), ("int8", int8)):
+        with torch.inference_mode():
+            full = m(tokens).float()
+        out[f"{name}_cache_err"] = check_close(f"9b MoE {name} decode vs full prefix",
+                                               decode_logits(bf16, m, tokens), full, "bfloat16")
+    qz.reset_launch_counts()
+    fa.reset_launch_counts()
+    gated = no_host_sync(lambda: wl.generate(bf16, int8, prompt, new_tokens))
+    launches = qz.launch_counts["int8_linear"]
+    device_launches = {k: n for k, n in qz.device_launch_counts.items() if n}
+    per_step = (5 + 2 * e) * layers + 1
+    want = per_step * (total - 1)
+    routed = qz.DEVICE_KERNELS["int8_linear"][config.dtype]
+    if launches != want or device_launches != {routed: want} or any(fa.launch_counts.values()):
+        raise RuntimeError(
+            f"9b int8 MoE launches {launches} by device kernel {device_launches} (want {want}, "
+            f"all {routed}), flash launches {fa.launch_counts} (want 0)"
+        )
+    if not torch.equal(gated, tokens):
+        raise RuntimeError("9b: two greedy int8 MoE generations differ")
+    out.update(launches=launches, launches_per_step=launches // (total - 1), device_kernel=routed)
+    out["decode_breakdown"] = {
+        name: device_window(lambda m=m: wl.generate(bf16, m, prompt, 8), prompt_len + 7)
+        for name, m in (("float", model), ("int8", int8))
+    }
+    log(f"phase 9b MoE decode: int8 launches {launches} = ((5+2*{e})*{layers}+1)*{total - 1}, all "
+        f"{routed}; flash 0; no host sync; {json.dumps(out)}", "|", card)
+    del model, int8
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_gradients(stage_grads: list, what: str) -> dict:
+    """The whole model's gradients from each stage's (``dist_worker
+    pipeline``'s ``--out``, by stage): stage r's ``block.<key>`` as
+    ``block_r.<key>``, the rest from stage 0 after checking that every
+    stage holds the same rest gradients, bit for bit."""
+    import torch
+
+    grads, rest = {}, {k: g for k, g in stage_grads[0].items() if not k.startswith("block.")}
+    for r, g in enumerate(stage_grads):
+        own = {k: v for k, v in g.items() if not k.startswith("block.")}
+        if own.keys() != rest.keys() or not all(torch.equal(v, rest[k]) for k, v in own.items()):
+            raise RuntimeError(f"{what} stage {r}: rest gradients differ from stage 0's")
+        grads.update({f"block_{r}.{k[len('block.'):]}": v for k, v in g.items() if k.startswith("block.")})
+    return {**grads, **rest}
+
+
+def pipeline_phase(backend: str, card: str, n: int = 4, what: str = "9d") -> dict:
+    """9d: the GPipe pipeline (``dist_worker pipeline``) over *n* stages of
+    one block each at the smoke width (4 layers), bf16, flash, the batch of
+    8 in ``PIPE_MICROBATCHES`` microbatches, ``PIPE_STEPS`` AdamW steps on
+    a fixed batch.  Gates: losses identical on every stage and within
+    ``LOSS_TOL["bfloat16"]`` of the sequential one-device steps on the
+    same weights and batch; the first step's gradients (each stage's
+    block as that layer's, the rest equal on every stage) within
+    ``SPMD_GRAD_TOL`` of the sequential step's; each stage's flash
+    launches one a microbatch per step for each kernel, all on the
+    tensor-core kernels."""
+    import dataclasses
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), flash_attention=True)
+    model, optimizer = wl.create_train_state(config, "cuda", seed=0)
+    step = wl.make_train_step(model, optimizer)
+    batch = wl.make_batch(config, 8, seed=0, device="cuda")
+    reference = [float(step(batch))]
+    ref_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    reference += [float(step(batch)) for _ in range(1, PIPE_STEPS)]
+    del model, optimizer, step
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-9d-") as tmp:
+        args = ["pipeline", "--device", "cuda", "--backend", backend, "--config", "smoke",
+                "--steps", str(PIPE_STEPS), "--batch", "8", "--microbatches", str(PIPE_MICROBATCHES),
+                "--out", f"{tmp}/rank{{rank}}.pt"]
+        with Ranks(n, args) as ranks:
+            lines = ranks.results(RANKS_DEADLINE)
+        stage_grads = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(n)]
+    grads = stage_gradients(stage_grads, what)
+    if set(grads) != set(ref_grads):
+        raise RuntimeError(f"{what}: gradients of {sorted(grads)}")
+    grad_err = layer_rel_err(grads, ref_grads)
+    if not grad_err[0] <= SPMD_GRAD_TOL:
+        raise RuntimeError(f"{what}: first-step gradient of {grad_err[1]} off the sequential step's by "
+                           f"{grad_err[0]:.3e} of its max > {SPMD_GRAD_TOL}")
+    losses = lines[0]["losses"]
+    if [line["stage"] for line in lines] != list(range(n)) or any(line["losses"] != losses for line in lines):
+        raise RuntimeError(f"{what}: stages {[line['stage'] for line in lines]}, losses "
+                           f"{[line['losses'] for line in lines]}")
+    diff = max(abs(a - b) for a, b in zip(losses, reference))
+    if diff > LOSS_TOL["bfloat16"] or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{what}: pipelined losses {losses} vs sequential {reference}: {diff:.3e}")
+    want = dict.fromkeys(fa.launch_counts, PIPE_MICROBATCHES * PIPE_STEPS)
+    for line in lines:
+        if line["launches"] != want:
+            raise RuntimeError(f"{what} stage {line['stage']}: launches {line['launches']}, want {want}")
+        _check_flash_launches(f"{what} stage {line['stage']}", line["device_launches"], want)
+    rec = {"backend": backend, "stages": n, "microbatches": PIPE_MICROBATCHES, "losses": losses,
+           "sequential_losses": reference, "max_diff_vs_sequential": diff,
+           "grad_rel_err_vs_sequential": grad_err,
+           "launches": [line["launches"] for line in lines],
+           "step_ms": [line["step_ms"] for line in lines],
+           "device": [line.get("device") for line in lines],
+           "worker_seconds": [line["seconds"] for line in lines]}
+    log(f"phase {what}, {n} stages, GPipe:", json.dumps(rec), "|", card)
+    return rec
+
+
+def dryrun_phase(backend: str, card: str, n: int = 4, what: str = "9e") -> dict:
+    """9e: ``graft_entry.dryrun_multichip`` over *n* ranks and *backend*
+    on the card: it raises unless every check holds."""
+    from k8s_operator_libs_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    losses = graft_entry.dryrun_multichip(n, "cuda", backend=backend, timeout=RANKS_DEADLINE)
+    rec = {"backend": backend, "ranks": n, "losses": losses, "seconds": time.perf_counter() - t0}
+    log(f"phase {what} dryrun_multichip, every check held:", json.dumps(rec), "|", card)
+    return rec
 
 
 def compiled_report():
@@ -1584,8 +1795,14 @@ def nccl_ranks(n: int) -> None:
     t2 = time.perf_counter()
     if n % 4 == 0:
         spmd_phase("nccl", card, n, what=f"{n} cards")
+    t3 = time.perf_counter()
+    if n % 4 == 0:
+        spmd_phase("nccl", card, n, what=f"{n} cards 9c", job=EP_JOB)
+    if n == config.n_layers:  # one block a stage
+        pipeline_phase("nccl", card, n, what=f"{n} cards 9d")
+    dryrun_phase("nccl", card, n, what=f"{n} cards 9e")
     log(f"{n} cards: drain {t1 - t0:.1f} s, rings {t2 - t1:.1f} s, sharded step "
-        f"{time.perf_counter() - t2:.1f} s")
+        f"{t3 - t2:.1f} s, phase 9 {time.perf_counter() - t3:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1750,7 +1967,23 @@ def main(argv=None) -> int:
     spmd = spmd_phase(backend, card)
     log(f"phase 8 done {time.perf_counter() - t_start:.1f} s (phase 8 {time.perf_counter() - t8:.1f} s)")
 
-    # ---- 9. the result lines ----
+    # ---- 9. the MoE, expert parallelism, the pipeline and the dryrun ----
+    t9 = [time.perf_counter()]
+    moe = moe_config()
+    moe_train = moe_train_phase(moe, card)
+    t9.append(time.perf_counter())
+    moe_decode = moe_decode_phase(moe, card)
+    t9.append(time.perf_counter())
+    ep = spmd_phase(backend, card, what="9c", job=EP_JOB)
+    t9.append(time.perf_counter())
+    pipe = pipeline_phase(backend, card)
+    t9.append(time.perf_counter())
+    dryrun_phase(backend, card)
+    t9.append(time.perf_counter())
+    log(f"phase 9 done {t9[-1] - t_start:.1f} s (phase 9 {t9[-1] - t9[0]:.1f} s: "
+        + ", ".join(f"9{part} {b - a:.1f}" for part, a, b in zip("abcde", t9, t9[1:])) + ")")
+
+    # ---- 10. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -1792,6 +2025,15 @@ def main(argv=None) -> int:
                 f"8 {run} (per rank)": [counts[name] for counts in row["launches"]]
                 for run, row in spmd["runs"].items()
             },
+            # phase 9's paths: the one-device MoE step, the EP step per
+            # rank over its run (2 steps) and the drain's step, and the
+            # pipeline per stage per step (a launch a microbatch)
+            "moe_path_launches": {
+                "9a MoE step (one device, per step)": moe_train["launches_per_step"][name],
+                **{f"9c {run} (per rank)": [counts[name] for counts in row["launches"]]
+                   for run, row in ep["runs"].items()},
+                "9d GPipe (per stage, per step)": [counts[name] / PIPE_STEPS for counts in pipe["launches"]],
+            },
         })
     step = int8_timing["per_decode_step"]
     built = compiled.get(serving["device_kernel"], {})
@@ -1820,6 +2062,11 @@ def main(argv=None) -> int:
         # the kernel replaces (it reads twice the weight bytes)
         "library_ms": step["linear_ms"],
         "long_shape": int8_timing["long"],
+        # phase 9b: the int8 MoE decode's launches a step ((5 + 2E) layers
+        # + 1, all on the tensor-core kernel) and the router's N = E shape
+        # against the plain version
+        "moe_decode_launches_per_step": moe_decode["launches_per_step"],
+        "moe_router_max_abs_err": moe_decode["router_err"],
     })
     log("long-context:", json.dumps(long_timing))
     log(f"total {time.perf_counter() - t_start:.1f} s")

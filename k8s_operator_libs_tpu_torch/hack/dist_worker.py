@@ -1,9 +1,10 @@
 """One rank of a multi-process job: data-parallel training, the drain loop,
-the ring attention functions, the mesh, or the sharded train step.
+the ring attention functions, the mesh, the sharded train step (expert
+parallelism included), the GPipe pipeline, or the multi-rank dryrun.
 
     python -m k8s_operator_libs_tpu_torch.hack.dist_worker MODE [--device cpu|cuda]
         [--backend gloo|nccl] [--config tiny|smoke] [--steps N] [--inputs FILE] [--out FILE]
-        [--tp N]
+        [--tp N] [--batch N] [--microbatches N]
 
 Every rank reads its identity from the environment (``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; :mod:`..tpu.distributed`),
@@ -34,20 +35,38 @@ package's ``tests/distributed_worker.py`` and
   ranks and the rest data: its axis names and shape, and
   ``host_allreduce_max`` of the rank.
 * ``spmd``: every run of ``--inputs`` (JSON: ``{"runs": [{"name",
-  "mesh": [dp, sp, tp], "config": {ModelConfig fields over --config},
-  "steps", "batch" (default 8), "fixed_batch", "grads", "drain"}, ...]}``)
-  as SPMD train steps from seed-0 weights on the global batches
+  "mesh": [dp, sp, tp] or [dp, sp, tp, ep], "config": {ModelConfig
+  fields over --config}, "steps", "batch" (default 8), "fixed_batch",
+  "grads", "drain"}, ...]}``) as SPMD train steps from seed-0
+  weights on the global batches
   ``make_batch(cfg, batch, seed=step)`` (seed 0 every step with
   ``fixed_batch``), each mesh built once, in the order the runs first
   name it.  Per run the JSON line holds the losses, the step ms, the
   attention plan, the rank's indices and ring pairs, its parameter
   shard shapes, the flash launches and the workload's warnings; with
   ``grads`` the gradients of the first step, gathered to the full
-  state_dict, go to rank 0's ``--out``.  A ``drain`` run is the drain job on its
-  mesh (rank 0 watches ``DRAIN_NODE_NAME`` at ``FACADE_URL``, every rank
+  state_dict, go to rank 0's ``--out``; on the card, a run that is not a
+  drain traces one step more (``smoke.device_busy``, under ``device``),
+  after the launches are read.  A
+  ``drain`` run is the drain job on its mesh (rank 0 watches
+  ``DRAIN_NODE_NAME`` at ``FACADE_URL``, every rank
   saves under ``DRAIN_CKPT_DIR``/<name>) for at most ``steps`` steps, then
   one step more, whose loss (``next_loss``) a trainer restored from the
-  checkpoint must reproduce.
+  checkpoint must reproduce.  An ``ep`` wider than one runs the MoE's
+  expert parallelism (a config with ``n_experts``).
+* ``pipeline``: the GPipe pipeline, one stage a rank
+  (:func:`..tpu.workload.make_pipeline_mesh` over the world): from seed-0
+  weights, each rank keeps its block and the rest
+  (:func:`..tpu.workload.pipeline_stage_params`);
+  :func:`..tpu.workload.pipeline_loss_fn` on ``make_batch(cfg, --batch,
+  seed=0)`` in ``--microbatches``, its gradients (``block.<key>`` for the
+  stage's block, the rest by key) to ``--out``;
+  then ``--steps`` pipelined AdamW steps on that batch.  The JSON line
+  holds the stage, the loss, the step losses and ms, the stage's tensor
+  shapes and the flash launches of the steps; on the card, one step more
+  is traced (under ``device``).
+* ``dryrun``: :func:`..graft_entry.dryrun_rank`, this rank's part of
+  ``dryrun_multichip``; the line holds its losses.
 
 :class:`Ranks` starts every rank of such a job on this host, as the tests
 and ``chip_smoke.py`` do.
@@ -78,6 +97,7 @@ import torch.distributed as dist
 from ..tpu import distributed
 from ..tpu import flash_attention as fa
 from ..tpu import ring_attention as ra
+from ..tpu import smoke
 from ..tpu import workload as wl
 
 GLOBAL_BATCH = 8
@@ -97,9 +117,7 @@ def model_config(name: str, device: torch.device) -> wl.ModelConfig:
         return wl.ModelConfig(
             vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq_len=16
         )
-    from ..tpu.smoke import smoke_config
-
-    return dataclasses.replace(smoke_config(device), flash_attention=True)
+    return dataclasses.replace(smoke.smoke_config(device), flash_attention=True)
 
 
 def flash_device_launches() -> dict:
@@ -272,10 +290,10 @@ def spmd_runs(runs, base, device, out_path: str) -> dict:
     logger = logging.getLogger(wl.__name__)
     logger.addHandler(warnings)
     for run in runs:
-        dp, sp, tp = run["mesh"]
-        if (dp, sp, tp) not in meshes:
-            meshes[dp, sp, tp] = distributed.global_mesh(dp=dp, tp=tp, sp=sp)
-        mesh = meshes[dp, sp, tp]
+        dp, sp, tp, ep = [*run["mesh"], 1][:4]
+        if (dp, sp, tp, ep) not in meshes:
+            meshes[dp, sp, tp, ep] = distributed.global_mesh(dp=dp, tp=tp, sp=sp, ep=ep)
+        mesh = meshes[dp, sp, tp, ep]
         cfg = dataclasses.replace(base, **run.get("config", {}))
         batch = run.get("batch", GLOBAL_BATCH)
         warnings.messages = []
@@ -302,20 +320,52 @@ def spmd_runs(runs, base, device, out_path: str) -> dict:
             row["shard_shapes"] = {n: list(p.shape) for n, p in model.named_parameters()}
             row["plan"] = _plan(model)
             steps = run["steps"]
+        launches, device_launches = dict(fa.launch_counts), flash_device_launches()
+        if not run.get("drain") and device.type == "cuda":
+            row["device"] = smoke.device_busy(lambda: step(tokens), 1)  # one more step, traced
         plan = row["plan"]
         seq_index = mesh.get_local_rank("seq")
         row.update(
             steps=steps, warnings=list(warnings.messages),
-            index={axis: mesh.get_local_rank(axis) for axis in ("data", "seq", "model")},
+            index={axis: mesh.get_local_rank(axis) for axis in distributed.AXES},
             pairs=(len(ra.ring_schedule(sp, seq_index, True, plan["layout"]))
                    if plan["tier"] == "ring" and plan["use_flash"] else 0),
-            launches=dict(fa.launch_counts), device_launches=flash_device_launches(),
+            launches=launches, device_launches=device_launches,
             transport=ra.ring_transport(mesh.get_group("seq"), device),
         )
         report[run["name"]] = row
     logger.removeHandler(warnings)
     torch.save(tensors, out_path)
     return report
+
+
+def pipeline_run(cfg, device, steps: int, microbatches: int, batch: int, out_path: str) -> dict:
+    """The ``pipeline`` mode (module docstring); returns the report."""
+    mesh = wl.make_pipeline_mesh(dist.get_world_size())
+    stage = mesh.get_local_rank()
+    block, rest = wl.pipeline_stage_params(wl.TinyLM(cfg, device, seed=0).state_dict(), cfg.n_layers, stage)
+    tokens = wl.make_batch(cfg, batch, seed=0, device=device)
+    loss = wl.pipeline_loss_fn(cfg, mesh, block, rest, tokens, microbatches)
+    loss.backward()
+    grads = {**{f"block.{k}": v.grad.cpu() for k, v in block.items()},
+             **{k: v.grad.cpu() for k, v in rest.items()}}
+    torch.save(grads, out_path)
+    optimizer = torch.optim.AdamW([*block.values(), *rest.values()], **wl.ADAMW)
+    step = wl.make_pipeline_train_step(cfg, mesh, optimizer, microbatches)
+    fa.reset_launch_counts()
+    row = {"losses": [], "step_ms": []}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        row["losses"].append(float(step(block, rest, tokens)))  # float() waits for the device
+        row["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    row.update(
+        stage=stage, loss=float(loss), launches=dict(fa.launch_counts),
+        device_launches=flash_device_launches(),
+        shapes={k: list(v.shape) for k, v in [*block.items(), *rest.items()]},
+    )
+    if device.type == "cuda":  # one more step, traced
+        row["device"] = smoke.device_busy(lambda: step(block, rest, tokens), 1)
+    return row
 
 
 def free_port() -> int:
@@ -422,7 +472,7 @@ class Ranks:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("train", "drain", "ring", "mesh", "spmd"))
+    parser.add_argument("mode", choices=("train", "drain", "ring", "mesh", "spmd", "pipeline", "dryrun"))
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                         help="default: nccl on the card, gloo on the CPU")
@@ -431,6 +481,8 @@ def main(argv=None) -> int:
     parser.add_argument("--inputs", help="ring: the cases, from torch.save; spmd: the runs, JSON")
     parser.add_argument("--out", help="ring, spmd: where this rank's tensors go")
     parser.add_argument("--tp", type=int, default=1, help="mesh: the model axis")
+    parser.add_argument("--batch", type=int, default=GLOBAL_BATCH, help="pipeline: the batch")
+    parser.add_argument("--microbatches", type=int, default=2, help="pipeline: microbatches")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -439,6 +491,8 @@ def main(argv=None) -> int:
         return 1
     if args.mode in ("ring", "spmd") and not (args.inputs and args.out):
         parser.error(f"{args.mode} needs --inputs and --out")
+    if args.mode == "pipeline" and not args.out:
+        parser.error("pipeline needs --out")
     t_start = time.perf_counter()
     rank, world = distributed.initialize_from_env(device=device, backend=args.backend)
     if device.type == "cuda":
@@ -473,6 +527,12 @@ def main(argv=None) -> int:
         with open(args.inputs) as f:
             runs = json.load(f)["runs"]
         line["runs"] = spmd_runs(runs, cfg, device, args.out)
+    elif args.mode == "pipeline":
+        line.update(pipeline_run(cfg, device, args.steps, args.microbatches, args.batch, args.out))
+    elif args.mode == "dryrun":
+        from ..graft_entry import dryrun_rank
+
+        line["dryrun"] = dryrun_rank(device)
     else:
         group = distributed.global_mesh(dp=1, sp=world).get_group("seq")
         cases = torch.load(args.inputs, weights_only=True)["cases"]

@@ -22,7 +22,9 @@ jitted XLA reductions over the global mesh; here the backend is
   over one mesh group.  Under gloo a CUDA tensor (ranks sharing one card,
   which NCCL refuses) goes through a pinned host buffer
   (:func:`host_buffer`, which the rings of :mod:`.ring_attention` use
-  too), the compute staying on the card.
+  too), the compute staying on the card;
+* :func:`send`, :func:`recv` and :func:`broadcast`: the point-to-point
+  transfers and the broadcast of the GPipe pipeline, staged the same way.
 """
 
 from __future__ import annotations
@@ -129,10 +131,10 @@ def global_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, ep: int = 1)
         dp = n // (tp * sp * ep)
     if dp * tp * sp * ep != n:
         raise ValueError(f"dp*sp*tp*ep = {dp * sp * tp * ep} != global devices {n}")
-    return init_device_mesh(_group_device().type, (dp, sp, tp, ep), mesh_dim_names=AXES)
+    return init_device_mesh(group_device().type, (dp, sp, tp, ep), mesh_dim_names=AXES)
 
 
-def _group_device() -> torch.device:
+def group_device() -> torch.device:
     """Where the default group reduces: the current card under NCCL,
     the CPU under gloo."""
     if dist.get_backend() == "nccl":
@@ -147,7 +149,7 @@ _scalars: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _scalar(kind: str, value: float) -> torch.Tensor:
-    device = _group_device()
+    device = group_device()
     buf = _scalars.get((kind, device))
     if buf is None:
         buf = _scalars[(kind, device)] = torch.zeros(1, dtype=torch.float32, device=device)
@@ -261,3 +263,33 @@ def reduce_scatter_sum(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         dist.reduce_scatter_tensor(host_out, host_in, group=group)
         out.copy_(host_out)
     return out.view(chunks.shape[1:])
+
+
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """Send *t* to rank *dst* of *group* (a point-to-point send)."""
+    host = host_buffer(t, group, "send")
+    src = t.contiguous() if host is None else host.copy_(t)
+    dist.send(src, dist.get_global_rank(group, dst), group=group)
+
+
+def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A tensor of *like*'s shape, dtype and device, received from rank
+    *src* of *group*."""
+    out = torch.empty_like(like, memory_format=torch.contiguous_format)
+    host = host_buffer(out, group, "recv")
+    dist.recv(out if host is None else host, dist.get_global_rank(group, src), group=group)
+    return out if host is None else out.copy_(host)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """*t* of rank *src* of *group* on every rank, in place; returns *t*.
+    A group of one issues nothing."""
+    if dist.get_world_size(group) == 1:
+        return t
+    host = host_buffer(t, group, "broadcast")
+    if host is None:
+        dist.broadcast(t, dist.get_global_rank(group, src), group=group)
+        return t
+    host.copy_(t)
+    dist.broadcast(host, dist.get_global_rank(group, src), group=group)
+    return t.copy_(host)

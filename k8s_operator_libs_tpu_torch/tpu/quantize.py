@@ -12,8 +12,11 @@ over and keep JAX's shapes:
   scale per ``hd`` column, shared across heads (``s`` is ``[1, 1, hd]`` /
   ``[1, hd]``);
 * ``Embed`` tables ``[num, features]`` scale per feature column;
-* ``attn/out``, ``mlp_*`` and ``lm_head`` kernels scale per output column,
-  which is per row of the torch weight;
+* ``attn/out``, ``mlp_*``, ``lm_head`` and the MoE ``router`` kernels
+  scale per output column, which is per row of the torch weight;
+* the MoE's ``experts_up`` ``[E, d, f]`` and ``experts_down`` ``[E, f, d]``
+  (flax's layout in both) scale per last-axis column, shared across
+  experts (``s`` is ``[1, 1, f]`` / ``[1, 1, d]``);
 * 1-D leaves (LayerNorm, the other biases) stay float.
 
 A quantized state maps each key to a tensor or to a ``{"q", "s"}`` node,
@@ -113,11 +116,14 @@ def quantize_params_int8(params, n_heads: Optional[int] = None) -> Dict[str, Any
 
 def scale_like(key: str, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """*s* (JAX's shape) broadcast against *q* (the torch layout of leaf
-    *key*): per column of an embedding table; otherwise per row, tiled over
-    the heads of a q/k/v weight or bias."""
+    *key*): per column of an embedding table, per last-axis column of an
+    expert tensor (flax's layout, shared by the experts); otherwise per
+    row, tiled over the heads of a q/k/v weight or bias."""
     s = s.reshape(-1).float()
     if key.endswith("embedding"):
         return s.reshape(1, -1)
+    if key.rsplit(".", 1)[-1].startswith("experts_"):
+        return s.reshape(1, 1, -1)
     if q.shape[0] % s.numel():
         raise ValueError(f"{key}: {s.numel()} scales do not tile {q.shape[0]} rows")
     return s.repeat(q.shape[0] // s.numel()).reshape(-1, *([1] * (q.dim() - 1)))

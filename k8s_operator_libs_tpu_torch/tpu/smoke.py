@@ -17,7 +17,9 @@ The port of ``k8s_operator_libs_tpu/tpu/smoke.py``:
   (``python -m k8s_operator_libs_tpu_torch.hack.gpu_stage``);
 * the benches: :func:`_touch_bench`, :func:`_matmul_bench`,
   :func:`_attention_bench`, :func:`_decode_bench` and
-  :func:`_flash_interpret_sanity`.
+  :func:`_flash_interpret_sanity`;
+* :func:`device_busy` — where the device's time goes in a few steps, from
+  a ``torch.profiler`` trace.
 
 The record is the JAX module's: the same keys, each value rounded where
 that module rounds it, to the same places.  Every record names the
@@ -54,6 +56,52 @@ def detect_gpu() -> Optional[Dict[str, Any]]:
         "device_kind": torch.cuda.get_device_name(0),
         "n_devices": torch.cuda.device_count(),
         "capability": ".".join(map(str, torch.cuda.get_device_capability(0))),
+    }
+
+
+def _union_us(spans) -> float:
+    """Total length of the union of (start, end) intervals, sorted by start."""
+    total, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return total + cur_end - cur_start
+
+
+def device_busy(run: Callable[[], Any], steps: int) -> Dict[str, Any]:
+    """From a ``torch.profiler`` trace of *run* (which runs *steps* steps
+    on the card and returns): the device's busy ms per step (the union of
+    its kernels' intervals), its ops per step, the idle share of the
+    traced window, and the kernels that take most device time.  Says "not
+    measured" when the profiler records no CUDA event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    # device work only: a user annotation's device range spans the gaps
+    # between the kernels it encloses
+    device = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    if not device:
+        return {"device_trace": "not measured: the profiler recorded no CUDA events"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy = _union_us(spans)
+    by_name: Dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_ops_per_step": len(device) / steps,
+        "idle_pct_of_traced_window": 100.0 * (1 - busy / (spans[-1][1] - spans[0][0])),
+        "top_device_ms_per_step": {n[:70]: t / 1e3 / steps for n, t in top},
     }
 
 

@@ -48,16 +48,31 @@ inserts there written out, Megatron-style:
 * the loss of a rank is its NLL sum over the global token count; the
   gradients and the loss travel in one flat buffer, summed over
   ``data`` and, when the sequence is split, ``seq``.  Never over
-  ``model``: the identities' backward already summed what crosses it.
+  ``model`` or ``expert``: the identities' backward already summed what
+  crosses them.
 * ``remat`` recomputes each block in the backward
   (``torch.utils.checkpoint``, non-reentrant).  Every rank issues the
   same collectives in the same order, the recompute's included.
+* ``expert``, with ``n_experts``: the soft-gated MoE (:class:`MoeMlp`,
+  every expert computes every token and the router's softmax weights
+  the sum) keeps its stacked expert weights split over ``expert`` and,
+  composed with it, their hidden dimension over ``model``; the router
+  replicates.  A rank computes its experts' slice of the hidden
+  dimension, and the partial outputs are summed over the (model, expert)
+  group; backward, one all-reduce over that group sums the gradients of
+  the MoE input and of the gates (:class:`_ToExperts`), so the
+  replicated router and everything before the MoE stay in step.
 
-The soft-gated MoE with expert parallelism (``n_experts``, the
-``expert`` axis) and the GPipe pipeline are not ported yet (ROADMAP A6b).
+The GPipe pipeline (:func:`make_pipeline_mesh`, :func:`stack_block_params`,
+:func:`pipeline_blocks_apply`, :func:`pipeline_loss_fn`,
+:func:`make_pipeline_train_step`) runs one block a rank over a
+``("stage",)`` mesh: microbatches flow downstream by point-to-point
+sends, their input gradients upstream in the backward, and the
+embeddings, final LN, head and loss replicate on every stage.
 
-Numerics follow flax: parameters are fp32 masters and every layer casts
-its input and parameters to ``config.dtype`` in its forward (no
+Numerics follow flax: parameters are fp32 masters, but for the MoE's
+expert tensors, which flax keeps in ``config.dtype``, and every layer
+casts its input and parameters to ``config.dtype`` in its forward (no
 autocast); LayerNorm takes its statistics in fp32 with flax's eps 1e-6
 and fast variance; GELU is the tanh approximation; AdamW uses optax's
 weight decay 1e-4 on every parameter.  Attention runs dense ("gather")
@@ -103,7 +118,9 @@ class ModelConfig:
     #: Mesh axis name of sequence parallelism (None = off).  On a mesh,
     #: activations outside attention are split over it (Megatron SP).
     seq_axis: Any = None
-    #: Mixture-of-experts width (0 = dense MLP).  Not ported: it raises.
+    #: Mixture-of-experts width (0 = dense MLP): the soft-gated
+    #: :class:`MoeMlp`, its experts split over a mesh's ``expert`` axis,
+    #: whose size must divide it.
     n_experts: int = 0
     #: With ``seq_axis``: ring attention over the seq group (Q stays
     #: split, K/V travel the ring) instead of gathering the sequence.
@@ -124,14 +141,6 @@ class ModelConfig:
     #: Decode mode: :class:`TinyLM` takes one token per call with a
     #: :class:`KVCache` (``generate`` sets it, as the JAX package does).
     decode: bool = False
-
-    def __post_init__(self) -> None:
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "ModelConfig.n_experts is not ported to PyTorch yet: the soft-gated MoE "
-                "with expert parallelism of k8s_operator_libs_tpu/tpu/workload.py waits "
-                "for ROADMAP A6b"
-            )
 
 
 def resolve_device(device) -> torch.device:
@@ -154,23 +163,35 @@ class _Spmd:
     sizes, its index on each, and the groups of the step's collectives
     (``model`` is None when the axis has one rank; ``data_seq`` spans
     this rank's (data, seq) submesh, the ranks that hold the same
-    parameter slices)."""
+    parameter slices; ``moe``, for a model of *experts* > 0, its (model,
+    expert) submesh, the ranks whose partial MoE outputs sum, None when
+    that is one rank).  Raises ValueError when the expert axis does not
+    divide *experts*, as JAX's placement of the expert weights does."""
 
-    def __init__(self, mesh) -> None:
+    def __init__(self, mesh, experts: int = 0) -> None:
         sizes = {name: mesh[name].size() for name in distributed.AXES}
-        if sizes["expert"] > 1:
-            raise NotImplementedError(
-                f"a mesh with expert axis {sizes['expert']} is not ported to PyTorch yet: "
-                "expert parallelism (the soft-gated MoE of "
-                "k8s_operator_libs_tpu/tpu/workload.py) waits for ROADMAP A6b"
-            )
         self.mesh = mesh
         self.dp, self.sp, self.tp = sizes["data"], sizes["seq"], sizes["model"]
+        self.ep = sizes["expert"]
+        if experts and experts % self.ep:
+            raise ValueError(
+                f"n_experts ({experts}) must be divisible by the mesh's expert axis ({self.ep})"
+            )
         self.data_index = mesh.get_local_rank("data")
         self.seq_index = mesh.get_local_rank("seq")
+        self.expert_index = mesh.get_local_rank("expert")
         self.data = mesh.get_group("data")
         self.seq = mesh.get_group("seq")
         self.model = mesh.get_group("model") if self.tp > 1 else None
+        self.moe = None
+        if experts and self.tp * self.ep > 1:
+            if self.ep == 1:
+                self.moe = self.model
+            elif self.tp == 1:
+                self.moe = mesh.get_group("expert")
+            else:  # a group per (data, seq) coordinate, made on every rank
+                ranks = mesh.mesh.reshape(-1, self.tp * self.ep).tolist()
+                self.moe, _ = dist.new_subgroups_by_enumeration(ranks)
         if self.sp == 1:
             self.data_seq = self.data
         elif self.dp == 1:
@@ -215,6 +236,26 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad.to(ctx.dtype), None
 
 
+class _ToExperts(torch.autograd.Function):
+    """Megatron's f before the MoE's experts, for the input *h* and the
+    router's *gates* at once: identity forward; backward, both gradients
+    summed over the (model, expert) group in fp32, in one all-reduce.  A
+    rank's experts see only their gates and their slice of the hidden
+    dimension, so each gradient is a partial sum of the whole."""
+
+    @staticmethod
+    def forward(ctx, h, gates, group):
+        ctx.group = group
+        return h.view_as(h), gates.view_as(gates)
+
+    @staticmethod
+    def backward(ctx, dh, dgates):
+        flat = torch.cat([dh.float().reshape(-1), dgates.float().reshape(-1)])
+        distributed.all_reduce_sum(flat, ctx.group)
+        n = dh.numel()
+        return (flat[:n].view_as(dh).to(dh.dtype), flat[n:].view_as(dgates).to(dgates.dtype), None)
+
+
 class _Gather(torch.autograd.Function):
     """All-gather along *dim* over *group*.  Backward: this rank's chunk
     of the gradient, summed over the group when *reduce* (a
@@ -254,12 +295,17 @@ class _Slice(torch.autograd.Function):
         return full, None, None
 
 
-def param_partition_spec(name: str) -> Optional[int]:
-    """The dimension of state_dict entry *name* that the ``model`` axis
-    splits, or None where every model rank holds it whole: the JAX
-    module's path rule over torch's layouts (``Dense.weight`` is ``[out,
-    in]``, the transpose of flax's kernel).
+def param_partition_spec(name: str, axis: str = "model") -> Optional[int]:
+    """The dimension of state_dict entry *name* that mesh axis *axis*
+    (``model`` or ``expert``) splits, or None where every rank of the axis
+    holds it whole: the JAX module's path rule over torch's layouts
+    (``Dense.weight`` is ``[out, in]``, the transpose of flax's kernel).
 
+    * ``experts_up`` ``[E, d, f]`` and ``experts_down`` ``[E, f, d]`` keep
+      flax's layout: ``expert`` splits the experts, ``model`` the hidden
+      ``f`` (JAX's ``P("expert", None, "model")`` and ``P("expert",
+      "model", None)``); nothing else splits over ``expert``, the router
+      included;
     * ``query``/``key``/``value``/``mlp_up`` split their output, weight
       and bias (column-parallel);
     * ``out``/``mlp_down`` split their input; their bias replicates
@@ -274,6 +320,12 @@ def param_partition_spec(name: str) -> Optional[int]:
     row slice is a set of heads (:func:`shard_params` checks that the
     heads divide)."""
     layer, leaf = name.split(".")[-2:]
+    if leaf in ("experts_up", "experts_down"):
+        if axis == "expert":
+            return 0
+        return 2 if leaf == "experts_up" else 1
+    if axis != "model":
+        return None
     if layer in ("query", "key", "value", "mlp_up", "lm_head"):
         return 0
     if layer in ("out", "mlp_down"):
@@ -283,45 +335,59 @@ def param_partition_spec(name: str) -> Optional[int]:
     return None
 
 
+#: The mesh axes that split parameters, in the order shard and gather go.
+_PARAM_AXES = ("model", "expert")
+
+
 def shard_params(state_dict, mesh, n_heads: int) -> Dict[str, torch.Tensor]:
     """This rank's slice of a full *state_dict* (a TinyLM's, or
     :func:`..convert.params_from_jax`'s) per :func:`param_partition_spec`:
-    of each split dimension the model axis's equal chunks, this rank's
-    one.  Raises ValueError when the axis does not divide the heads or a
-    split dimension."""
-    tp, index = mesh["model"].size(), mesh.get_local_rank("model")
+    of each split dimension the axis's equal chunks, this rank's one.
+    Raises ValueError when the model axis does not divide the heads, or
+    an axis a split dimension."""
+    tp = mesh["model"].size()
     if n_heads % tp:
         raise ValueError(
             f"param_partition_spec splits attention by whole heads: n_heads ({n_heads}) "
             f"is not divisible by the model axis ({tp})"
         )
-    out = {}
-    for name, t in state_dict.items():
-        dim = param_partition_spec(name)
-        if dim is None or tp == 1:
-            out[name] = t
+    out = dict(state_dict)
+    for axis in _PARAM_AXES:
+        n, index = mesh[axis].size(), mesh.get_local_rank(axis)
+        if n == 1:
             continue
-        if t.shape[dim] % tp:
-            raise ValueError(
-                f"param_partition_spec splits {name} on dim {dim} ({t.shape[dim]}), "
-                f"which the model axis ({tp}) does not divide"
-            )
-        out[name] = t.chunk(tp, dim)[index].contiguous()
+        for name, t in out.items():
+            dim = param_partition_spec(name, axis)
+            if dim is None:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(
+                    f"param_partition_spec splits {name} on dim {dim} ({t.shape[dim]}), "
+                    f"which the {axis} axis ({n}) does not divide"
+                )
+            out[name] = t.chunk(n, dim)[index].contiguous()
     return out
 
 
 def gather_params(state_dict, mesh) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_params`: the full state_dict from every
-    model rank's slices.  A collective over the model group: every rank
-    of it calls, and each gets the whole."""
-    if mesh["model"].size() == 1:
-        return dict(state_dict)
-    group = mesh.get_group("model")
-    out = {}
-    for name, t in state_dict.items():
-        dim = param_partition_spec(name)
-        out[name] = t if dim is None else distributed.all_gather(t, group, dim)
+    rank's slices.  A collective over the model group and then the
+    expert group: every rank of them calls, and each gets the whole."""
+    out = dict(state_dict)
+    for axis in _PARAM_AXES:
+        if mesh[axis].size() == 1:
+            continue
+        group = mesh.get_group(axis)
+        for name, t in out.items():
+            dim = param_partition_spec(name, axis)
+            if dim is not None:
+                out[name] = distributed.all_gather(t, group, dim)
     return out
+
+
+def _is_split(spmd) -> bool:
+    """Whether a model on *spmd* holds slices of its parameters."""
+    return spmd is not None and (spmd.tp > 1 or spmd.ep > 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,7 +492,8 @@ class Dense(nn.Linear):
     (``group``, set by :class:`TinyLM`): "column" splits the output (the
     caller passes the input through :class:`_ToModel`), "row" the input:
     the partial products are summed over the group in fp32, then the
-    bias, whole on every rank, is added."""
+    bias, whole on every rank, is added; None (the MoE router) keeps it
+    whole on every rank."""
 
     def __init__(self, in_f, out_f, dtype, device, generator, parallel=None) -> None:
         super().__init__(in_f, out_f, device=device, dtype=torch.float32)
@@ -439,7 +506,7 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        if self.group is None or self.parallel == "column":
+        if self.group is None or self.parallel != "row":
             return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
         y = _ReduceFromModel.apply(F.linear(x.to(dt), self.weight.to(dt)), self.group)
         return (y + self.bias.to(dt).float()).to(dt)
@@ -566,8 +633,54 @@ class Attention(nn.Module):
         return self.out(h)
 
 
+class MoeMlp(nn.Module):
+    """flax ``MoeMlp``, the soft-gated mixture of experts: the ``router``
+    Dense to E gates, softmax in fp32 cast to the compute dtype; every
+    expert computes every token, ``up = einsum("bsd,edf->bsef")``,
+    tanh-GELU, ``down = einsum("bsef,efd->bsed")``, and the gates weight
+    the sum over experts.  ``experts_up`` ``[E, d, f]`` and
+    ``experts_down`` ``[E, f, d]`` keep flax's layout and, as flax stores
+    them, the compute dtype (not fp32 masters like the Dense layers):
+    lecun-normal over flax's fan-in, which folds the experts axis in
+    (``d·E`` and ``f·E``), drawn in fp32 and cast.
+
+    On a mesh a rank holds ``E/ep`` experts and ``f/tp`` of their hidden
+    dimension (:func:`param_partition_spec`): it takes its experts'
+    gates, computes its partial output, and the partials are summed over
+    the (model, expert) group, in fp32."""
+
+    def __init__(self, cfg: ModelConfig, device, generator) -> None:
+        super().__init__()
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.compute_dtype = cfg.dtype
+        self.router = Dense(d, e, cfg.dtype, device, generator)
+        up, down = torch.empty(e, d, f, device=device), torch.empty(e, f, d, device=device)
+        with torch.no_grad():
+            _lecun_normal_(up, d * e, generator)
+            _lecun_normal_(down, f * e, generator)
+        self.experts_up = nn.Parameter(up.to(cfg.dtype))
+        self.experts_down = nn.Parameter(down.to(cfg.dtype))
+
+    def forward(self, h, spmd: Optional[_Spmd] = None):
+        dt = self.compute_dtype
+        gates = torch.softmax(self.router(h).float(), dim=-1).to(dt)
+        group = None if spmd is None else spmd.moe
+        if group is not None:
+            h, gates = _ToExperts.apply(h, gates, group)
+        if spmd is not None and spmd.ep > 1:  # this rank's experts' gates
+            local = self.experts_up.shape[0]
+            gates = gates[..., spmd.expert_index * local:(spmd.expert_index + 1) * local]
+        up = torch.einsum("bsd,edf->bsef", h.to(dt), self.experts_up)
+        down = torch.einsum("bsef,efd->bsed", F.gelu(up, approximate="tanh"), self.experts_down)
+        y = torch.einsum("bsed,bse->bsd", down, gates)
+        if group is None:
+            return y
+        return _ReduceFromModel.apply(y, group).to(dt)
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block with causal self-attention."""
+    """Pre-LN transformer block with causal self-attention, then the MLP
+    (``mlp_up``, GELU, ``mlp_down``) or, with ``n_experts``, :class:`MoeMlp`."""
 
     def __init__(self, cfg: ModelConfig, device, generator) -> None:
         super().__init__()
@@ -575,13 +688,18 @@ class Block(nn.Module):
         self.ln_attn = LayerNorm(cfg.d_model, dt, device)
         self.attn = Attention(cfg, device, generator)
         self.ln_mlp = LayerNorm(cfg.d_model, dt, device)
-        self.mlp_up = Dense(cfg.d_model, cfg.d_ff, dt, device, generator, "column")
-        self.mlp_down = Dense(cfg.d_ff, cfg.d_model, dt, device, generator, "row")
+        if cfg.n_experts > 0:
+            self.moe = MoeMlp(cfg, device, generator)
+        else:
+            self.mlp_up = Dense(cfg.d_model, cfg.d_ff, dt, device, generator, "column")
+            self.mlp_down = Dense(cfg.d_ff, cfg.d_model, dt, device, generator, "row")
 
     def forward(self, x, plan: AttentionPlan, cache: KVCache = None, layer: int = 0,
                 spmd: Optional[_Spmd] = None):
         x = x + self.attn(self.ln_attn(x), plan, cache, layer, spmd)
         h = self.ln_mlp(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h, spmd)
         if spmd is not None and spmd.model is not None:
             h = _ToModel.apply(h, spmd.model)
         h = F.gelu(self.mlp_up(h), approximate="tanh")
@@ -614,8 +732,8 @@ class TinyLM(nn.Module):
             self._place(mesh)
 
     def _place(self, mesh) -> None:
-        spmd = self.spmd = _Spmd(mesh)
-        if spmd.tp > 1:
+        spmd = self.spmd = _Spmd(mesh, self.config.n_experts)
+        if _is_split(spmd):
             shards = shard_params(self.state_dict(), mesh, self.config.n_heads)
             with torch.no_grad():
                 for name, p in self.named_parameters():
@@ -781,6 +899,178 @@ def make_batch(config: ModelConfig, batch_size: int, seed: int = 0, device="cpu"
     return torch.from_numpy(tokens.astype(np.int64)).to(device)
 
 
+# ---------------------------------------------------- pipeline parallelism
+
+
+def make_pipeline_mesh(n_stages: int):
+    """A 1-D ``("stage",)`` DeviceMesh over ranks ``0..n_stages-1`` for the
+    GPipe pipeline, kept apart from the (data, seq, model, expert) mesh as
+    the JAX module keeps it.  Every rank calls it (a collective); ranks
+    past *n_stages* are not on it.  Raises ValueError when the job has
+    fewer ranks than stages."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    if world < n_stages:
+        raise ValueError(f"need {n_stages} devices, have {world}")
+    return DeviceMesh(distributed.group_device().type, torch.arange(n_stages), mesh_dim_names=("stage",))
+
+
+def stack_block_params(state_dict, n_layers: int):
+    """(stacked, rest) of a TinyLM *state_dict*: ``block_0..block_{L-1}``
+    stacked into one ``[L, ...]`` tensor per key of one :class:`Block`
+    (``attn.query.weight``, ...), and every other entry as it is.  Stage
+    ``i`` of the pipeline takes ``{k: v[i]}``, its own block."""
+    keys = [k.split(".", 1)[1] for k in state_dict if k.startswith("block_0.")]
+    stacked = {k: torch.stack([state_dict[f"block_{i}.{k}"] for i in range(n_layers)]) for k in keys}
+    rest = {k: v for k, v in state_dict.items() if not k.startswith("block_")}
+    return stacked, rest
+
+
+def pipeline_stage_params(state_dict, n_layers: int, stage: int):
+    """Stage *stage*'s tensors from a full TinyLM *state_dict*: (its block,
+    keyed like one :class:`Block`; the rest), copies that require grad,
+    for :func:`pipeline_loss_fn` and an optimizer."""
+    stacked, rest = stack_block_params(state_dict, n_layers)
+    return ({k: v[stage].clone().requires_grad_() for k, v in stacked.items()},
+            {k: v.clone().requires_grad_() for k, v in rest.items()})
+
+
+def _sub(params, prefix: str):
+    """The entries of *params* under module *prefix*, keyed below it."""
+    return {k[len(prefix) + 1:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+class _Pipeline(torch.autograd.Function):
+    """This stage's share of the GPipe schedule, forward and backward,
+    as one autograd node (so the point-to-point order is fixed, not left
+    to the autograd engine): stage ``s`` applies its block to microbatch
+    ``m`` at tick ``m + s`` of ``M + S - 1``, taking it from stage ``s-1``
+    (stage 0: from *x*) and sending the result to ``s+1``; the last
+    stage's outputs go to every stage.  Backward runs the ticks in
+    reverse: each microbatch's output gradient comes from ``s+1`` (the
+    last stage: from the loss), its input gradient goes to ``s-1``, and
+    stage 0's input gradients go to every stage, whose embeddings then
+    take the same gradient."""
+
+    @staticmethod
+    def forward(ctx, x, run, *params):
+        group, stage, stages = run["group"], run["stage"], run["stages"]
+        micro = x.detach().chunk(run["microbatches"])
+        leaves = [p.detach().requires_grad_() for p in params]
+        weights = dict(zip(run["names"], leaves))
+        ins, outs = [], []
+        for tick in range(len(micro) + stages - 1):
+            m = tick - stage
+            if not 0 <= m < len(micro):
+                continue
+            if stage == 0:
+                x_in = micro[m].clone()
+            else:
+                x_in = distributed.recv(micro[m], stage - 1, group)
+            x_in.requires_grad_()
+            with torch.enable_grad():
+                y = torch.func.functional_call(run["block"], weights, (x_in, run["plan"]))
+            if stage < stages - 1:
+                distributed.send(y.detach(), stage + 1, group)
+            ins.append(x_in)
+            outs.append(y)
+        ctx.run, ctx.ins, ctx.outs, ctx.leaves = run, ins, outs, leaves
+        if stage == stages - 1:
+            out = torch.cat([y.detach() for y in outs])
+        else:
+            out = torch.empty_like(x)
+        return distributed.broadcast(out, stages - 1, group)
+
+    @staticmethod
+    def backward(ctx, dout):
+        run = ctx.run
+        group, stage, stages = run["group"], run["stage"], run["stages"]
+        grads = [torch.zeros_like(p) for p in ctx.leaves]
+        d_micro = dout.chunk(run["microbatches"])
+        dx = [None] * len(d_micro)
+        for m in reversed(range(len(d_micro))):
+            if stage == stages - 1:
+                dy = d_micro[m].contiguous()
+            else:
+                dy = distributed.recv(d_micro[m], stage + 1, group)
+            g = torch.autograd.grad(ctx.outs[m], [ctx.ins[m], *ctx.leaves], dy)
+            for acc, gp in zip(grads, g[1:]):
+                acc.add_(gp)
+            if stage > 0:
+                distributed.send(g[0], stage - 1, group)
+            dx[m] = g[0]
+        dx = torch.cat(dx) if stage == 0 else torch.empty_like(dout)
+        ctx.ins = ctx.outs = None
+        return (distributed.broadcast(dx, 0, group), None, *grads)
+
+
+def pipeline_blocks_apply(config: ModelConfig, mesh, stage_params, x, n_microbatches: int):
+    """Run the block stack as a GPipe pipeline over *mesh*'s ``stage``
+    axis, each stage applying its own block: *stage_params* (this
+    stage's slice of :func:`stack_block_params`' stack) to the embedded
+    activations *x* ``(B, S, D)``, split into *n_microbatches*.
+    Differentiable: gradients reach *stage_params* and *x*.  Returns the
+    last stage's output on every stage.
+
+    One block per stage (``n_layers == n_stages``), as in JAX: raises
+    ValueError otherwise, and when the microbatches do not divide the
+    batch."""
+    n_stages = mesh.size()
+    if config.n_layers != n_stages:
+        raise ValueError(
+            f"pipeline demo runs one block per stage: n_layers ({config.n_layers}) must "
+            f"equal the stage-mesh size ({n_stages})"
+        )
+    if x.shape[0] % n_microbatches:
+        raise ValueError(f"batch {x.shape[0]} not divisible into {n_microbatches} microbatches")
+    run = {
+        "group": mesh.get_group(), "stage": mesh.get_local_rank(), "stages": n_stages,
+        "microbatches": n_microbatches, "names": list(stage_params),
+        # a Block on the meta device: functional_call gives it the stage's tensors
+        "block": Block(config, torch.device("meta"), None),
+        "plan": attention_plan(config, x.shape[1]),
+    }
+    return _Pipeline.apply(x, run, *stage_params.values())
+
+
+def pipeline_loss_fn(config: ModelConfig, mesh, stage_params, rest_params, tokens,
+                     n_microbatches: int = 2):
+    """Next-token loss with the block stack pipelined over the stages
+    (:func:`pipeline_blocks_apply`).  The embeddings, final LayerNorm,
+    head and loss run replicated on every stage from *rest_params*, as
+    the JAX module runs them outside its shard_map, and the NLL is the
+    mean over the whole batch: the loss of :func:`loss_fn` on the same
+    weights."""
+    meta, dt = torch.device("meta"), config.dtype
+    inputs = tokens[:, :-1]
+    positions = torch.arange(inputs.shape[1], device=tokens.device)[None, :]
+    embed = Embed(config.vocab_size, config.d_model, dt, meta, None)
+    pos_embed = Embed(config.max_seq_len, config.d_model, dt, meta, None)
+    x = (torch.func.functional_call(embed, _sub(rest_params, "embed"), (inputs,))
+         + torch.func.functional_call(pos_embed, _sub(rest_params, "pos_embed"), (positions,)))
+    x = pipeline_blocks_apply(config, mesh, stage_params, x, n_microbatches)
+    x = torch.func.functional_call(LayerNorm(config.d_model, dt, meta), _sub(rest_params, "ln_f"), (x,))
+    head = Dense(config.d_model, config.vocab_size, dt, meta, None)
+    return _token_nll(torch.func.functional_call(head, _sub(rest_params, "lm_head"), (x,)), tokens[:, 1:])
+
+
+def make_pipeline_train_step(config: ModelConfig, mesh, optimizer, n_microbatches: int = 2):
+    """``step(stage_params, rest_params, tokens) -> loss``: one AdamW update
+    of the pipelined model, in place; *optimizer* holds this stage's
+    block tensors and the rest, which every stage updates alike (their
+    gradients and the loss are the same on every stage)."""
+
+    def step(stage_params, rest_params, tokens):
+        optimizer.zero_grad(set_to_none=True)
+        loss = pipeline_loss_fn(config, mesh, stage_params, rest_params, tokens, n_microbatches)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 # ------------------------------------------------------------ checkpoints
 
 
@@ -804,12 +1094,13 @@ def _moments_by_rule(model, opt_state, fn):
 
 def _full_state(model, optimizer):
     """(model state_dict, optimizer state_dict) of the whole model.  A
-    model split over a model axis gathers both (:func:`gather_params`),
-    as orbax saves the ``jax.device_get`` of sharded arrays: a collective
-    over the model group, which every rank of it calls."""
+    model split over the model or expert axis gathers both
+    (:func:`gather_params`), as orbax saves the ``jax.device_get`` of
+    sharded arrays: a collective over those groups, which every rank of
+    them calls."""
     model_state, opt_state = model.state_dict(), optimizer.state_dict()
     spmd = getattr(model, "spmd", None)
-    if spmd is None or spmd.model is None:
+    if not _is_split(spmd):
         return model_state, opt_state
     gather = lambda d: gather_params(d, spmd.mesh)  # noqa: E731
     return gather(model_state), _moments_by_rule(model, opt_state, gather)
@@ -877,7 +1168,7 @@ class CheckpointingTrainer:
         state; on a mesh this rank keeps its slice (:func:`shard_params`,
         AdamW's moments by their parameter's rule)."""
         model_state, opt_state = state["model"], state["optimizer"]
-        if self.model.spmd is not None and self.model.spmd.tp > 1:
+        if _is_split(self.model.spmd):
             shard = lambda d: shard_params(d, self.mesh, self.config.n_heads)  # noqa: E731
             model_state = shard(model_state)
             opt_state = _moments_by_rule(self.model, opt_state, shard)
@@ -946,15 +1237,47 @@ class Int8Embed(nn.Module):
         return (self.q[ids].float() * self.scale).to(self.compute_dtype)
 
 
+class Int8MoeMlp(nn.Module):
+    """:class:`MoeMlp` with weight-only int8 experts: each expert's
+    ``up`` and ``down`` are :func:`.quantize.int8_linear` launches, one per
+    expert and projection, on ``q_e`` transposed once here to the kernel's
+    ``[N, K]``, with the per-column scale that JAX shares across experts.
+    *router* is the float Dense, which :func:`quantized_model` swaps for an
+    :class:`Int8Dense` as it does every Dense."""
+
+    def __init__(self, router, up, down, dtype, device) -> None:
+        super().__init__()
+        self.compute_dtype = dtype
+        self.router = router
+        for name, node in (("up", up), ("down", down)):
+            q = node["q"].transpose(1, 2).contiguous()  # [E, in, out] -> [E, out, in]
+            self.register_buffer(f"{name}_q", q.to(device, torch.int8))
+            self.register_buffer(f"{name}_s", node["s"].reshape(-1).to(device, torch.float32).contiguous())
+
+    def forward(self, h, spmd: Optional[_Spmd] = None):
+        dt = self.compute_dtype
+        gates = torch.softmax(self.router(h).float(), dim=-1).to(dt)
+        x = h.to(dt).contiguous()
+        downs = []
+        for e in range(self.up_q.shape[0]):
+            act = F.gelu(quantize.int8_linear(x, self.up_q[e], self.up_s), approximate="tanh")
+            downs.append(quantize.int8_linear(act, self.down_q[e], self.down_s))
+        return torch.einsum("bsed,bse->bsd", torch.stack(downs, -2), gates)
+
+
 def quantized_model(config: ModelConfig, qstate: Dict[str, Any], device="cuda") -> TinyLM:
     """A TinyLM serving a :func:`.quantize.quantize_params_int8` state:
     its Dense and Embed layers are :class:`Int8Dense` / :class:`Int8Embed`
-    holding the int8 nodes, LayerNorms keep their float leaves."""
+    and its MoE layers :class:`Int8MoeMlp`, holding the int8 nodes;
+    LayerNorms keep their float leaves."""
     device = resolve_device(device)
     model = TinyLM(config, device=device)
-    for name, module in list(model.named_modules()):
+    for name, module in list(model.named_modules()):  # a parent comes before its children
         parent, _, attr = name.rpartition(".")
-        if isinstance(module, Dense):
+        if isinstance(module, MoeMlp):
+            layer = Int8MoeMlp(module.router, qstate[f"{name}.experts_up"], qstate[f"{name}.experts_down"],
+                               config.dtype, device)
+        elif isinstance(module, Dense):
             layer = Int8Dense(name, qstate[f"{name}.weight"], qstate[f"{name}.bias"], config.dtype, device)
         elif isinstance(module, Embed):
             layer = Int8Embed(f"{name}.embedding", qstate[f"{name}.embedding"], config.dtype, device)
@@ -977,13 +1300,14 @@ def _serving_model(config: ModelConfig, model_or_state, device: torch.device) ->
     float or quantized state dict."""
     if isinstance(model_or_state, nn.Module):
         mc = model_or_state.config
-        fields = ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff", "max_seq_len", "dtype")
+        fields = ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff", "max_seq_len", "n_experts",
+                  "dtype")
         if any(getattr(mc, f) != getattr(config, f) for f in fields):
             raise ValueError(f"model config {mc} does not match {config}")
-        if getattr(model_or_state, "spmd", None) is not None and model_or_state.spmd.tp > 1:
+        if _is_split(getattr(model_or_state, "spmd", None)):
             raise ValueError(
-                "decode runs on one device: this model is split over a model axis; "
-                "pass gather_params(model.state_dict(), mesh) instead"
+                "decode runs on one device: this model is split over a model axis or an "
+                "expert axis; pass gather_params(model.state_dict(), mesh) instead"
             )
         where = {t.device.type for t in model_or_state.state_dict().values()}
         if where != {device.type}:

@@ -126,15 +126,26 @@ def test_sync_global_devices_single_process(one_rank):
 
 
 def test_a_mesh_wider_than_data_is_not_ported(one_rank):
-    # the data, seq and model axes are ported (tests/test_torch_spmd.py);
-    # an expert axis wider than one waits for the MoE's port
-    class Mesh:  # a (data 1, expert 2) mesh, seen through the calls the model makes
+    # every axis is ported now: the data, seq and model axes
+    # (tests/test_torch_spmd.py) and the expert axis
+    # (tests/test_torch_moe_spmd.py).  On a (data 1, expert 2) mesh an MoE
+    # model builds with its half of the experts, the router whole
+    class Mesh:  # seen through the calls the model makes
         def __getitem__(self, name):
             return type("Dim", (), {"size": lambda self: 2 if name == "expert" else 1})()
 
-    cfg = wl.ModelConfig(**TINY)
-    with pytest.raises(NotImplementedError, match="expert axis 2 .*ROADMAP A6b"):
-        wl.create_train_state(cfg, "cpu", mesh=Mesh())
+        def get_local_rank(self, name):
+            return 1 if name == "expert" else 0
+
+        def get_group(self, name):
+            return dist.group.WORLD
+
+    cfg = wl.ModelConfig(**TINY, n_experts=4)
+    model, opt = wl.create_train_state(cfg, "cpu", mesh=Mesh())
+    full = wl.TinyLM(cfg, "cpu").state_dict()
+    assert model.spmd.ep == 2 and model.spmd.expert_index == 1
+    assert torch.equal(model.block_0.moe.experts_up.detach(), full["block_0.moe.experts_up"][2:])
+    assert torch.equal(model.block_1.moe.router.weight.detach(), full["block_1.moe.router.weight"])
     model, opt = wl.create_train_state(cfg, "cpu")
     with pytest.raises(ValueError, match="not built on this mesh"):
         wl.make_train_step(model, opt, Mesh())

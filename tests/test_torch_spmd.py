@@ -280,8 +280,9 @@ def test_every_rank_reports_its_place_and_gloo(job):
     for rank, line in enumerate(lines):
         assert line["backend"] == "gloo"
         # dp 1 x sp 2 x tp 2, rank-major as the JAX mesh's device order
-        assert line["runs"]["ring"]["index"] == {"data": 0, "seq": rank // 2, "model": rank % 2}
-        assert line["runs"]["tp-flash"]["index"] == {"data": rank // 2, "seq": 0, "model": rank % 2}
+        assert line["runs"]["ring"]["index"] == {"data": 0, "seq": rank // 2, "model": rank % 2, "expert": 0}
+        assert line["runs"]["tp-flash"]["index"] == {"data": rank // 2, "seq": 0, "model": rank % 2,
+                                                     "expert": 0}
         for row in line["runs"].values():
             # the CPU runs the plain versions: no kernel launch counts
             assert set(row["launches"].values()) == {0} and row["device_launches"] == {}

@@ -167,13 +167,20 @@ def test_create_train_state_matches_flax_init_statistics():
     ],
 )
 def test_config_fields_not_ported_raise(field, value):
-    # n_experts (the MoE) still waits for its port, and its message names
-    # it; the sequence-parallel, ring and remat fields are ported (their
-    # mesh paths: tests/test_torch_spmd.py) and on one device leave the
-    # loss as it was, as in JAX
+    # every field is ported now.  n_experts builds the MoE, which
+    # constructs as in JAX and trains on one device (its parity:
+    # tests/test_torch_moe.py); the sequence-parallel, ring and remat
+    # fields (their mesh paths: tests/test_torch_spmd.py) on one device
+    # leave the loss as it was, as in JAX
     if field == "n_experts":
-        with pytest.raises(NotImplementedError, match=rf"{field} .*ROADMAP A6b"):
-            wl.ModelConfig(**CFG, **{field: value})
+        cfg = wl.ModelConfig(**CFG, **{field: value})
+        assert cfg.n_experts == value == jwl.ModelConfig(**CFG, n_experts=value).n_experts
+        model, optimizer = wl.create_train_state(cfg, "cpu", seed=0)
+        assert tuple(model.block_0.moe.experts_up.shape) == (value, CFG["d_model"], CFG["d_ff"])
+        step = wl.make_train_step(model, optimizer)
+        batch = wl.make_batch(cfg, 4, seed=0)
+        losses = [float(step(batch)) for _ in range(3)]
+        assert losses[-1] < losses[0], losses
         return
     cfg = wl.ModelConfig(**CFG, **{field: value})
     assert getattr(cfg, field) == value == getattr(jwl.ModelConfig(**CFG, **{field: value}), field)

@@ -125,10 +125,15 @@ def test_a_model_axis_that_splits_a_head_raises():
 
 
 def test_what_remains_unported_raises_naming_a6b():
-    with pytest.raises(NotImplementedError, match=r"n_experts .*MoE.*ROADMAP A6b"):
-        wl.ModelConfig(**CFG, n_experts=2)
-    with pytest.raises(NotImplementedError, match=r"expert axis 2 .*ROADMAP A6b"):
-        wl.TinyLM(wl.ModelConfig(**CFG), device="cpu", mesh=FakeMesh(ep=2))
+    # the MoE and the expert axis are ported; what still raises is JAX's
+    # rule that the expert axis divides n_experts (JAX's placement of the
+    # expert weights raises ValueError on the same mesh)
+    with pytest.raises(ValueError, match="divisible"):
+        jwl.create_train_state(jwl.ModelConfig(**CFG, n_experts=3), jwl.make_mesh(n_devices=2, dp=1, tp=1, ep=2))
+    with pytest.raises(ValueError, match=r"n_experts \(3\) must be divisible by the mesh's expert axis \(2\)"):
+        wl.TinyLM(wl.ModelConfig(**CFG, n_experts=3), device="cpu", mesh=FakeMesh(ep=2))
+    wl.TinyLM(wl.ModelConfig(**CFG, n_experts=4), device="cpu", mesh=FakeMesh(ep=2))
+    wl.TinyLM(wl.ModelConfig(**CFG), device="cpu", mesh=FakeMesh(ep=2))  # a dense model replicates
 
 
 def test_a_sharded_model_does_not_decode_and_generate_turns_the_spmd_fields_off():
