@@ -112,7 +112,30 @@ failure (the exit code is then non-zero and no result line is printed):
    9e, ``graft_entry.dryrun_multichip(4)``, every check held.  9c-9e run
    four worker ranks on the one card over phase 7b's transport; phase 8
    and 9c-9d trace one step more a rank for where its time goes;
-10. a ``{"kernels": [...]}`` line, the card line, and last
+10. the drain through the port's full control-plane cluster at fleet
+   size (``cluster.inmem``, ``cache``, ``writepipeline``, the API types
+   and the GPU-fleet vocabulary), on the card's host: 10a, an
+   ``InMemoryCluster`` of 1,024 Nodes of 8 H100 each
+   (``nvidia.com/gpu.product``, ``nvidia.com/gpu.count`` and one
+   ``nvidia.com/slice-id`` a 16-node rack), the driver DaemonSet with a
+   pod a node, and the NodeMaintenance and GpuUpgradePolicy kinds (CRDs
+   with structural schemas, a CR each, and a policy the schema refuses);
+   10b, every node's ``nvidia.com/gpu-driver-upgrade-state`` set to
+   ``upgrade-required`` (and its admission stamped) through one
+   ``WriteDispatcher`` over the batch transport, then ``flush``: every
+   acknowledged write reads back from the cluster and, once the journal's
+   deltas are applied, from an informer cache that was stale until then;
+   fan-out ms, writes/s, batches, writes coalesced and the cache's
+   refresh ms are logged (host clock); 10c, the main path's trainer on
+   the card drained through ``DrainSignalWatcher`` on one of the 1,024
+   nodes, the request sent through the dispatcher: the acknowledgement
+   echoes its token, the checkpoint restores, and each flash kernel
+   launches ``n_layers`` times a step on its tensor-core kernel; 10d, no
+   key or value of ``cluster.to_dict()`` names the TPU fleet
+   (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and 8 keep their
+   drain nodes in the same ``InMemoryCluster``;
+11. a ``{"kernels": [...]}`` line (each flash row with phase 10c's
+   launches beside its other paths'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -958,7 +981,8 @@ def drain_trace_phase(config) -> dict:
     import uuid
     from concurrent.futures import ThreadPoolExecutor
 
-    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.obs import tracing
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
     from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
@@ -967,7 +991,7 @@ def drain_trace_phase(config) -> dict:
     tracer = tracing.Tracer()
     previous = tracing.set_default_tracer(tracer)
     try:
-        nodes = InMemoryNodeStore()
+        nodes = InMemoryCluster()
         nodes.create(make_node("gpu-host"))
         key = util.get_pre_drain_checkpoint_annotation_key()
         token = uuid.uuid4().hex[:12]
@@ -1076,7 +1100,8 @@ def one_rank_drain(config, card: str) -> dict:
     import torch
     import torch.distributed as dist
 
-    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.hack import dist_worker
     from k8s_operator_libs_tpu_torch.tpu import distributed
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
@@ -1091,7 +1116,7 @@ def one_rank_drain(config, card: str) -> dict:
         if distributed.host_allreduce_max(2.0) != 2.0:
             raise RuntimeError("7a: host_allreduce_max(2.0) != 2.0")
         distributed.sync_global_devices("chip-smoke-7a")
-        nodes = InMemoryNodeStore()
+        nodes = InMemoryCluster()
         nodes.create(make_node("gpu-host"))
         token = uuid.uuid4().hex[:12]
         reached = threading.Event()
@@ -1166,12 +1191,13 @@ def ranks_drain(config, backend: str, reference: list, card: str, n: int = 2,
     same global batches."""
     import uuid
 
-    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
     from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
 
-    nodes = InMemoryNodeStore()
+    nodes = InMemoryCluster()
     nodes.create(make_node("gpu-host"))
     token = uuid.uuid4().hex[:12]
     with tempfile.TemporaryDirectory(prefix="chip-smoke-7b-") as ckpt, NodeStoreServer(nodes) as server:
@@ -1347,8 +1373,9 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8", job=SPMD_JO
 
     import torch
 
-    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
     from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
     from k8s_operator_libs_tpu_torch.tpu import smoke
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
@@ -1366,7 +1393,7 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8", job=SPMD_JO
              "steps": SPMD_STEPS, "grads": True} for name, fields in job["runs"]]
     runs.append({"name": "drain", "mesh": mesh, "config": {**job["config"], **job["drain"]},
                  "steps": 5, "drain": True})
-    nodes = InMemoryNodeStore()
+    nodes = InMemoryCluster()
     nodes.create(make_node("gpu-host"))
     token = uuid.uuid4().hex[:12]
     _drain_request(nodes, token)  # standing: the drain stops the job at its first poll
@@ -1652,6 +1679,263 @@ def dryrun_phase(backend: str, card: str, n: int = 4, what: str = "9e") -> dict:
     rec = {"backend": backend, "ranks": n, "losses": losses, "seconds": time.perf_counter() - t0}
     log(f"phase {what} dryrun_multichip, every check held:", json.dumps(rec), "|", card)
     return rec
+
+
+# ------------------------------------------------------------ phase 10
+
+
+#: A large GPU fleet: 1,024 nodes of 8 H100 each, 16 to a rack (one
+#: ``nvidia.com/slice-id`` value a rack), within upstream Kubernetes'
+#: documented 5,000-node limit ("Considerations for large clusters").
+FLEET_NODES = 1024
+FLEET_RACK = 16
+FLEET_GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
+FLEET_NAMESPACE = "gpu-operator"
+#: the TPU fleet's domain and GKE's TPU label prefix: no object may hold them
+TPU_MARKERS = ("tpu.google.com", "gke-tpu")
+
+
+def _fleet_node(i: int) -> str:
+    return f"gpu-node-{i:04d}"
+
+
+def _crd(kind: str, spec_schema: dict) -> dict:
+    """A CustomResourceDefinition of a registered kind, with *spec_schema*
+    as its structural schema's ``spec``."""
+    from k8s_operator_libs_tpu_torch.cluster.client import kind_info
+
+    info = kind_info(kind)
+    return {
+        "apiVersion": "apiextensions.k8s.io/v1",
+        "kind": "CustomResourceDefinition",
+        "metadata": {"name": f"{info.plural}.{info.group}"},
+        "spec": {
+            "group": info.group,
+            "names": {"kind": kind, "listKind": f"{kind}List", "plural": info.plural,
+                      "singular": info.plural[:-1]},
+            "scope": "Namespaced",
+            "versions": [{"name": info.version, "served": True, "storage": True, "schema": {
+                "openAPIV3Schema": {"type": "object", "properties": {"spec": spec_schema}},
+            }}],
+        },
+    }
+
+
+def build_fleet():
+    """10a: the fleet in a fresh ``InMemoryCluster``: its Nodes with GPU
+    Feature Discovery's labels, the driver DaemonSet with one pod a node,
+    and the NodeMaintenance and GpuUpgradePolicy kinds (CRDs with
+    structural schemas, then one CR each, and a policy the schema
+    refuses).  Returns (cluster, seconds)."""
+    from k8s_operator_libs_tpu_torch.api import (
+        DrainSpec, IntOrString, PreDrainCheckpointSpec, UpgradePolicySpec,
+    )
+    from k8s_operator_libs_tpu_torch.cluster.errors import InvalidError
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
+    from k8s_operator_libs_tpu_torch.cluster.objects import (
+        make_controller_revision, make_daemonset, make_node, make_node_maintenance, make_pod,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import consts
+
+    t0 = time.perf_counter()
+    cluster = InMemoryCluster()
+    cluster.create(_crd("NodeMaintenance", {
+        "type": "object", "required": ["requestorID", "nodeName"],
+        "properties": {"requestorID": {"type": "string"}, "nodeName": {"type": "string"}},
+    }))
+    cluster.create(_crd("GpuUpgradePolicy", {"type": "object", "properties": {
+        "autoUpgrade": {"type": "boolean"},
+        "maxParallelUpgrades": {"type": "integer", "minimum": 0},
+        "maxUnavailable": {"x-kubernetes-int-or-string": True},
+        "sliceAware": {"type": "boolean"},
+        "preDrainCheckpoint": {"type": "object", "properties": {
+            "enable": {"type": "boolean"},
+            "timeoutSeconds": {"type": "integer", "minimum": 0, "default": 300},
+        }},
+    }}))
+    policy = UpgradePolicySpec(
+        auto_upgrade=True, max_parallel_upgrades=FLEET_RACK, max_unavailable=IntOrString("25%"),
+        drain_spec=DrainSpec(enable=True), slice_aware=True,
+        pre_drain_checkpoint=PreDrainCheckpointSpec(enable=True),
+    )
+    policy.validate()
+    cluster.create({"kind": "GpuUpgradePolicy", "metadata": {"name": "fleet", "namespace": FLEET_NAMESPACE},
+                    "spec": policy.to_dict()})
+    try:
+        cluster.create({"kind": "GpuUpgradePolicy", "metadata": {"name": "bad", "namespace": FLEET_NAMESPACE},
+                        "spec": {"maxParallelUpgrades": -1}})
+        raise RuntimeError("10a: the GpuUpgradePolicy schema admitted maxParallelUpgrades -1")
+    except InvalidError:
+        pass
+    ds = cluster.create(make_daemonset("gpu-driver", FLEET_NAMESPACE, {"app": "gpu-driver"},
+                                       desired_number_scheduled=FLEET_NODES))
+    cluster.create(make_controller_revision(ds, 1, "rev1"))
+    for i in range(FLEET_NODES):
+        cluster.create(make_node(_fleet_node(i), labels={
+            "nvidia.com/gpu.product": FLEET_GPU_PRODUCT,
+            "nvidia.com/gpu.count": "8",
+            consts.SLICE_ID_LABEL_KEYS[0]: f"rack-{i // FLEET_RACK:02d}",
+        }))
+        cluster.create(make_pod(f"gpu-driver-{i:04d}", FLEET_NAMESPACE, _fleet_node(i),
+                                labels={"app": "gpu-driver"}, owner=ds, revision_hash="rev1"))
+    cluster.create(make_node_maintenance("gpu-node-0000-maintenance", FLEET_NAMESPACE, "gpu-operator",
+                                         _fleet_node(0)))
+    counts = {kind: len(cluster.list(kind)) for kind in ("Node", "Pod", "GpuUpgradePolicy", "NodeMaintenance")}
+    racks = {n["metadata"]["labels"][consts.SLICE_ID_LABEL_KEYS[0]] for n in cluster.list("Node")}
+    want = {"Node": FLEET_NODES, "Pod": FLEET_NODES, "GpuUpgradePolicy": 1, "NodeMaintenance": 1}
+    if counts != want or len(racks) != FLEET_NODES // FLEET_RACK:
+        raise RuntimeError(f"10a: fleet {counts}, {len(racks)} racks; want {want}")
+    policy_back = cluster.get("GpuUpgradePolicy", "fleet", FLEET_NAMESPACE)["spec"]
+    if UpgradePolicySpec.from_dict(policy_back).to_dict() != policy.to_dict():
+        raise RuntimeError(f"10a: the policy does not round-trip: {policy_back}")
+    return cluster, time.perf_counter() - t0
+
+
+def fan_out(cluster) -> dict:
+    """10b: through one ``WriteDispatcher`` over the cluster's batch
+    transport, set every node's state label to ``upgrade-required`` and
+    stamp its admission annotation (two merge patches a node, which the
+    dispatcher may coalesce), then ``flush``.  Every acknowledged write
+    must read back from the cluster, and from an informer cache that held
+    the fleet before the writes, once the journal's deltas since are
+    applied to it.  Returns the host-clock figures."""
+    import threading
+
+    from k8s_operator_libs_tpu_torch import metrics
+    from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+    from k8s_operator_libs_tpu_torch.cluster.writepipeline import WriteDispatcher, WriteOp
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    registry = metrics.MetricsRegistry()
+    previous = metrics.set_default_registry(registry)
+    state_key, admitted_key = util.get_upgrade_state_label_key(), util.get_admitted_at_annotation_key()
+    try:
+        # seeded here; from now on it sees only what is ingested into it
+        cache = InformerCache(cluster, lag_seconds=3600.0, kinds=("Node",), externally_fed=True)
+        seq = cluster.journal_seq()
+        acks, lock = {}, threading.Lock()
+
+        def ack(name):
+            def done(obj, err):
+                with lock:
+                    acks.setdefault(name, []).append((obj, err))
+            return done
+
+        dispatcher = WriteDispatcher(cluster, use_batch=True)
+        try:
+            t0 = time.perf_counter()
+            for i in range(FLEET_NODES):
+                name = _fleet_node(i)
+                dispatcher.submit(WriteOp(op="patch", kind="Node", name=name, body={"metadata": {
+                    "labels": {state_key: consts.UPGRADE_STATE_UPGRADE_REQUIRED}}}), ack(name))
+                dispatcher.submit(WriteOp(op="patch", kind="Node", name=name, body={"metadata": {
+                    "annotations": {admitted_key: f"{i}"}}}), ack(name))
+            dispatcher.flush(timeout=120.0)
+            fan_out_s = time.perf_counter() - t0
+            coalesced = dispatcher.coalesced
+        finally:
+            dispatcher.close()
+        batches = metrics.write_batch_size_histogram().count()
+        failed = {n: errs for n, a in acks.items() if (errs := [e for _, e in a if e is not None])}
+        if len(acks) != FLEET_NODES or failed or sum(len(a) for a in acks.values()) != 2 * FLEET_NODES:
+            raise RuntimeError(f"10b: {len(acks)} nodes acknowledged, failures {list(failed.items())[:3]}")
+        stale = [n for n in cache.list("Node") if n["metadata"]["labels"].get(state_key)]
+        if stale:
+            raise RuntimeError(f"10b: the lagged cache saw {len(stale)} writes before its refresh")
+        t1 = time.perf_counter()
+        cache.ingest(cluster.events_since(seq))
+        refresh_s = time.perf_counter() - t1
+        for source, nodes in (("cluster", cluster.list("Node")), ("cache", cache.list("Node"))):
+            wrong = [n["metadata"]["name"] for n in nodes
+                     if n["metadata"]["labels"].get(state_key) != consts.UPGRADE_STATE_UPGRADE_REQUIRED
+                     or admitted_key not in n["metadata"]["annotations"]]
+            if len(nodes) != FLEET_NODES or wrong:
+                raise RuntimeError(f"10b: {len(wrong)} of {len(nodes)} nodes in the {source} lack "
+                                   f"an acknowledged write: {wrong[:5]}")
+    finally:
+        metrics.set_default_registry(previous)
+    writes = 2 * FLEET_NODES
+    return {
+        "nodes": FLEET_NODES,
+        "writes": writes,
+        "fan_out_ms": fan_out_s * 1e3,
+        "writes_per_s": writes / fan_out_s,
+        "batches": batches,
+        "writes_coalesced": coalesced,
+        "cache_refresh_ms": refresh_s * 1e3,
+        "journal_events": cluster.journal_seq() - seq,
+    }
+
+
+def fleet_drain(cluster, config, node: str) -> dict:
+    """10c: the smoke-config trainer drains on the card through
+    ``DrainSignalWatcher(cluster, node)``: the request goes through a
+    ``WriteDispatcher`` after two steps; the acknowledgement must echo
+    its token, the checkpoint must restore, and each flash kernel must
+    launch ``n_layers`` times a step, on its tensor-core kernel."""
+    import uuid
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_operator_libs_tpu_torch.cluster.writepipeline import WriteDispatcher, WriteOp
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    key = util.get_pre_drain_checkpoint_annotation_key()
+    token = uuid.uuid4().hex[:12]
+    ack = f"{consts.PRE_DRAIN_CHECKPOINT_DONE}:{token}"
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-10-") as ckpt, ThreadPoolExecutor(1) as pool:
+        trainer = wl.CheckpointingTrainer(config, ckpt, watcher=DrainSignalWatcher(cluster, node),
+                                          device="cuda")
+        trainer.run(2)
+        run = pool.submit(trainer.run, 1000)
+        dispatcher = WriteDispatcher(cluster, use_batch=True)
+        try:
+            sent = []
+            t0 = time.perf_counter()
+            dispatcher.submit(WriteOp(op="patch", kind="Node", name=node, body={"metadata": {
+                "annotations": {key: f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}"}}}),
+                lambda obj, err: sent.append(err))
+            dispatcher.flush(timeout=30.0)
+        finally:
+            dispatcher.close()
+        if sent != [None]:
+            raise RuntimeError(f"10c: the drain request was not acknowledged by the cluster: {sent}")
+        step = run.result(timeout=300)
+        ack_s = time.perf_counter() - t0
+        got = cluster.get("Node", node)["metadata"]["annotations"].get(key)
+        if not trainer.drained or got != ack:
+            raise RuntimeError(f"10c: drained {trainer.drained}, ack {got!r}, want {ack!r}")
+        if wl.restore_checkpoint(ckpt, step)["step"] != step:
+            raise RuntimeError(f"10c: the checkpoint does not restore at step {step}")
+    launches = dict(fa.launch_counts)
+    _check_flash_launches("10c", {k: n for k, n in fa.device_launch_counts.items() if n},
+                          dict.fromkeys(launches, config.n_layers * step))
+    if not all(math.isfinite(x) for x in trainer.losses):
+        raise RuntimeError(f"10c: losses {trainer.losses}")
+    return {"node": node, "drained_at_step": step, "ack": got.split(":")[0],
+            "request_to_ack_ms": ack_s * 1e3, "flash_launches": launches}
+
+
+def fleet_phase(config, card: str) -> dict:
+    """Phase 10: the drain through the full in-memory cluster, at the size
+    of a large fleet (10a-10d; see the module docstring)."""
+    cluster, build_s = build_fleet()
+    log(f"phase 10a fleet: {FLEET_NODES} nodes of 8 x {FLEET_GPU_PRODUCT}, "
+        f"{FLEET_NODES // FLEET_RACK} racks, {FLEET_NODES} driver pods, built in {build_s * 1e3:.1f} ms "
+        f"(host clock) | {card}")
+    fan = fan_out(cluster)
+    log("phase 10b fan-out (host clock):", json.dumps(fan), "|", card)
+    drain = fleet_drain(cluster, config, _fleet_node(FLEET_NODES // 2 + 5))
+    log("phase 10c fleet drain:", json.dumps(drain), "|", card)
+    dump = json.dumps(cluster.to_dict())
+    found = [m for m in TPU_MARKERS if m in dump]
+    if found:
+        raise RuntimeError(f"10d: the cluster holds {found}")
+    log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}")
+    return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain}
 
 
 def compiled_report():
@@ -1983,7 +2267,12 @@ def main(argv=None) -> int:
     log(f"phase 9 done {t9[-1] - t_start:.1f} s (phase 9 {t9[-1] - t9[0]:.1f} s: "
         + ", ".join(f"9{part} {b - a:.1f}" for part, a, b in zip("abcde", t9, t9[1:])) + ")")
 
-    # ---- 10. the result lines ----
+    # ---- 10. the drain through the full cluster, at fleet size ----
+    t10 = time.perf_counter()
+    fleet = fleet_phase(config, card)
+    log(f"phase 10 done {time.perf_counter() - t_start:.1f} s (phase 10 {time.perf_counter() - t10:.1f} s)")
+
+    # ---- 11. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2033,6 +2322,12 @@ def main(argv=None) -> int:
                 **{f"9c {run} (per rank)": [counts[name] for counts in row["launches"]]
                    for run, row in ep["runs"].items()},
                 "9d GPipe (per stage, per step)": [counts[name] / PIPE_STEPS for counts in pipe["launches"]],
+            },
+            # phase 10c: the smoke trainer drained through the fleet's
+            # cluster, counted from 0 around it
+            "fleet_path_launches": {
+                f"10c fleet drain ({fleet['drain']['drained_at_step']} steps)":
+                    fleet["drain"]["flash_launches"][name],
             },
         })
     step = int8_timing["per_decode_step"]

@@ -1,10 +1,12 @@
-"""k8s_operator_libs_tpu_torch — the PyTorch/CUDA port of the workload
-side of :mod:`k8s_operator_libs_tpu`, for an NVIDIA H100.
+"""k8s_operator_libs_tpu_torch — the PyTorch/CUDA port of
+:mod:`k8s_operator_libs_tpu`, for NVIDIA H100 fleets: the workload side
+and, so far, the control plane's vocabulary and in-memory cluster.
 
 Module names follow the JAX package, so each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never jax, and
-nothing of the JAX package: where it needs a few lines of the control
-plane (the drain-handshake annotation keys) it keeps its own copy.
+nothing of the JAX package: it keeps its own copy of what it needs.  Its
+control-plane strings are the GPU fleet's (the ``nvidia.com`` domain,
+component ``gpu-driver``); their semantics are the JAX package's.
 
   tpu/flash_attention.py   flash attention: three CUDA kernels
                            (csrc/flash_attention.cu) beside their plain
@@ -23,11 +25,25 @@ plane (the drain-handshake annotation keys) it keeps its own copy.
   tpu/smoke.py             train, time, drain, restore and resume; the
                            staged benches (STAGES, run_stage)
   obs/tracing.py           spans and the W3C traceparent carrier
-  cluster/inmem.py         a minimal in-memory node store
+  consts.py                log levels
+  metrics.py               counters, gauges, histograms and their
+                           Prometheus exposition
+  api/intstr.py,           IntOrString and the upgrade-policy spec types
+  api/upgrade_spec.py
+  upgrade/consts.py        states, label and annotation key formats
+  upgrade/util.py          key builders, StringSet, KeyedMutex, events
+  cluster/errors.py        the apiserver error taxonomy
+  cluster/objects.py       object builders and predicates
+  cluster/selectors.py,    label and field selectors; CRD structural
+  cluster/schema.py        schemas (validation, defaulting)
+  cluster/strategicmerge.py  strategic merge patch
+  cluster/retry.py         retry on conflict and on overload
+  cluster/client.py        the client protocol and the kind registry
+  cluster/inmem.py         InMemoryCluster: the in-memory apiserver
+  cluster/cache.py         InformerCache
+  cluster/writepipeline.py WriteOp and the batching WriteDispatcher
   cluster/kubeclient.py    a minimal Node client over urllib, and a
-                           server of the in-memory store
-  upgrade/consts.py,       the annotation key formats and values, and the
-  upgrade/util.py          component-name setting
+                           server of the in-memory cluster's Nodes
   convert.py               flax TinyLM params <-> torch state_dict
   graft_entry.py           entry(): a loss step on TinyLM
   examples/generate.py     train or restore, then KV-cache decode

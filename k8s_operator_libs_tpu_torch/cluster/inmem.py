@@ -1,78 +1,1314 @@
-"""A minimal in-memory node store: node JSON objects by name, with a JSON
-merge patch (RFC 7386) in which ``None`` deletes a key.
+"""In-memory kube-apiserver — the test/simulation substrate.
 
-It offers what :class:`~..tpu.drain_handshake.DrainSignalWatcher` asks of
-a client, ``get("Node", name)`` and ``patch("Node", name, merge_patch)``,
-so that the port can run the drain handshake without the JAX package's
-``InMemoryCluster``.  Nodes only: it is no apiserver.
+The reference tests against **envtest** (a real kube-apiserver + etcd with
+no kubelet/scheduler); that substrate is not available
+here (no Go toolchain, no network), so this module provides the same
+contract in-process:
+
+* objects are plain JSON-style dicts (Nodes, Pods, DaemonSets,
+  ControllerRevisions, NodeMaintenances, CRDs, ...) stored by
+  (kind, namespace, name);
+* every write bumps ``metadata.resourceVersion``; ``update`` and
+  RV-carrying patches enforce optimistic concurrency with
+  :class:`~.errors.ConflictError`, which is what makes the requestor
+  mode's shared-requestor patch protocol
+  (reference upgrade_requestor.go:320-368) testable under concurrent
+  writers;
+* ``merge_patch`` implements RFC 7386 (null deletes a key) — the
+  mechanism behind the reference's annotation deletion patches
+  (node_upgrade_state_provider.go:147-151);
+* like envtest, there are **no controllers**: DaemonSet status, pod
+  phases etc. are hand-set by tests/simulations via ``update``;
+* a monotonically sequenced event journal supports informer-style watch
+  semantics (used by the :mod:`~.cache` informer cache and the
+  requestor-mode predicates).
+
+Thread-safe: all operations take an internal lock; returned objects are
+deep copies (mutating them never mutates the store — same contract as
+client-go's cache-copy discipline).
 """
 
 from __future__ import annotations
 
 import copy
+import marshal
+import secrets
 import threading
-from typing import Any, Dict
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-JsonObj = Dict[str, Any]
+from .errors import (
+    AlreadyExistsError,
+    BadRequestError,
+    ConflictError,
+    ExpiredError,
+    InvalidError,
+    NotFoundError,
+    TooManyRequestsError,
+)
+from . import schema as crschema
+from .client import JsonObj, Key  # canonical aliases (re-exported here)
+from .selectors import match_label_selector, parse_selector
+
+_SCALARS = (str, int, float, bool, type(None))
 
 
-class NotFoundError(KeyError):
-    """The named node does not exist."""
+def json_copy(obj: Any) -> Any:
+    """Deep copy for JSON-style trees (dict/list/scalars) — the only shapes
+    this store holds.  ~5x faster than :func:`copy.deepcopy`, which
+    dominates the read path at fleet scale (every get/list copies every
+    returned object under the store lock, so copy cost serializes all
+    readers).  Non-JSON values (tests sometimes stash helper objects on
+    metadata) fall back to ``copy.deepcopy``."""
+    t = type(obj)
+    if t is dict:
+        return {k: json_copy(v) for k, v in obj.items()}
+    if t is list:
+        return [json_copy(v) for v in obj]
+    if t in _SCALARS or isinstance(obj, _SCALARS):
+        return obj
+    return copy.deepcopy(obj)
+
+
+def rv_str(obj: JsonObj) -> Optional[str]:
+    """The object's ``metadata.resourceVersion`` when it is a string
+    (the only representation this store writes), else None — shared by
+    every copy-free rv probe and the blob-cache validity check."""
+    rv = (obj.get("metadata") or {}).get("resourceVersion")
+    return rv if isinstance(rv, str) else None
+
+
+def _key_of(obj: JsonObj) -> Key:
+    kind = obj.get("kind")
+    meta = obj.get("metadata") or {}
+    name = meta.get("name")
+    if not kind or not name:
+        raise BadRequestError("object needs kind and metadata.name")
+    return (kind, meta.get("namespace", ""), name)
 
 
 def merge_patch(target: JsonObj, patch: JsonObj) -> JsonObj:
-    """RFC 7386 JSON merge patch: dicts merge recursively, ``None``
-    deletes.  Returns a new object; neither argument is changed."""
+    """RFC 7386 JSON merge patch: dicts merge recursively, null deletes.
+
+    The recursion follows the RFC's MergePatch pseudo-code exactly: a
+    patch SUB-OBJECT landing on a missing/non-object target merges into
+    ``{}`` — so nulls nested inside it are STRIPPED, never stored (a
+    real apiserver behaves the same; storing them would also break
+    idempotency, since a second application would then delete them).
+    Found by the hypothesis idempotency law in tests/test_properties.py."""
     out = dict(target)
-    for key, value in patch.items():
-        if value is None:
-            out.pop(key, None)
-        elif isinstance(value, dict):
-            prev = out.get(key)
-            out[key] = merge_patch(prev if isinstance(prev, dict) else {}, value)
+    for k, v in patch.items():
+        if v is None:
+            out.pop(k, None)
+        elif isinstance(v, dict):
+            prev = out.get(k)
+            out[k] = merge_patch(
+                prev if isinstance(prev, dict) else {}, v
+            )
         else:
-            out[key] = copy.deepcopy(value)
+            out[k] = json_copy(v)
     return out
 
 
-class InMemoryNodeStore:
-    """Nodes by name.  Thread-safe: the orchestrator side and the trainer
-    may patch the same node from different threads."""
+@dataclass
+class ListPage:
+    """One page of a chunked LIST (the ``limit``/``continue`` protocol).
 
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._nodes: Dict[str, JsonObj] = {}
+    *resource_version* is the SNAPSHOT revision: every page of one
+    paginated list reports the same value — the collection revision the
+    first page was cut at — exactly as a real apiserver serves continue
+    pages from the etcd snapshot the token pins (client-go pager
+    contract; reference inherits it via go.mod:11-16)."""
+
+    items: List[JsonObj]
+    continue_token: str  # "" = last page
+    resource_version: str
+    remaining_item_count: Optional[int] = None
+
+
+@dataclass
+class _PageSnapshot:
+    """Server-side state behind a continue token family.
+
+    The full matching result set is snapshotted (deep copies) when the
+    first ``limit=N`` page is cut; later pages slice it.  Tokens are
+    ``<handle>.<offset>`` so a network-level retry of the SAME token
+    serves the SAME page (idempotent reads — client-go retries a page
+    before falling back to a full relist)."""
+
+    rv: int  # collection revision the snapshot was cut at
+    #: The collection the snapshot was cut from — a token replayed
+    #: against a different kind/namespace/selector is a 400, exactly
+    #: like a real apiserver's token/request mismatch rejection.
+    request: Tuple[str, Optional[str], str, str] = ("", None, "", "")
+    items: List[JsonObj] = field(default_factory=list)
+
+
+class WatchEvent:
+    """One journal entry: Added / Modified / Deleted with old+new objects.
+
+    The old/new trees may be carried as **marshal blobs** materialized
+    lazily on first access (and then cached on the event, so every
+    consumer shares one tree exactly as when trees were stored
+    directly).  The write path hands the SAME blob bytes to the journal
+    that the rv-validated read cache holds — one ``marshal.dumps`` per
+    write replaces what used to be two full deep copies (profiled as
+    the dominant cost of the 4,096-node probe: ``json_copy`` at 3.6M
+    recursive calls/cycle).  ``kind`` is carried as its own slot so
+    journal filtering (:meth:`InMemoryCluster.events_since`) never
+    materializes events other consumers haven't asked for."""
+
+    __slots__ = ("seq", "type", "kind", "_old", "_new", "_old_blob",
+                 "_new_blob")
+
+    def __init__(
+        self,
+        seq: int,
+        type_: str,
+        old: Optional[JsonObj],
+        new: Optional[JsonObj],
+        kind: str = "",
+        old_blob: Optional[bytes] = None,
+        new_blob: Optional[bytes] = None,
+    ):
+        self.seq = seq
+        self.type = type_
+        self._old = old
+        self._new = new
+        self._old_blob = old_blob
+        self._new_blob = new_blob
+        self.kind = kind or ((new or old or {}).get("kind") or "")
+
+    # Double-checked locking: events are consumed from held-watch
+    # handler threads, the informer cache, and the controller loop
+    # simultaneously, and every consumer must share ONE materialized
+    # tree (pinned by TestBlobJournal).  The lock is module-shared —
+    # per-event locks would cost a slot + object on millions of
+    # journal entries; contention only exists during a first access.
+
+    @property
+    def old(self) -> Optional[JsonObj]:
+        if self._old is None and self._old_blob is not None:
+            with _MATERIALIZE_LOCK:
+                if self._old is None and self._old_blob is not None:
+                    self._old = marshal.loads(self._old_blob)
+                    self._old_blob = None
+        return self._old
+
+    @property
+    def new(self) -> Optional[JsonObj]:
+        if self._new is None and self._new_blob is not None:
+            with _MATERIALIZE_LOCK:
+                if self._new is None and self._new_blob is not None:
+                    self._new = marshal.loads(self._new_blob)
+                    self._new_blob = None
+        return self._new
+
+
+#: Shared by every WatchEvent's lazy materialization (see above).
+_MATERIALIZE_LOCK = threading.Lock()
+
+
+class InMemoryCluster:
+    """A stand-in kube-apiserver holding typed-but-schemaless JSON objects."""
+
+    def __init__(
+        self,
+        crd_establish_delay_seconds: float = 0.0,
+        termination_grace_scale: float = 1.0,
+        use_indexes: bool = True,
+        event_ttl_seconds: float = 3600.0,
+    ) -> None:
+        self._lock = threading.RLock()
+        #: Signaled on every journal append — the push half of
+        #: :meth:`wait_for_seq` (event-driven waits instead of 10 ms
+        #: polls in the drain/eviction hot paths).
+        self._journal_cond = threading.Condition(self._lock)
+        self._store: Dict[Key, JsonObj] = {}
+        self._rv = 0
+        self._journal: List[WatchEvent] = []
+        # Retention: floor entries, auto-scaled up with the store size
+        # (see _record).  Assigning _journal_cap pins retention exactly
+        # (tests force 410s with tiny windows) — see the property below.
+        self._journal_cap_floor = 10000
+        self._journal_autoscale = True
+        self._journal_floor = 0  # highest seq evicted from the journal
+        #: A real apiserver establishes CRDs asynchronously; 0 = synchronous.
+        self.crd_establish_delay_seconds = crd_establish_delay_seconds
+        #: Simulation clock scale for pod graceful termination: a pod
+        #: deleted with grace period G lingers Terminating for
+        #: ``G * termination_grace_scale`` wall seconds before the
+        #: "kubelet" (a timer) confirms and the object is removed.  1.0 =
+        #: real time; tests use small scales so 30 s graces finish in ms.
+        self.termination_grace_scale = termination_grace_scale
+        # Secondary indexes (the apiserver analog: etcd key prefixes per
+        # type + the kubelet's spec.nodeName fieldSelector index).  At
+        # fleet scale every per-node drain/eviction listing otherwise
+        # scans the whole store under the lock — O(fleet²) per wave.
+        self._by_kind: Dict[str, set] = {}
+        self._pods_by_node: Dict[str, set] = {}
+        #: Bench A/B toggle: False forces every list into a full-store
+        #: scan (the round-1 behavior) so the index win is measurable.
+        self._use_indexes = use_indexes
+        #: Observable LIST-shaped operations served (list / list_page /
+        #: snapshot) — the cost the incremental BuildState exists to
+        #: avoid; the bench-scale guard test asserts the indexed path
+        #: issues strictly fewer of these than the full rebuild.
+        self.list_ops = 0
+        # Chunked-LIST continue-token table: handle -> snapshot.  Tokens
+        # expire (410 Gone) when the collection revision has advanced
+        # past the journal retention window — the compaction analog —
+        # or when the table is full and the handle is evicted (FIFO by
+        # creation order; drained snapshots are deleted eagerly).
+        self._page_snapshots: Dict[str, _PageSnapshot] = {}
+        self._page_snapshot_cap = 64
+        # Admission schemas: CR kind -> openAPIV3Schema, registered when
+        # a CustomResourceDefinition carrying a structural schema is
+        # applied (exactly envtest: load the CRD, get real validation).
+        # Kinds with no applied CRD stay schemaless — the pre-round-4
+        # behavior, so plain unit tests that never apply CRDs are
+        # untouched.
+        self._crd_schemas: Dict[str, JsonObj] = {}
+        # uid generation: one random prefix per cluster + a counter.
+        # uuid4() costs ~17us of os.urandom PER CREATE — at fleet scale
+        # a single restart wave creates thousands of pods, and the store
+        # only needs uniqueness, not cryptographic randomness.
+        self._uid_prefix = uuid.uuid4().hex[:12]
+        self._uid_seq = 0
+        #: Event retention — the kube-apiserver ``--event-ttl`` analog
+        #: (its default is 1h too): Event objects whose lastTimestamp
+        #: (falling back to firstTimestamp / creationTimestamp) is older
+        #: than this are garbage-collected.  0 disables.  GC runs lazily
+        #: on Event writes/lists, rate-limited, so a store that never
+        #: touches Events never pays for it; :meth:`gc_events` runs it
+        #: explicitly (tests pin the clock).
+        self.event_ttl_seconds = event_ttl_seconds
+        self._last_event_gc = 0.0
+        # Copy-out accelerator: per-object marshal blob keyed by store
+        # key, validated by the object's resourceVersion (every write
+        # bumps rv through _next_rv, so a matching rv proves the blob is
+        # current — no invalidation hook needed beyond delete).  A
+        # full-fleet LIST then restores objects via C-speed
+        # marshal.loads instead of the Python json_copy recursion, which
+        # otherwise dominates reconcile wall-time at 4k nodes.
+        self._blobs: Dict[Key, Tuple[str, bytes]] = {}
+        self._blob_cap = 65536
+
+    # ------------------------------------------------------------------ util
+    def _next_rv(self) -> str:
+        self._rv += 1
+        return str(self._rv)
+
+    @property
+    def _journal_cap(self) -> int:
+        with self._lock:  # RLock: safe from under-lock readers too
+            return self._journal_cap_floor
+
+    @_journal_cap.setter
+    def _journal_cap(self, value: int) -> None:
+        """Pin journal retention to exactly *value* entries.  Assigning
+        disables store-size auto-scaling — tests that shrink the window
+        to provoke 410 Gone need the cap to mean what they set."""
+        with self._lock:
+            self._journal_cap_floor = value
+            self._journal_autoscale = False
+
+    # ------------------------------------------------------------ index upkeep
+    def _store_put(self, key: Key, obj: JsonObj) -> None:
+        prev = self._store.get(key)
+        if prev is not None:
+            self._index_drop(key, prev)
+        self._store[key] = obj
+        self._by_kind.setdefault(key[0], set()).add(key)
+        if key[0] == "Pod":
+            node = (obj.get("spec") or {}).get("nodeName") or ""
+            self._pods_by_node.setdefault(node, set()).add(key)
+
+    def _copy_out(self, key: Key, obj: JsonObj) -> JsonObj:
+        """Deep-copy *obj* for hand-out, via the rv-validated blob cache
+        (see ``_blobs``).  Unmarshalable trees (tests sometimes stash
+        helper objects on metadata) fall back to :func:`json_copy`."""
+        blob = self._blob_of(key, obj)
+        return marshal.loads(blob) if blob is not None else json_copy(obj)
+
+    def _store_pop(self, key: Key) -> Optional[JsonObj]:
+        self._blobs.pop(key, None)
+        obj = self._store.pop(key, None)
+        if obj is not None:
+            self._index_drop(key, obj)
+        return obj
+
+    def _index_drop(self, key: Key, obj: JsonObj) -> None:
+        self._by_kind.get(key[0], set()).discard(key)
+        if key[0] == "Pod":
+            node = (obj.get("spec") or {}).get("nodeName") or ""
+            bucket = self._pods_by_node.get(node)
+            if bucket is not None:
+                bucket.discard(key)
+
+    def _record(
+        self,
+        type_: str,
+        old: Optional[JsonObj],
+        new: Optional[JsonObj],
+        kind: str = "",
+        old_blob: Optional[bytes] = None,
+        new_blob: Optional[bytes] = None,
+    ) -> None:
+        self._journal.append(
+            WatchEvent(
+                self._rv, type_, old, new,
+                kind=kind, old_blob=old_blob, new_blob=new_blob,
+            )
+        )
+        # Retention scales with the store, floored at the cap — the
+        # watch-cache analog (a real apiserver sizes its cache with the
+        # resource count, and etcd's time-based compaction retains far
+        # more than 10k events on a busy fleet).  A FIXED cap made every
+        # fleet-scale reconcile wave (≥ cap writes per cycle at 8k+
+        # nodes) expire every journal consumer every cycle, degrading
+        # all incremental readers to per-cycle relists.  Assigning
+        # _journal_cap pins retention exactly (tests forcing 410s).
+        cap = self._journal_cap_floor
+        if self._journal_autoscale:
+            cap = max(cap, 2 * len(self._store))
+        if len(self._journal) > cap:
+            evicted = len(self._journal) - cap
+            self._journal_floor = self._journal[evicted - 1].seq
+            del self._journal[:evicted]
+        self._journal_cond.notify_all()
+
+    def _blob_of(
+        self, key: Key, obj: JsonObj, prime: bool = True
+    ) -> Optional[bytes]:
+        """Marshal blob of a stored object, reusing/priming the
+        rv-validated read cache (one dumps serves the journal, the
+        write's return value, AND every later get/list of this rv).
+        None when the tree is unmarshalable or carries no rv — callers
+        fall back to tree copies.  ``prime=False`` skips the cache
+        insertion — delete paths need the journal blob but must not
+        cache (and at cap, CLEAR the warm cache for) a key that is
+        being removed."""
+        rv = rv_str(obj)
+        if rv is None:
+            return None
+        hit = self._blobs.get(key)
+        if hit is not None and hit[0] == rv:
+            return hit[1]
+        try:
+            blob = marshal.dumps(obj)
+        except ValueError:
+            return None
+        if prime:
+            if len(self._blobs) >= self._blob_cap:
+                self._blobs.clear()
+            self._blobs[key] = (rv, blob)
+        return blob
+
+    def _record_write(
+        self,
+        key: Key,
+        type_: str,
+        old: Optional[JsonObj],
+        old_blob: Optional[bytes],
+        stored: JsonObj,
+        kind: str,
+    ) -> JsonObj:
+        """Journal a write of *stored* (already in the store) and return
+        the caller's hand-out copy — the blob-vs-tree-fallback dance
+        shared by create/update/patch."""
+        new_blob = self._blob_of(key, stored)
+        self._record(
+            type_,
+            old,
+            None if new_blob is not None else json_copy(stored),
+            kind=kind,
+            old_blob=old_blob,
+            new_blob=new_blob,
+        )
+        return (
+            marshal.loads(new_blob)
+            if new_blob is not None
+            else json_copy(stored)
+        )
+
+    # ------------------------------------------------------------ event TTL GC
+    @staticmethod
+    def _event_stamp(obj: JsonObj) -> Optional[float]:
+        """The Event's age anchor as unix seconds: lastTimestamp (ISO
+        string, the recorder contract) → firstTimestamp →
+        creationTimestamp (already a float here).  None = unparseable —
+        such an Event is never GC'd (degrade to retention, not loss)."""
+        import datetime as _dt
+
+        for field_name in ("lastTimestamp", "firstTimestamp"):
+            raw = obj.get(field_name)
+            if isinstance(raw, (int, float)):
+                return float(raw)
+            if isinstance(raw, str) and raw:
+                try:
+                    return _dt.datetime.fromisoformat(
+                        raw.replace("Z", "+00:00")
+                    ).timestamp()
+                except ValueError:
+                    continue
+        created = (obj.get("metadata") or {}).get("creationTimestamp")
+        return float(created) if isinstance(created, (int, float)) else None
+
+    def gc_events(self, now: Optional[float] = None) -> int:
+        """Drop Event objects older than ``event_ttl_seconds`` (the
+        kube-apiserver ``--event-ttl`` analog); returns how many were
+        collected.  Deletions are journaled like any other delete, so
+        watchers/informers see them."""
+        ttl = self.event_ttl_seconds
+        if ttl <= 0:
+            return 0
+        now = time.time() if now is None else now
+        removed = 0
+        with self._lock:
+            self._last_event_gc = now
+            for key in list(self._by_kind.get("Event") or ()):
+                obj = self._store.get(key)
+                if obj is None:
+                    continue
+                stamp = self._event_stamp(obj)
+                if stamp is None or now - stamp < ttl:
+                    continue
+                old_blob = self._blob_of(key, obj, prime=False)
+                self._store_pop(key)
+                self._next_rv()
+                self._record(
+                    "Deleted",
+                    None if old_blob is not None else json_copy(obj),
+                    None,
+                    kind="Event",
+                    old_blob=old_blob,
+                )
+                removed += 1
+        return removed
+
+    def _maybe_gc_events_locked(self) -> None:
+        """Opportunistic TTL sweep, rate-limited to once per minute —
+        called (under the lock) from Event writes and lists, so expired
+        Events age out without any background thread.  Caller holds the
+        RLock; gc_events re-enters it harmlessly."""
+        ttl = self.event_ttl_seconds
+        if ttl <= 0:
+            return
+        now = time.time()
+        if now - self._last_event_gc < min(60.0, ttl / 4.0):
+            return
+        self.gc_events(now)
+
+    # -------------------------------------------------------------- admission
+    def _admit(self, obj: JsonObj) -> None:
+        """Structural-schema admission (envtest behavior): apply the
+        schema's defaults to absent fields, then validate — 422
+        :class:`InvalidError` on violation, so an invalid CR never
+        reaches a controller.  No-op for kinds without an applied CRD
+        schema."""
+        schema = self._crd_schemas.get(obj.get("kind") or "")
+        if schema is None:
+            return
+        crschema.apply_defaults(obj, schema)
+        violations = crschema.validate(obj, schema)
+        if violations:
+            meta = obj.get("metadata") or {}
+            raise InvalidError(
+                f"{obj.get('kind')} "
+                f"{meta.get('namespace', '')}/{meta.get('name', '')} "
+                f"is invalid: " + "; ".join(violations)
+            )
+
+    def _register_crd_schema(self, crd: JsonObj) -> None:
+        """Track the CRD's CURRENT schema: registering a schemaless
+        version of a previously-schemaed CRD unregisters it (a real
+        apiserver stops validating the moment the structural schema is
+        removed)."""
+        extracted = crschema.extract_crd_schema(crd)
+        if extracted is not None:
+            kind, schema_ = extracted
+            self._crd_schemas[kind] = json_copy(schema_)
+        else:
+            self._unregister_crd_schema(crd)
+
+    def _unregister_crd_schema(self, crd: JsonObj) -> None:
+        kind = (((crd.get("spec") or {}).get("names") or {}).get("kind")) or ""
+        if kind:
+            self._crd_schemas.pop(kind, None)
+
+    # ------------------------------------------------------------------ CRUD
+    def create(self, obj: JsonObj) -> JsonObj:
+        with self._lock:
+            key = _key_of(obj)
+            if key[0] == "Event":
+                self._maybe_gc_events_locked()
+            if key in self._store:
+                raise AlreadyExistsError(f"{key} already exists")
+            stored = json_copy(obj)
+            if stored.get("kind") == "CustomResourceDefinition":
+                self._register_crd_schema(stored)
+            else:
+                self._admit(stored)
+            meta = stored.setdefault("metadata", {})
+            meta["resourceVersion"] = self._next_rv()
+            if "uid" not in meta:
+                self._uid_seq += 1
+                meta["uid"] = f"{self._uid_prefix}-{self._uid_seq:08x}"
+            meta.setdefault("creationTimestamp", time.time())
+            self._store_put(key, stored)
+            # One marshal.dumps serves the journal entry, this return
+            # value, and every later get/list of this rv (profiled: the
+            # old triple json_copy dominated the 4,096-node probe)
+            result = self._record_write(
+                key, "Added", None, None, stored, stored.get("kind") or ""
+            )
+        if stored.get("kind") == "CustomResourceDefinition":
+            self._schedule_crd_establishment(key)
+        return result
+
+    # CRD establishment — mimics the apiserver's async naming/serving
+    # controller so crdutil's discovery readiness wait (crdutil.go:275-319
+    # analog) has something real to wait for.
+    def _schedule_crd_establishment(self, key: Key) -> None:
+        def establish() -> None:
+            with self._lock:
+                obj = self._store.get(key)
+                if obj is None:
+                    return
+                old = json_copy(obj)
+                conds = obj.setdefault("status", {}).setdefault("conditions", [])
+                for c in conds:
+                    if c.get("type") == "Established":
+                        c["status"] = "True"
+                        break
+                else:
+                    conds.append({"type": "Established", "status": "True"})
+                obj["metadata"]["resourceVersion"] = self._next_rv()
+                self._record("Modified", old, json_copy(obj))
+
+        if self.crd_establish_delay_seconds <= 0:
+            establish()
+        else:
+            t = threading.Timer(self.crd_establish_delay_seconds, establish)
+            t.daemon = True
+            t.start()
+
+    def get(self, kind: str, name: str, namespace: str = "") -> JsonObj:
+        key: Key = (kind, namespace, name)
+        with self._lock:
+            obj = self._store.get(key)
+            if obj is None:
+                raise NotFoundError(f"{kind} {namespace}/{name} not found")
+            return self._copy_out(key, obj)
+
+    def resource_version_of(
+        self, kind: str, name: str, namespace: str = ""
+    ) -> Optional[str]:
+        """The stored object's resourceVersion WITHOUT a copy — the
+        cache-visibility wait polls this per write, and a full deep copy
+        per poll serializes every reader on the store lock at fleet
+        scale.  None when the object does not exist."""
+        with self._lock:
+            obj = self._store.get((kind, namespace, name))
+            return None if obj is None else rv_str(obj)
+
+    def list(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: str = "",
+        field_filter: Optional[Callable[[JsonObj], bool]] = None,
+        field_selector: str = "",
+    ) -> List[JsonObj]:
+        """List objects of *kind*.  ``field_selector`` supports the one
+        form a real apiserver indexes for pods — ``spec.nodeName=<node>``
+        — and is served from a secondary index (O(pods-on-node), not
+        O(store)).  ``field_filter`` is an arbitrary predicate run on the
+        stored objects BEFORE copying (test/simulation convenience; a real
+        client would filter after the fact)."""
+        with self._lock:
+            self.list_ops += 1
+            if kind == "Event":
+                self._maybe_gc_events_locked()
+            matches = self._scan(
+                kind, namespace, label_selector, field_filter, field_selector
+            )
+            return [self._copy_out(k, obj) for k, obj in matches]
+
+    def _scan(
+        self,
+        kind: str,
+        namespace: Optional[str],
+        label_selector: str,
+        field_filter: Optional[Callable[[JsonObj], bool]],
+        field_selector: str,
+    ) -> List[Tuple[Key, JsonObj]]:
+        """Sorted (key, stored-object) matches — caller holds the lock
+        and copies.  Candidates come from the narrowest available index;
+        label / field filters run on the stored objects FIRST, so only
+        matches are copied (copying under the store lock is what
+        serializes concurrent readers at fleet scale)."""
+        match = parse_selector(label_selector)
+        node_filter = None
+        if field_selector:
+            if kind != "Pod" or not field_selector.startswith(
+                "spec.nodeName="
+            ):
+                raise BadRequestError(
+                    f"unsupported field selector {field_selector!r} "
+                    f"for kind {kind} (only Pod spec.nodeName=... is "
+                    f"indexed)"
+                )
+            node = field_selector.split("=", 1)[1]
+            if self._use_indexes:
+                keys = self._pods_by_node.get(node) or ()
+            else:
+                node_filter = node
+                keys = [k for k in self._store if k[0] == kind]
+        elif self._use_indexes:
+            keys = self._by_kind.get(kind) or ()
+        else:
+            keys = [k for k in self._store if k[0] == kind]
+        matches = []
+        for key in keys:
+            obj = self._store.get(key)
+            if obj is None:
+                continue
+            _, ns, _name = key
+            if namespace is not None and ns != namespace:
+                continue
+            if node_filter is not None and (
+                (obj.get("spec") or {}).get("nodeName") or ""
+            ) != node_filter:
+                continue
+            labels = (obj.get("metadata") or {}).get("labels") or {}
+            if not match(labels):
+                continue
+            if field_filter is not None and not field_filter(obj):
+                continue
+            matches.append((key, obj))
+        matches.sort(key=lambda kv: kv[0])
+        return matches
+
+    def list_page(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: str = "",
+        field_selector: str = "",
+        limit: int = 0,
+        continue_token: str = "",
+        resource_version: str = "",
+        resource_version_match: str = "",
+    ) -> ListPage:
+        """Chunked LIST — the ``limit``/``continue`` protocol a real
+        apiserver speaks (client-go pager; the reference inherits it via
+        controller-runtime's paginated cache fills, go.mod:11-16).
+
+        * ``limit=N`` cuts the sorted result set into pages of N; the
+          FULL matching set is snapshotted server-side so later pages
+          are consistent at the first page's collection revision, no
+          matter what writes land between pages (etcd-MVCC analog).
+        * ``continue_token`` resumes a snapshot.  Tokens are idempotent
+          (re-requesting the same token re-serves the same page) and
+          expire with :class:`ExpiredError` (410 Gone) once the
+          collection revision has advanced past the journal retention
+          window — the compaction analog — or the snapshot was evicted.
+        * ``resource_version`` + ``resource_version_match``: ``Exact``
+          requires the requested revision to still be current (else 410,
+          matching a compacted revision); ``NotOlderThan`` serves the
+          latest state provided it is >= the requested revision; a
+          FUTURE revision is a :class:`BadRequestError` (the apiserver's
+          "too large resource version" rejection).
+        """
+        if limit < 0:
+            raise BadRequestError("limit must be >= 0")
+        if resource_version_match and resource_version_match not in (
+            "Exact",
+            "NotOlderThan",
+        ):
+            raise BadRequestError(
+                f"invalid resourceVersionMatch {resource_version_match!r} "
+                f"(want Exact or NotOlderThan)"
+            )
+        if resource_version_match and not resource_version:
+            raise BadRequestError(
+                "resourceVersionMatch requires resourceVersion"
+            )
+        if resource_version == "0" and resource_version_match == "Exact":
+            raise BadRequestError(
+                'resourceVersionMatch "Exact" is forbidden for '
+                'resourceVersion "0"'
+            )
+        request = (kind, namespace, label_selector, field_selector)
+        with self._lock:
+            self.list_ops += 1
+            if continue_token:
+                if resource_version:
+                    raise BadRequestError(
+                        "resourceVersion is not allowed with continue"
+                    )
+                return self._serve_continue(continue_token, limit, request)
+            current = self._rv
+            if resource_version and resource_version != "0":
+                try:
+                    requested = int(resource_version)
+                except ValueError as err:
+                    raise BadRequestError(
+                        f"invalid resourceVersion {resource_version!r}"
+                    ) from err
+                if requested > current:
+                    raise BadRequestError(
+                        f"resourceVersion {requested} is in the future "
+                        f"(current {current})"
+                    )
+                if (
+                    resource_version_match == "Exact"
+                    and requested != current
+                ):
+                    raise ExpiredError(
+                        f"resourceVersion {requested} no longer available "
+                        f"(compacted; current {current})"
+                    )
+                # NotOlderThan (or unset): latest always qualifies.
+            matches = self._scan(
+                kind, namespace, label_selector, None, field_selector
+            )
+            # _copy_out, not raw json_copy: page items ride the same
+            # rv-validated blob cache as unpaged lists (the HTTP path
+            # serves 500-item pages of exactly these at fleet scale)
+            items = [self._copy_out(k, obj) for k, obj in matches]
+            if not limit or len(items) <= limit:
+                return ListPage(items, "", str(current))
+            # The first page is handed out directly; the REMAINDER is
+            # retained server-side (private copies — nothing else holds
+            # these) so later pages are consistent at this revision.
+            handle = secrets.token_hex(8)
+            self._page_snapshots[handle] = _PageSnapshot(
+                rv=current, request=request, items=items[limit:]
+            )
+            while len(self._page_snapshots) > self._page_snapshot_cap:
+                evict = next(iter(self._page_snapshots))
+                del self._page_snapshots[evict]
+            # A real apiserver omits remainingItemCount on selector-
+            # filtered lists (it cannot compute it cheaply from etcd);
+            # mirroring that keeps facade-developed clients honest.
+            return ListPage(
+                items[:limit],
+                f"{handle}.0",
+                str(current),
+                remaining_item_count=(
+                    None
+                    if label_selector or field_selector
+                    else len(items) - limit
+                ),
+            )
+
+    def _serve_continue(
+        self,
+        token: str,
+        limit: int,
+        request: Tuple[str, Optional[str], str, str],
+    ) -> ListPage:
+        handle, _, offset_s = token.partition(".")
+        snap = self._page_snapshots.get(handle)
+        try:
+            offset = int(offset_s)
+        except ValueError as err:
+            raise ExpiredError(f"malformed continue token {token!r}") from err
+        if snap is None or offset < 0:
+            raise ExpiredError(
+                "continue token expired or malformed — relist"
+            )
+        # LRU touch: an actively-draining pagination must outlive
+        # abandoned single-page snapshots when the table overflows
+        # (eviction pops from the front; re-inserting moves us to the
+        # back).
+        self._page_snapshots[handle] = self._page_snapshots.pop(handle)
+        if snap.request != request:
+            raise BadRequestError(
+                f"continue token was issued for {snap.request}, not "
+                f"{request} — a token only resumes the list it came from"
+            )
+        # Compaction analog: the journal has rolled past the snapshot's
+        # revision, so a real server could no longer serve it.
+        if snap.rv < self._journal_floor:
+            del self._page_snapshots[handle]
+            raise ExpiredError(
+                f"continue token at revision {snap.rv} predates retention "
+                f"floor {self._journal_floor} — relist"
+            )
+        remaining = len(snap.items) - offset
+        if not limit:
+            limit = max(remaining, 1)
+        chunk = snap.items[offset : offset + limit]
+        next_off = offset + limit
+        done = next_off >= len(snap.items)
+        if done:
+            # Drained: drop the retained remainder eagerly.  This makes
+            # the final page non-replayable (it 410s → client relists),
+            # which is safe; holding 64 near-full collection copies for
+            # replayability is not.
+            del self._page_snapshots[handle]
+        _, _, label_selector, field_selector = request
+        return ListPage(
+            [json_copy(o) for o in chunk],
+            "" if done else f"{handle}.{next_off}",
+            str(snap.rv),
+            remaining_item_count=(
+                None
+                if done or label_selector or field_selector
+                else len(snap.items) - next_off
+            ),
+        )
+
+    def update(self, obj: JsonObj) -> JsonObj:
+        """Full-object replace with optimistic concurrency on resourceVersion."""
+        with self._lock:
+            key = _key_of(obj)
+            current = self._store.get(key)
+            if current is None:
+                raise NotFoundError(f"{key} not found")
+            sent_rv = (obj.get("metadata") or {}).get("resourceVersion")
+            if sent_rv is not None and sent_rv != current["metadata"]["resourceVersion"]:
+                raise ConflictError(
+                    f"{key}: resourceVersion {sent_rv} != {current['metadata']['resourceVersion']}"
+                )
+            kindname = current.get("kind") or ""
+            old_blob = self._blob_of(key, current)
+            old = None if old_blob is not None else json_copy(current)
+            stored = json_copy(obj)
+            if stored.get("kind") == "CustomResourceDefinition":
+                self._register_crd_schema(stored)
+            else:
+                self._admit(stored)
+            stored["metadata"]["uid"] = current["metadata"]["uid"]
+            stored["metadata"]["creationTimestamp"] = current["metadata"][
+                "creationTimestamp"
+            ]
+            if current["metadata"].get("deletionTimestamp"):
+                stored["metadata"]["deletionTimestamp"] = current["metadata"][
+                    "deletionTimestamp"
+                ]
+            stored["metadata"]["resourceVersion"] = self._next_rv()
+            # Finalizer semantics: a terminating object whose finalizers are
+            # now empty is removed instead of updated.
+            if stored["metadata"].get("deletionTimestamp") and not stored[
+                "metadata"
+            ].get("finalizers"):
+                self._store_pop(key)
+                self._record(
+                    "Deleted", old, None, kind=kindname, old_blob=old_blob
+                )
+                return json_copy(stored)
+            self._store_put(key, stored)
+            return self._record_write(
+                key, "Modified", old, old_blob, stored, kindname
+            )
+
+    #: Status subresource writes share update semantics here (envtest-style
+    #: hand-set status — reference upgrade_suit_test.go:344-355, 416-428).
+    update_status = update
+
+    def patch(
+        self,
+        kind: str,
+        name: str,
+        patch_body: JsonObj,
+        namespace: str = "",
+        patch_type: str = "merge",
+    ) -> JsonObj:
+        """JSON merge patch (RFC 7386, the default) or strategic merge
+        (``patch_type="strategic"`` — list-aware Kubernetes semantics,
+        see :mod:`.strategicmerge`).  The two coincide for the map-typed
+        fields (labels/annotations) this library patches internally.
+
+        If the patch carries ``metadata.resourceVersion`` the server enforces
+        it (optimistic lock) — this is how the reference's shared-requestor
+        patch protocol detects concurrent writers
+        (upgrade_requestor.go:344-357).
+        """
+        if patch_type not in ("merge", "strategic"):
+            raise BadRequestError(f"unsupported patch type {patch_type!r}")
+        with self._lock:
+            key = (kind, namespace, name)
+            current = self._store.get(key)
+            if current is None:
+                raise NotFoundError(f"{key} not found")
+            sent_rv = (patch_body.get("metadata") or {}).get("resourceVersion")
+            if sent_rv is not None and sent_rv != current["metadata"]["resourceVersion"]:
+                raise ConflictError(
+                    f"{key}: patch resourceVersion {sent_rv} != "
+                    f"{current['metadata']['resourceVersion']}"
+                )
+            old_blob = self._blob_of(key, current)
+            old = None if old_blob is not None else json_copy(current)
+            if patch_type == "strategic":
+                from .strategicmerge import strategic_merge
+
+                merged = strategic_merge(current, patch_body, kind=kind)
+            else:
+                merged = merge_patch(current, patch_body)
+            # kind / name / namespace / uid are immutable, like a real apiserver
+            merged["kind"] = kind
+            if kind == "CustomResourceDefinition":
+                self._register_crd_schema(merged)
+            else:
+                self._admit(merged)
+            merged["metadata"]["uid"] = current["metadata"]["uid"]
+            merged["metadata"]["name"] = name
+            if namespace:
+                merged["metadata"]["namespace"] = namespace
+            else:
+                merged["metadata"].pop("namespace", None)
+            merged["metadata"]["resourceVersion"] = self._next_rv()
+            # Finalizer semantics (same as update()): a terminating object
+            # whose finalizers were just cleared is removed, not stored.
+            if merged["metadata"].get("deletionTimestamp") and not merged[
+                "metadata"
+            ].get("finalizers"):
+                self._store_pop(key)
+                self._record(
+                    "Deleted", old, None, kind=kind, old_blob=old_blob
+                )
+                return json_copy(merged)
+            self._store_put(key, merged)
+            return self._record_write(
+                key, "Modified", old, old_blob, merged, kind
+            )
+
+    def delete(
+        self,
+        kind: str,
+        name: str,
+        namespace: str = "",
+        grace_period_seconds: Optional[int] = None,
+    ) -> None:
+        """Delete an object.  Like a real apiserver, an object holding
+        finalizers is only *marked* (deletionTimestamp set); it is removed
+        once its finalizers are cleared via :meth:`update` — this is what
+        makes drain/eviction timeout paths testable.
+
+        Pods additionally honor **graceful termination**
+        (drain_manager.go:76-96 sets GracePeriodSeconds on the kubectl
+        helper; the real apiserver keeps the pod Terminating until the
+        kubelet confirms): effective grace is *grace_period_seconds* if
+        given and >= 0, else the pod's
+        ``spec.terminationGracePeriodSeconds``, else 0 (the simulator has
+        no kubelet, so K8s's 30 s default would only slow tests; deviation
+        documented in PARITY.md).  With positive grace the pod is marked
+        Terminating (deletionTimestamp + deletionGracePeriodSeconds) and
+        removed by a timer after ``grace * termination_grace_scale``
+        seconds.  ``grace 0`` on an already-Terminating pod force-removes
+        it (kubectl ``--grace-period=0``); a repeat graceful delete is a
+        no-op."""
+        with self._lock:
+            key = (kind, namespace, name)
+            obj = self._store.get(key)
+            if obj is None:
+                raise NotFoundError(f"{key} not found")
+            meta = obj.get("metadata") or {}
+            if kind == "Pod":
+                if meta.get("deletionTimestamp"):
+                    if grace_period_seconds == 0 and not meta.get("finalizers"):
+                        old_blob = self._blob_of(key, obj, prime=False)
+                        self._store_pop(key)
+                        self._next_rv()
+                        self._record(
+                            "Deleted",
+                            None if old_blob is not None else json_copy(obj),
+                            None,
+                            kind=kind,
+                            old_blob=old_blob,
+                        )
+                    return  # already terminating
+                grace = grace_period_seconds
+                if grace is None or grace < 0:
+                    grace = (obj.get("spec") or {}).get(
+                        "terminationGracePeriodSeconds"
+                    ) or 0
+                if grace > 0:
+                    old = json_copy(obj)
+                    meta["deletionTimestamp"] = time.time()
+                    meta["deletionGracePeriodSeconds"] = grace
+                    meta["resourceVersion"] = self._next_rv()
+                    self._record("Modified", old, json_copy(obj))
+                    t = threading.Timer(
+                        grace * self.termination_grace_scale,
+                        self._reap_terminating_pod,
+                        args=(key, meta["uid"]),
+                    )
+                    t.daemon = True
+                    t.start()
+                    return
+            if meta.get("finalizers"):
+                if not meta.get("deletionTimestamp"):
+                    old = json_copy(obj)
+                    obj["metadata"]["deletionTimestamp"] = time.time()
+                    obj["metadata"]["resourceVersion"] = self._next_rv()
+                    self._record("Modified", old, json_copy(obj))
+                return
+            old_blob = self._blob_of(key, obj, prime=False)
+            self._store_pop(key)
+            if kind == "CustomResourceDefinition":
+                self._unregister_crd_schema(obj)
+            self._next_rv()  # deletions advance the version sequence too
+            self._record(
+                "Deleted",
+                None if old_blob is not None else json_copy(obj),
+                None,
+                kind=kind,
+                old_blob=old_blob,
+            )
+
+    def _reap_terminating_pod(self, key: Key, uid: str) -> None:
+        """The "kubelet confirmed termination" moment for a gracefully
+        deleted pod.  Finalizers still defer actual removal (cleared via
+        :meth:`update`/:meth:`patch`, same as any terminating object)."""
+        with self._lock:
+            obj = self._store.get(key)
+            if obj is None or obj["metadata"].get("uid") != uid:
+                return  # already gone or name reused
+            if obj["metadata"].get("finalizers"):
+                return
+            old_blob = self._blob_of(key, obj, prime=False)
+            self._store_pop(key)
+            self._next_rv()
+            self._record(
+                "Deleted",
+                None if old_blob is not None else json_copy(obj),
+                None,
+                kind=key[0],
+                old_blob=old_blob,
+            )
+
+    # ------------------------------------------------------------ eviction API
+    def evict(
+        self,
+        name: str,
+        namespace: str = "",
+        grace_period_seconds: Optional[int] = None,
+    ) -> None:
+        """Eviction-subresource analog: delete the pod UNLESS a matching
+        PodDisruptionBudget has no disruptions left, in which case raise
+        :class:`TooManyRequestsError` (the 429 kubectl drain retries on).
+
+        Semantics mirror the real eviction registry:
+
+        * terminal pods (phase Succeeded/Failed) always evict — they
+          protect nothing;
+        * an UNHEALTHY pod evicts whenever the healthy count already
+          meets the requirement (removing it cannot reduce availability);
+        * a HEALTHY pod needs a positive disruption budget:
+          ``minAvailable`` ⇒ ``healthy - required > 0``;
+          ``maxUnavailable`` ⇒ ``max_unavailable - (expected - healthy)
+          > 0``; percentages resolve against the matching pod count with
+          round-up (GetScaledValueFromIntOrPercent, roundUp=true);
+        * the PDB selector is matched with full LabelSelector semantics
+          (``matchLabels`` AND ``matchExpressions`` — see
+          :func:`~.selectors.match_label_selector`); a PDB without a
+          selector protects nothing;
+        * *grace_period_seconds* carries the Eviction object's
+          ``deleteOptions.gracePeriodSeconds`` through to the delete.
+
+        The budget check and the delete happen under ONE hold of the
+        store lock (it is re-entrant), so concurrent evictions cannot
+        jointly overdraw a budget."""
+        from ..api.intstr import IntOrString
+
+        with self._lock:
+            key = ("Pod", namespace, name)
+            pod = self._store.get(key)
+            if pod is None:
+                raise NotFoundError(f"Pod {namespace}/{name} not found")
+            phase = (pod.get("status") or {}).get("phase")
+            target_healthy = self._pod_healthy(pod)
+            pod_labels = (pod.get("metadata") or {}).get("labels") or {}
+            if phase not in ("Succeeded", "Failed"):
+                for pdb_key in self._by_kind.get("PodDisruptionBudget") or ():
+                    pdb = self._store.get(pdb_key)
+                    if pdb is None or pdb_key[1] != namespace:
+                        continue
+                    selector = (pdb.get("spec") or {}).get("selector")
+                    if not match_label_selector(selector, pod_labels):
+                        continue
+                    matching = [
+                        self._store[k]
+                        for k in self._by_kind.get("Pod") or ()
+                        if k[1] == namespace
+                        and match_label_selector(
+                            selector,
+                            (self._store[k].get("metadata") or {}).get(
+                                "labels"
+                            )
+                            or {},
+                        )
+                    ]
+                    expected = len(matching)
+                    healthy = sum(
+                        1 for p in matching if self._pod_healthy(p)
+                    )
+                    spec = pdb.get("spec") or {}
+                    if spec.get("minAvailable") is not None:
+                        required = IntOrString.parse(
+                            spec["minAvailable"]
+                        ).scaled_value(expected, round_up=True)
+                    else:
+                        max_unavail = IntOrString.parse(
+                            spec.get("maxUnavailable", 0)
+                        ).scaled_value(expected, round_up=True)
+                        required = expected - max_unavail
+                    blocked = (
+                        healthy - required <= 0
+                        if target_healthy
+                        else healthy < required
+                    )
+                    if blocked:
+                        raise TooManyRequestsError(
+                            f"cannot evict Pod {namespace}/{name}: "
+                            f"disruption budget {pdb_key[2]} has no "
+                            f"disruptions allowed"
+                        )
+            # budget permits (or terminal / no PDB matched): graceful
+            # delete inside the same lock hold (RLock — re-entrant)
+            self.delete(
+                "Pod",
+                name,
+                namespace,
+                grace_period_seconds=grace_period_seconds,
+            )
 
     @staticmethod
-    def _check_kind(kind: str) -> None:
-        if kind != "Node":
-            raise ValueError(f"the node store holds Nodes, not {kind!r}")
+    def _pod_healthy(pod: JsonObj) -> bool:
+        if (pod.get("metadata") or {}).get("deletionTimestamp"):
+            return False
+        for cond in ((pod.get("status") or {}).get("conditions") or []):
+            if cond.get("type") == "Ready":
+                return cond.get("status") == "True"
+        return False
 
-    def create(self, node: JsonObj) -> JsonObj:
-        self._check_kind(node.get("kind", "Node"))
-        name = node["metadata"]["name"]
+    # ------------------------------------------------------------- watch API
+    def journal_seq(self) -> int:
         with self._lock:
-            if name in self._nodes:
-                raise ValueError(f"node {name!r} already exists")
-            self._nodes[name] = copy.deepcopy({"kind": "Node", **node})
-            return copy.deepcopy(self._nodes[name])
+            return self._rv
 
-    def get(self, kind: str, name: str) -> JsonObj:
-        self._check_kind(kind)
+    def events_since(self, seq: int, kind=None) -> List[WatchEvent]:
+        """Watch events after *seq*.  Raises :class:`ExpiredError` (the 410
+        Gone analog) when *seq* predates the journal's retained window, so a
+        slow watcher knows to relist instead of silently missing events.
+        *kind* filters: None = all kinds, a string = one kind, or a
+        tuple/set of kind names (a controller's watched set)."""
+        if isinstance(kind, str):
+            kinds = {kind}
+        elif kind is not None:
+            kinds = set(kind)
+        else:
+            kinds = None
         with self._lock:
-            if name not in self._nodes:
-                raise NotFoundError(name)
-            return copy.deepcopy(self._nodes[name])
+            if seq < self._journal_floor:
+                raise ExpiredError(
+                    f"watch seq {seq} older than journal floor {self._journal_floor}"
+                )
+            return [
+                ev
+                for ev in self._journal
+                if ev.seq > seq
+                # ev.kind, never ev.new/ev.old: the filter must not
+                # materialize blob-backed events nobody asked for
+                and (kinds is None or ev.kind in kinds)
+            ]
 
-    def patch(self, kind: str, name: str, patch_body: JsonObj) -> JsonObj:
-        self._check_kind(kind)
+    def wait_for_seq(self, seq: int, timeout: float = 1.0) -> int:
+        """Block until the journal advances past *seq* (or timeout);
+        returns the current head.  Zero-latency wakeup via a condition
+        variable — the push half of event-driven waits (replaces the
+        10 ms termination polls the round-1 review flagged)."""
+        deadline = time.monotonic() + timeout
+        with self._journal_cond:
+            while self._rv <= seq:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._journal_cond.wait(remaining)
+            return self._rv
+
+    # ------------------------------------------------------------ batch writes
+    def batch_write(self, ops) -> list:
+        """Apply a list of :class:`~.writepipeline.WriteOp` in order with
+        per-item ``(object, error)`` results — transport parity with
+        :meth:`KubeApiClient.batch_write` so the write dispatcher behaves
+        identically over the in-memory store and over HTTP (same executor,
+        :func:`~.writepipeline.apply_write_op`, as the apiserver facade's
+        batch endpoint).  Atomicity is per object, exactly like the
+        individual verbs; a failed item never blocks later items.
+
+        The whole batch applies under ONE store-lock hold (re-entrant —
+        each verb's own acquire nests).  Per-item acquisition convoyed
+        at fleet scale: with watch pushers and journal waiters queueing
+        on the same lock, every item paid a lock handoff plus a
+        scheduler round trip (measured ~4 ms/item against the ~30 µs
+        write itself); one hold amortizes that to once per batch, and
+        the verbs never block inside the lock (eviction's PDB verdict
+        is immediate, grace periods resolve instantly), so the hold is
+        ~30 µs × len(ops), far below a watch wake interval."""
+        from .writepipeline import apply_write_op
+
         with self._lock:
-            if name not in self._nodes:
-                raise NotFoundError(name)
-            self._nodes[name] = merge_patch(self._nodes[name], patch_body)
-            return copy.deepcopy(self._nodes[name])
+            return [apply_write_op(self, op) for op in ops]
 
+    # ----------------------------------------------------------- conveniences
+    def exists(self, kind: str, name: str, namespace: str = "") -> bool:
+        with self._lock:
+            return (kind, namespace, name) in self._store
 
-def make_node(name: str) -> JsonObj:
-    """A bare node object named *name*."""
-    return {"kind": "Node", "metadata": {"name": name, "annotations": {}}}
+    def snapshot(self, kinds: Optional[tuple] = None) -> Dict[Key, JsonObj]:
+        """Deep-copied point-in-time view of the store (informer sync);
+        *kinds* restricts the view (None = everything)."""
+        with self._lock:
+            self.list_ops += 1
+            if kinds is None:
+                return json_copy(self._store)
+            wanted = set(kinds)
+            return {
+                key: json_copy(obj)
+                for key, obj in self._store.items()
+                if key[0] in wanted
+            }
+
+    # ------------------------------------------------------- persistence API
+    def to_dict(self) -> JsonObj:
+        """Serializable dump of the cluster (see :meth:`from_dict`)."""
+        with self._lock:
+            return {
+                "rv": self._rv,
+                "objects": list(json_copy(self._store).values()),
+            }
+
+    @classmethod
+    def from_dict(cls, data: JsonObj, **kwargs: Any) -> "InMemoryCluster":
+        """Restore a cluster previously dumped with :meth:`to_dict`.
+
+        Objects are restored verbatim (resourceVersions preserved); CRDs
+        without an Established condition get establishment re-scheduled,
+        matching an apiserver restart.
+        """
+        cluster = cls(**kwargs)
+        with cluster._lock:
+            cluster._rv = int(data.get("rv", 0))
+            for obj in data.get("objects", []):
+                key = _key_of(obj)
+                cluster._store_put(key, json_copy(obj))
+                if obj.get("kind") == "CustomResourceDefinition":
+                    cluster._register_crd_schema(obj)
+        for obj in data.get("objects", []):
+            if obj.get("kind") == "CustomResourceDefinition":
+                conds = (obj.get("status") or {}).get("conditions") or []
+                if not any(
+                    c.get("type") == "Established" and c.get("status") == "True"
+                    for c in conds
+                ):
+                    cluster._schedule_crd_establishment(_key_of(obj))
+        return cluster

@@ -4,11 +4,11 @@ What the drain worker of a multi-process job needs to reach its node:
 ``get("Node", name)`` is ``GET /api/v1/nodes/{name}`` and
 ``patch("Node", name, body)`` is a ``PATCH`` with
 ``application/merge-patch+json``, as the JAX package's ``KubeApiClient``
-sends them.  A 404 raises :class:`~.inmem.NotFoundError`.  Nodes only: no
-watch, no retry, no authentication.
+sends them.  A 404 raises :class:`~.errors.NotFoundError`.  Nodes only:
+no watch, no retry, no authentication.
 
 :class:`NodeStoreServer` serves the same two calls from an
-:class:`~.inmem.InMemoryNodeStore` on a local port, so that a job's
+:class:`~.inmem.InMemoryCluster` on a local port, so that a job's
 workers can be pointed at a node without an apiserver.
 """
 
@@ -22,7 +22,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict
 from urllib.parse import quote, unquote
 
-from .inmem import InMemoryNodeStore, NotFoundError
+from .errors import NotFoundError
+from .inmem import InMemoryCluster
 
 JsonObj = Dict[str, Any]
 _NODES = "/api/v1/nodes/"
@@ -54,7 +55,7 @@ class KubeApiClient:
                 return json.loads(resp.read())
         except urllib.error.HTTPError as err:
             if err.code == 404:
-                raise NotFoundError(name) from err
+                raise NotFoundError(f"nodes {name!r} not found") from err
             raise
 
     def get(self, kind: str, name: str) -> JsonObj:
@@ -70,7 +71,7 @@ class KubeApiClient:
 
 
 class _NodeHandler(BaseHTTPRequestHandler):
-    store: InMemoryNodeStore  # set on the per-server subclass
+    store: InMemoryCluster  # set on the per-server subclass
 
     def _name(self):
         if not self.path.startswith(_NODES):
@@ -114,7 +115,7 @@ class NodeStoreServer:
     :class:`KubeApiClient`, from a daemon thread, until :meth:`stop`.
     Usable as a context manager."""
 
-    def __init__(self, store: InMemoryNodeStore) -> None:
+    def __init__(self, store: InMemoryCluster) -> None:
         handler = type("NodeHandler", (_NodeHandler,), {"store": store})
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
         self.url = f"http://127.0.0.1:{self._server.server_address[1]}"

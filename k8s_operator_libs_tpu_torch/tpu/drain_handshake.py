@@ -2,7 +2,7 @@
 
 The port of :class:`DrainSignalWatcher` from
 ``k8s_operator_libs_tpu/tpu/drain_handshake.py``.  The orchestrator sets
-the node annotation ``tpu.google.com/<component>-pre-drain-checkpoint`` to
+the node annotation ``nvidia.com/<component>-pre-drain-checkpoint`` to
 ``requested:<token>`` before it drains; the trainer, polling between
 steps, saves a checkpoint and answers ``done:<token>``, echoing the token
 so that the orchestrator can reject an acknowledgement left over from an
@@ -11,13 +11,13 @@ earlier cycle.
 The save and the acknowledgement run under a ``checkpoint-drain`` span
 (:mod:`..obs.tracing`), parented by the W3C traceparent that the
 orchestrator writes beside the request
-(``tpu.google.com/<component>-pre-drain-traceparent``) from its own
+(``nvidia.com/<component>-pre-drain-traceparent``) from its own
 ``drain-handshake`` span: the cross-process leg of the reconcile trace.
 A missing or malformed traceparent starts a new root.
 
 The watcher takes any client with ``get("Node", name)`` and
 ``patch("Node", name, merge_patch)``: the port's
-:class:`~..cluster.inmem.InMemoryNodeStore`, or the orchestrator's own
+:class:`~..cluster.inmem.InMemoryCluster`, or an orchestrator's own
 cluster client.  The orchestrator side, ``CheckpointDrainGate``, comes
 with the port of the JAX package's control plane.
 """
@@ -32,7 +32,7 @@ from ..upgrade import consts, util
 
 def _is_not_found(err: Exception) -> bool:
     """True for a client's missing-object error.  Clients name it
-    ``NotFoundError`` (the port's node store and the orchestrator's
+    ``NotFoundError`` (the port's cluster and any orchestrator's
     cluster clients alike); matching the name keeps the port free of
     the orchestrator's imports."""
     return any(cls.__name__ == "NotFoundError" for cls in type(err).__mro__)

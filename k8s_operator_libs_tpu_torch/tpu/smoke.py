@@ -327,7 +327,8 @@ def run_smoke(
     *drain* False returns before the handshake, with no watcher;
     *kernel_sections* False leaves out the benches (the staged stages
     time them separately)."""
-    from ..cluster.inmem import InMemoryNodeStore, make_node
+    from ..cluster.inmem import InMemoryCluster
+    from ..cluster.objects import make_node
     from ..upgrade import consts, util
     from .drain_handshake import DrainSignalWatcher
     from .workload import (
@@ -341,7 +342,7 @@ def run_smoke(
     config = config or smoke_config(device)
 
     # ---- orchestrator side: a node carrying the drain annotation ----
-    nodes = InMemoryNodeStore()
+    nodes = InMemoryCluster()
     nodes.create(make_node("gpu-host"))
     trainer = CheckpointingTrainer(
         config,

@@ -1,1 +1,3 @@
-"""The port's own copy of the few control-plane constants it needs."""
+"""The upgrade state machine's vocabulary: states, label and annotation
+keys (:mod:`.consts`) and the key builders, keyed mutex and event
+recorders (:mod:`.util`)."""

@@ -19,7 +19,8 @@ import torch
 import torch.distributed as dist
 
 from k8s_operator_libs_tpu.tpu import workload as jwl
-from k8s_operator_libs_tpu_torch.cluster import inmem
+from k8s_operator_libs_tpu_torch.cluster import errors, inmem
+from k8s_operator_libs_tpu_torch.cluster.objects import make_node as port_make_node
 from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, NodeStoreServer
 from k8s_operator_libs_tpu_torch.convert import params_to_jax
 from k8s_operator_libs_tpu_torch.hack import dist_worker
@@ -229,7 +230,7 @@ def test_two_process_checkpoint_on_drain(tmp_path):
     save in its shadow directory."""
     from k8s_operator_libs_tpu.cluster import ApiServerFacade, InMemoryCluster
     from k8s_operator_libs_tpu.cluster.objects import make_node
-    from k8s_operator_libs_tpu.upgrade import consts, util
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util  # the workload's keys
 
     store = InMemoryCluster()
     store.create(make_node("tpu-host-0"))
@@ -385,9 +386,9 @@ def test_kube_client_reads_and_patches_the_jax_facade():
         client.patch("Node", "n-1", {"metadata": {"annotations": {"a": None}}})
         annotations = store.get("Node", "n-1")["metadata"]["annotations"]
         assert annotations.get("b") == "2" and "a" not in annotations
-        with pytest.raises(inmem.NotFoundError):
+        with pytest.raises(errors.NotFoundError):
             client.get("Node", "missing")
-        with pytest.raises(inmem.NotFoundError):
+        with pytest.raises(errors.NotFoundError):
             client.patch("Node", "missing", {})
         with pytest.raises(ValueError, match="Nodes"):
             client.get("Pod", "n-1")
@@ -399,8 +400,8 @@ def test_the_port_node_server_answers_the_client_and_the_watcher():
     from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
     from k8s_operator_libs_tpu_torch.upgrade import util
 
-    store = inmem.InMemoryNodeStore()
-    store.create(inmem.make_node("gpu-host"))
+    store = inmem.InMemoryCluster()
+    store.create(port_make_node("gpu-host"))
     key = util.get_pre_drain_checkpoint_annotation_key()
     with NodeStoreServer(store) as server:
         client = KubeApiClient(server.url)
@@ -411,7 +412,7 @@ def test_the_port_node_server_answers_the_client_and_the_watcher():
         assert watcher.check_and_acknowledge(lambda: saved.append(1))
         assert saved == [1]
         assert store.get("Node", "gpu-host")["metadata"]["annotations"][key] == "done:t-9"
-        with pytest.raises(inmem.NotFoundError):
+        with pytest.raises(errors.NotFoundError):
             client.get("Node", "nope")
         # a watcher on a missing node reads no request
         assert not DrainSignalWatcher(client, "nope").checkpoint_requested()

@@ -275,12 +275,13 @@ def test_draws_follow_jax_categorical_in_distribution():
 def test_a_drain_checkpoint_serves_the_live_model_s_tokens(tmp_path):
     """The weights across the drain: the checkpoint the trainer saves on
     the orchestrator's request, once restored, serves the same tokens."""
-    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryNodeStore, make_node
+    from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
     from k8s_operator_libs_tpu_torch.upgrade import consts, util
 
     cfg = wl.ModelConfig(**SAMPLED)
-    nodes = InMemoryNodeStore()
+    nodes = InMemoryCluster()
     nodes.create(make_node("gpu-host"))
     trainer = wl.CheckpointingTrainer(
         cfg, str(tmp_path), watcher=DrainSignalWatcher(nodes, "gpu-host"), batch_size=4, device="cpu"

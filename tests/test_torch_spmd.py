@@ -32,7 +32,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from k8s_operator_libs_tpu.cluster import ApiServerFacade, InMemoryCluster
 from k8s_operator_libs_tpu.cluster.objects import make_node
 from k8s_operator_libs_tpu.tpu import workload as jwl
-from k8s_operator_libs_tpu.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade import consts, util  # the workload's keys
 from k8s_operator_libs_tpu_torch.convert import params_from_jax, params_to_jax
 from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
 from k8s_operator_libs_tpu_torch.tpu import ring_attention as ra

@@ -3,10 +3,13 @@ workload.py::CheckpointingTrainer, drain_handshake.py, smoke.py) on the
 CPU.
 
 The port of test_trainer_checkpoints_and_stops_on_drain
-(tests/test_tpu_integration.py), run once against the port's own node
-store and once against the JAX package's InMemoryCluster, which the test
+(tests/test_tpu_integration.py), run once against the port's own
+InMemoryCluster and once against the JAX package's, which the test
 passes in: the orchestrator side and the port's workload side meet on the
-same annotation.
+same annotation.  The port's keys are the GPU fleet's (``nvidia.com``,
+component ``gpu-driver``); where the JAX package's orchestrator gate
+drives the port's watcher, a test-only client renames the annotation keys
+between the two vocabularies.
 """
 
 import threading
@@ -16,7 +19,8 @@ import pytest
 import torch
 
 from k8s_operator_libs_tpu.api import PreDrainCheckpointSpec
-from k8s_operator_libs_tpu.cluster import InMemoryCluster
+from k8s_operator_libs_tpu.cluster import InMemoryCluster as JaxInMemoryCluster
+from k8s_operator_libs_tpu.cluster.inmem import merge_patch as jax_merge_patch
 from k8s_operator_libs_tpu.cluster.objects import make_node as jax_make_node
 from k8s_operator_libs_tpu.obs import tracing as jtracing
 from k8s_operator_libs_tpu.tpu import smoke as jsmoke
@@ -24,34 +28,55 @@ from k8s_operator_libs_tpu.tpu import workload as jwl
 from k8s_operator_libs_tpu.tpu.drain_handshake import CheckpointDrainGate
 from k8s_operator_libs_tpu.upgrade import consts as jconsts
 from k8s_operator_libs_tpu.upgrade import util as jutil
-from k8s_operator_libs_tpu_torch.cluster.inmem import (
-    InMemoryNodeStore,
+from k8s_operator_libs_tpu_torch.cluster import (
+    AlreadyExistsError,
+    InMemoryCluster,
     NotFoundError,
-    make_node,
     merge_patch,
 )
+from k8s_operator_libs_tpu_torch.cluster.objects import make_node
 from k8s_operator_libs_tpu_torch.obs import tracing
 from k8s_operator_libs_tpu_torch.tpu import smoke
 from k8s_operator_libs_tpu_torch.tpu import workload as wl
 from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
 
+from test_torch_vocab import from_port_vocab, to_port_vocab
+
 CFG = wl.ModelConfig(n_layers=1, d_model=32, d_ff=64, max_seq_len=16)
 
 
-def _port_store():
-    store = InMemoryNodeStore()
-    store.create(make_node("gpu-host"))
-    return store
+def _port_cluster():
+    cluster = InMemoryCluster()
+    cluster.create(make_node("gpu-host"))
+    return cluster
 
 
 def _jax_cluster():
-    cluster = InMemoryCluster()
+    cluster = JaxInMemoryCluster()
     cluster.create(jax_make_node("gpu-host"))
     return cluster
 
 
-@pytest.mark.parametrize("client", [_port_store, _jax_cluster], ids=["port-store", "jax-cluster"])
+class _VocabBridge:
+    """A test-only client over the JAX package's cluster that shows the
+    port the annotation keys in the port's vocabulary: ``get`` rewrites
+    them into it, ``patch`` back out of it."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+
+    def get(self, kind, name, namespace=""):
+        obj = self.cluster.get(kind, name, namespace)
+        meta = obj.get("metadata") or {}
+        meta["annotations"] = to_port_vocab(meta.get("annotations") or {})
+        return obj
+
+    def patch(self, kind, name, body, namespace=""):
+        return self.cluster.patch(kind, name, from_port_vocab(body), namespace)
+
+
+@pytest.mark.parametrize("client", [_port_cluster, _jax_cluster], ids=["port-cluster", "jax-cluster"])
 @pytest.mark.parametrize("request_value", ["requested", "requested:tok-7"])
 def test_trainer_checkpoints_and_stops_on_drain(client, request_value, tmp_path):
     nodes = client()
@@ -99,14 +124,16 @@ def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
     a checkpoint with a fresh token and blocks; the port's trainer, in
     another thread, saves and acknowledges with that token.  Its
     checkpoint-drain span joins the gate's trace as a child of the
-    gate's drain-handshake span, through the traceparent annotation."""
+    gate's drain-handshake span, through the traceparent annotation.
+    The gate writes the JAX package's keys; the watcher reads the port's
+    through :class:`_VocabBridge`."""
     jax_tracer, port_tracer = tracers
     cluster = _jax_cluster()
     gate = CheckpointDrainGate(
         cluster, PreDrainCheckpointSpec(enable=True, timeout_second=20), poll_seconds=0.01
     )
     trainer = wl.CheckpointingTrainer(
-        CFG, str(tmp_path), watcher=DrainSignalWatcher(cluster, "gpu-host"),
+        CFG, str(tmp_path), watcher=DrainSignalWatcher(_VocabBridge(cluster), "gpu-host"),
         batch_size=2, device="cpu",
     )
     worker = threading.Thread(target=trainer.run, args=(2000,))
@@ -133,7 +160,7 @@ def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
 @pytest.mark.parametrize("carrier", ["", "garbage", f"00-{'0' * 32}-{'1' * 16}-01"])
 def test_a_missing_or_malformed_traceparent_starts_a_new_root(carrier, tracers):
     _, port_tracer = tracers
-    nodes = _port_store()
+    nodes = _port_cluster()
     key = util.get_pre_drain_checkpoint_annotation_key()
     nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {
         key: "requested:t", util.get_pre_drain_traceparent_annotation_key(): carrier,
@@ -149,7 +176,7 @@ def test_a_missing_or_malformed_traceparent_starts_a_new_root(carrier, tracers):
 def test_an_injected_traceparent_reader_parents_the_span(tracers):
     _, port_tracer = tracers
     carrier = tracing.format_traceparent("ab" * 16, "cd" * 8)
-    nodes = _port_store()
+    nodes = _port_cluster()
     key = util.get_pre_drain_checkpoint_annotation_key()
     nodes.patch("Node", "gpu-host", {"metadata": {"annotations": {key: "requested"}}})
     watcher = DrainSignalWatcher(nodes, "gpu-host", read_traceparent=lambda: carrier)
@@ -165,50 +192,55 @@ def test_an_injected_traceparent_reader_parents_the_span(tracers):
 
 
 def test_handshake_constants_equal_the_orchestrators():
-    assert consts.PRE_DRAIN_CHECKPOINT_ANNOTATION_KEY_FMT == (
+    """The port's handshake keys are the orchestrator's in the GPU-fleet
+    vocabulary; the values are the same."""
+    assert consts.PRE_DRAIN_CHECKPOINT_ANNOTATION_KEY_FMT == to_port_vocab(
         jconsts.PRE_DRAIN_CHECKPOINT_ANNOTATION_KEY_FMT
     )
     assert consts.PRE_DRAIN_CHECKPOINT_REQUESTED == jconsts.PRE_DRAIN_CHECKPOINT_REQUESTED
     assert consts.PRE_DRAIN_CHECKPOINT_DONE == jconsts.PRE_DRAIN_CHECKPOINT_DONE
-    assert consts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT == (
+    assert consts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT == to_port_vocab(
         jconsts.PRE_DRAIN_TRACEPARENT_ANNOTATION_KEY_FMT
     )
-    assert util.get_component_name() == "tpu-runtime"
-    assert util.get_pre_drain_traceparent_annotation_key() == (
+    assert util.get_component_name() == "gpu-driver"
+    assert util.get_pre_drain_traceparent_annotation_key() == to_port_vocab(
         jutil.get_pre_drain_traceparent_annotation_key()
     )
     try:
         util.set_component_name("gpu")
         jutil.set_component_name("gpu")
-        assert util.get_pre_drain_checkpoint_annotation_key() == (
+        assert util.get_pre_drain_checkpoint_annotation_key() == to_port_vocab(
             jutil.get_pre_drain_checkpoint_annotation_key()
-        ) == "tpu.google.com/gpu-pre-drain-checkpoint"
-        assert util.get_pre_drain_traceparent_annotation_key() == (
+        ) == "nvidia.com/gpu-pre-drain-checkpoint"
+        assert util.get_pre_drain_traceparent_annotation_key() == to_port_vocab(
             jutil.get_pre_drain_traceparent_annotation_key()
-        ) == "tpu.google.com/gpu-pre-drain-traceparent"
+        ) == "nvidia.com/gpu-pre-drain-traceparent"
     finally:
-        util.set_component_name("tpu-runtime")
+        util.set_component_name("gpu-driver")
         jutil.set_component_name("tpu-runtime")
     with pytest.raises(ValueError):
         util.set_component_name("")
 
 
 def test_watcher_treats_a_missing_node_as_no_request():
-    for nodes in (InMemoryNodeStore(), InMemoryCluster()):
+    for nodes in (InMemoryCluster(), JaxInMemoryCluster()):
         watcher = DrainSignalWatcher(nodes, "absent")
         assert watcher.checkpoint_requested() is False
         assert watcher.check_and_acknowledge(lambda: pytest.fail("saved")) is False
 
 
 def test_node_store_merge_patch_deletes_on_none():
-    store = _port_store()
+    """The port's cluster patches as RFC 7386 says, and its merge_patch is
+    the JAX package's."""
+    store = _port_cluster()
     store.patch("Node", "gpu-host", {"metadata": {"annotations": {"a": "1", "b": "2"}}})
     store.patch("Node", "gpu-host", {"metadata": {"annotations": {"a": None}}})
     assert store.get("Node", "gpu-host")["metadata"]["annotations"] == {"b": "2"}
-    assert merge_patch({"x": {"y": 1}}, {"x": None, "z": {"w": None}}) == {"z": {}}
+    target, patch = {"x": {"y": 1}, "k": [1]}, {"x": None, "z": {"w": None}, "k": {"v": 2}}
+    assert merge_patch(target, patch) == jax_merge_patch(target, patch) == {"z": {}, "k": {"v": 2}}
     with pytest.raises(NotFoundError):
         store.get("Node", "absent")
-    with pytest.raises(ValueError):
+    with pytest.raises(AlreadyExistsError):
         store.create(make_node("gpu-host"))
 
 
