@@ -17,7 +17,9 @@ failure (the exit code is then non-zero and no result line is printed):
    ptxas note;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
-   long shapes in fp32 and bf16, and at phase 8's ring pairs (bf16, 128
+   long shapes in fp32 and bf16, at head dims the kernels are not
+   compiled for (8 and 48, zero-padded to 16 and 64 by the wrappers;
+   causal and not, fp32 and bf16, and GQA at 8), and at phase 8's ring pairs (bf16, 128
    and 64 positions, causal and unmasked, and two pairs merged forward
    and run backward with the final lse), then timed beside its plain version and
    SDPA: at the trainer's shape by replaying a CUDA graph of captured
@@ -109,7 +111,8 @@ failure (the exit code is then non-zero and no result line is printed):
    the sequential steps, its first-step gradients (the rest equal on every
    stage) within ``SPMD_GRAD_TOL`` of theirs, and each stage's flash
    launches one a microbatch;
-   9e, ``graft_entry.dryrun_multichip(4)``, every check held.  9c-9e run
+   9e, ``graft_entry.dryrun_multichip(4)`` (the reference's 4-head model,
+   head dim 8, on the padded tensor-core kernels), every check held.  9c-9e run
    four worker ranks on the one card over phase 7b's transport; phase 8
    and 9c-9d trace one step more a rank for where its time goes;
 10. the drain through the port's full control-plane cluster at fleet
@@ -130,12 +133,28 @@ failure (the exit code is then non-zero and no result line is printed):
    the card drained through ``DrainSignalWatcher`` on one of the 1,024
    nodes, the request sent through the dispatcher: the acknowledgement
    echoes its token, the checkpoint restores, and each flash kernel
-   launches ``n_layers`` times a step on its tensor-core kernel; 10d, no
-   key or value of ``cluster.to_dict()`` names the TPU fleet
-   (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and 8 keep their
-   drain nodes in the same ``InMemoryCluster``;
-11. a ``{"kernels": [...]}`` line (each flash row with phase 10c's
-   launches beside its other paths'), the card line, and last
+   launches ``n_layers`` times a step on its tensor-core kernel; then the
+   same cluster served over HTTP by ``cluster.apiserver.ApiServerFacade``
+   on a local port: 10e, 10b's 2,048 merge patches again through one
+   ``WriteDispatcher(KubeApiClient(...), use_batch=True)`` (each batch one
+   POST to the batch endpoint); every acknowledged write reads back
+   through a paginated client list (limit 500) and through an informer
+   cache fed by a second client's held watch stream, and
+   ``tpu.topology`` finds exactly the 64 NVLink domains of 16 in the
+   nodes listed over HTTP; writes/s, batches, writes per batch, writes
+   coalesced, HTTP requests and the informer's refresh ms are logged
+   beside 10b's (host clock); 10f, 10c's drain with the watcher and the
+   dispatcher on ``KubeApiClient``s, the request sent under a
+   ``drain-handshake`` span whose traceparent rides beside it: the ack
+   echoes the token, the checkpoint restores, each flash kernel launches
+   on its tensor-core kernel, and the tracer's Chrome export holds the
+   trainer's ``checkpoint-drain`` span under the request's trace id;
+   10d, after 10e and 10f, no key or value of ``cluster.to_dict()`` names
+   the TPU fleet (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and
+   8 keep their drain nodes in an ``InMemoryCluster`` served by the
+   same facade class;
+11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's and
+   10f's launches beside its other paths'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -1192,7 +1211,7 @@ def ranks_drain(config, backend: str, reference: list, card: str, n: int = 2,
     import uuid
 
     from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
-    from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
     from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
@@ -1200,7 +1219,7 @@ def ranks_drain(config, backend: str, reference: list, card: str, n: int = 2,
     nodes = InMemoryCluster()
     nodes.create(make_node("gpu-host"))
     token = uuid.uuid4().hex[:12]
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-7b-") as ckpt, NodeStoreServer(nodes) as server:
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-7b-") as ckpt, ApiServerFacade(nodes) as server:
         env = {"FACADE_URL": server.url, "DRAIN_NODE_NAME": "gpu-host", "DRAIN_CKPT_DIR": ckpt,
                "DRAIN_MAX_STEPS": "200", "DRAIN_MAX_SECONDS": "120"}
         args = ["drain", "--device", "cuda", "--backend", backend, "--config", "smoke"]
@@ -1374,7 +1393,7 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8", job=SPMD_JO
     import torch
 
     from k8s_operator_libs_tpu_torch.cluster.inmem import InMemoryCluster
-    from k8s_operator_libs_tpu_torch.cluster.kubeclient import NodeStoreServer
+    from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
     from k8s_operator_libs_tpu_torch.cluster.objects import make_node
     from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
     from k8s_operator_libs_tpu_torch.tpu import smoke
@@ -1397,7 +1416,7 @@ def spmd_phase(backend: str, card: str, n: int = 4, what: str = "8", job=SPMD_JO
     nodes.create(make_node("gpu-host"))
     token = uuid.uuid4().hex[:12]
     _drain_request(nodes, token)  # standing: the drain stops the job at its first poll
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-8-") as tmp, NodeStoreServer(nodes) as server:
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-8-") as tmp, ApiServerFacade(nodes) as server:
         with open(f"{tmp}/runs.json", "w") as f:
             json.dump({"runs": runs}, f)
         env = {"FACADE_URL": server.url, "DRAIN_NODE_NAME": "gpu-host", "DRAIN_CKPT_DIR": f"{tmp}/ckpt"}
@@ -1867,16 +1886,22 @@ def fan_out(cluster) -> dict:
     }
 
 
-def fleet_drain(cluster, config, node: str) -> dict:
-    """10c: the smoke-config trainer drains on the card through
-    ``DrainSignalWatcher(cluster, node)``: the request goes through a
-    ``WriteDispatcher`` after two steps; the acknowledgement must echo
-    its token, the checkpoint must restore, and each flash kernel must
-    launch ``n_layers`` times a step, on its tensor-core kernel."""
+def fleet_drain(cluster, config, node: str, what: str = "10c", tracer=None) -> dict:
+    """10c (and 10f over HTTP): the smoke-config trainer drains on the
+    card through ``DrainSignalWatcher(cluster, node)``: the request goes
+    through a ``WriteDispatcher`` over *cluster* after two steps; the
+    acknowledgement must echo its token, the checkpoint must restore, and
+    each flash kernel must launch ``n_layers`` times a step, on its
+    tensor-core kernel.  With *tracer* the request is sent under a
+    ``drain-handshake`` span whose traceparent rides beside it, and the
+    trainer's ``checkpoint-drain`` span must be its child in the
+    tracer's Chrome export."""
+    import contextlib
     import uuid
     from concurrent.futures import ThreadPoolExecutor
 
     from k8s_operator_libs_tpu_torch.cluster.writepipeline import WriteDispatcher, WriteOp
+    from k8s_operator_libs_tpu_torch.obs import tracing
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
     from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
@@ -1885,43 +1910,191 @@ def fleet_drain(cluster, config, node: str) -> dict:
     key = util.get_pre_drain_checkpoint_annotation_key()
     token = uuid.uuid4().hex[:12]
     ack = f"{consts.PRE_DRAIN_CHECKPOINT_DONE}:{token}"
+    previous = None if tracer is None else tracing.set_default_tracer(tracer)
     fa.reset_launch_counts()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-10-") as ckpt, ThreadPoolExecutor(1) as pool:
-        trainer = wl.CheckpointingTrainer(config, ckpt, watcher=DrainSignalWatcher(cluster, node),
-                                          device="cuda")
-        trainer.run(2)
-        run = pool.submit(trainer.run, 1000)
-        dispatcher = WriteDispatcher(cluster, use_batch=True)
-        try:
-            sent = []
-            t0 = time.perf_counter()
-            dispatcher.submit(WriteOp(op="patch", kind="Node", name=node, body={"metadata": {
-                "annotations": {key: f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}"}}}),
-                lambda obj, err: sent.append(err))
-            dispatcher.flush(timeout=30.0)
-        finally:
-            dispatcher.close()
-        if sent != [None]:
-            raise RuntimeError(f"10c: the drain request was not acknowledged by the cluster: {sent}")
-        step = run.result(timeout=300)
-        ack_s = time.perf_counter() - t0
-        got = cluster.get("Node", node)["metadata"]["annotations"].get(key)
-        if not trainer.drained or got != ack:
-            raise RuntimeError(f"10c: drained {trainer.drained}, ack {got!r}, want {ack!r}")
-        if wl.restore_checkpoint(ckpt, step)["step"] != step:
-            raise RuntimeError(f"10c: the checkpoint does not restore at step {step}")
+    try:
+        with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{what}-") as ckpt, ThreadPoolExecutor(1) as pool:
+            trainer = wl.CheckpointingTrainer(config, ckpt, watcher=DrainSignalWatcher(cluster, node),
+                                              device="cuda")
+            trainer.run(2)
+            run = pool.submit(trainer.run, 1000)  # a thread: no span context is inherited
+            gate = (contextlib.nullcontext() if tracer is None
+                    else tracing.start_span("drain-handshake", attributes={"node": node}))
+            with gate as span:
+                annotations = {key: f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}"}
+                if span is not None:
+                    annotations[util.get_pre_drain_traceparent_annotation_key()] = span.traceparent
+                dispatcher = WriteDispatcher(cluster, use_batch=True)
+                try:
+                    sent = []
+                    t0 = time.perf_counter()
+                    dispatcher.submit(WriteOp(op="patch", kind="Node", name=node, body={"metadata": {
+                        "annotations": annotations}}), lambda obj, err: sent.append(err))
+                    dispatcher.flush(timeout=30.0)
+                finally:
+                    dispatcher.close()
+                if sent != [None]:
+                    raise RuntimeError(f"{what}: the drain request was not acknowledged by the cluster: {sent}")
+                step = run.result(timeout=300)
+                ack_s = time.perf_counter() - t0
+            got = cluster.get("Node", node)["metadata"]["annotations"].get(key)
+            if not trainer.drained or got != ack:
+                raise RuntimeError(f"{what}: drained {trainer.drained}, ack {got!r}, want {ack!r}")
+            if wl.restore_checkpoint(ckpt, step)["step"] != step:
+                raise RuntimeError(f"{what}: the checkpoint does not restore at step {step}")
+    finally:
+        if tracer is not None:
+            tracing.set_default_tracer(previous)
     launches = dict(fa.launch_counts)
-    _check_flash_launches("10c", {k: n for k, n in fa.device_launch_counts.items() if n},
+    _check_flash_launches(what, {k: n for k, n in fa.device_launch_counts.items() if n},
                           dict.fromkeys(launches, config.n_layers * step))
     if not all(math.isfinite(x) for x in trainer.losses):
-        raise RuntimeError(f"10c: losses {trainer.losses}")
-    return {"node": node, "drained_at_step": step, "ack": got.split(":")[0],
-            "request_to_ack_ms": ack_s * 1e3, "flash_launches": launches}
+        raise RuntimeError(f"{what}: losses {trainer.losses}")
+    rec = {"node": node, "drained_at_step": step, "ack": got.split(":")[0],
+           "request_to_ack_ms": ack_s * 1e3, "flash_launches": launches}
+    if tracer is not None:
+        chrome = json.loads(json.dumps(tracing.to_chrome(tracer.traces(complete_only=False))))
+        drains = [e for e in chrome["traceEvents"] if e["name"] == "checkpoint-drain"
+                  and e["args"]["trace_id"] == span.trace_id and e["args"]["parent_id"] == span.span_id]
+        if len(drains) != 1 or drains[0]["args"]["status"] != "ok":
+            raise RuntimeError(f"{what}: the Chrome export holds no checkpoint-drain span under trace "
+                               f"{span.trace_id}: {chrome['traceEvents']}")
+        rec["trace"] = {"trace_id": span.trace_id, "checkpoint_drain_ms": drains[0]["dur"] / 1e3,
+                        "chrome_events": len(chrome["traceEvents"])}
+    return rec
+
+
+def http_fan_out(facade) -> dict:
+    """10e: 10b's 2,048 merge patches again, now over HTTP: one
+    ``WriteDispatcher(KubeApiClient(...), use_batch=True)`` sends each
+    batch as one POST to the facade's batch endpoint.  Every acknowledged
+    write must read back through a paginated client ``list`` (limit 500)
+    and through an ``InformerCache`` fed by another client's held watch
+    stream.  Then ``tpu.topology`` groups the nodes listed over HTTP into
+    NVLink domains: exactly 10a's racks.  Returns the host-clock figures."""
+    import threading
+
+    from k8s_operator_libs_tpu_torch import metrics
+    from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
+    from k8s_operator_libs_tpu_torch.cluster.writepipeline import WriteDispatcher, WriteOp
+    from k8s_operator_libs_tpu_torch.tpu import topology
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    registry = metrics.MetricsRegistry()
+    previous = metrics.set_default_registry(registry)
+    state_key, admitted_key = util.get_upgrade_state_label_key(), util.get_admitted_at_annotation_key()
+    want_state = consts.UPGRADE_STATE_CORDON_REQUIRED
+    writer = KubeApiClient(KubeConfig(server=facade.url), timeout=30.0)
+    watcher = KubeApiClient(KubeConfig(server=facade.url), timeout=30.0)
+    reader = KubeApiClient(KubeConfig(server=facade.url), timeout=30.0)
+    try:
+        cache = InformerCache(watcher, lag_seconds=3600.0, kinds=("Node",), externally_fed=True)
+        cache.sync()  # seeded by a list over HTTP; from now on only the stream feeds it
+        seq = watcher.journal_seq()
+        watcher.start_held_watches(("Node",))
+        acks, lock = {}, threading.Lock()
+
+        def ack(name):
+            def done(obj, err):
+                with lock:
+                    acks.setdefault(name, []).append((obj, err))
+            return done
+
+        served0 = facade.requests_served
+        dispatcher = WriteDispatcher(writer, use_batch=True)
+        try:
+            t0 = time.perf_counter()
+            for i in range(FLEET_NODES):
+                name = _fleet_node(i)
+                dispatcher.submit(WriteOp(op="patch", kind="Node", name=name, body={"metadata": {
+                    "labels": {state_key: want_state}}}), ack(name))
+                dispatcher.submit(WriteOp(op="patch", kind="Node", name=name, body={"metadata": {
+                    "annotations": {admitted_key: f"http-{name}"}}}), ack(name))
+            dispatcher.flush(timeout=300.0)
+            fan_out_s = time.perf_counter() - t0
+            coalesced = dispatcher.coalesced
+        finally:
+            dispatcher.close()
+        requests = facade.requests_served - served0
+        batches = metrics.write_batch_size_histogram().count()
+        if writer._batch_supported is not True:
+            raise RuntimeError(f"10e: the client did not write through the batch endpoint "
+                               f"({writer._batch_supported})")
+        failed = {n: errs for n, a in acks.items() if (errs := [e for _, e in a if e is not None])}
+        if len(acks) != FLEET_NODES or failed or sum(len(a) for a in acks.values()) != 2 * FLEET_NODES:
+            raise RuntimeError(f"10e: {len(acks)} nodes acknowledged, failures {list(failed.items())[:3]}")
+
+        def wrong(nodes):
+            return [n["metadata"]["name"] for n in nodes
+                    if n["metadata"]["labels"].get(state_key) != want_state
+                    or n["metadata"].get("annotations", {}).get(admitted_key) != f"http-{n['metadata']['name']}"]
+
+        def versions(nodes):
+            return {n["metadata"]["name"]: n["metadata"]["resourceVersion"] for n in nodes}
+
+        # the informer: fed by the held stream until it shows every write
+        t1 = time.perf_counter()
+        deadline = t1 + 120.0
+        streamed = 0
+        while True:
+            watcher.wait_for_held_event(seq, timeout=0.5)
+            events = watcher.events_since(seq, kind=("Node",))
+            streamed += len(events)
+            cache.ingest(events)
+            if not wrong(cache.list("Node")):
+                break
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"10e: the informer lacks {len(wrong(cache.list('Node')))} writes "
+                                   f"after {streamed} streamed events")
+        refresh_s = time.perf_counter() - t1
+        # the paginated list
+        reader.list_page_size = 500
+        t2 = time.perf_counter()
+        listed = reader.list("Node")
+        list_s = time.perf_counter() - t2
+        missing = wrong(listed)
+        if len(listed) != FLEET_NODES or missing:
+            raise RuntimeError(f"10e: {len(missing)} of {len(listed)} listed nodes lack an "
+                               f"acknowledged write: {missing[:5]}")
+        if versions(cache.list("Node")) != versions(listed):
+            raise RuntimeError("10e: the informer and the paginated list disagree")
+        domains = topology.group_by_domain(listed)
+        sizes = sorted({len(members) for members in domains.values()})
+        racks = {f"rack-{r:02d}" for r in range(FLEET_NODES // FLEET_RACK)}
+        if set(domains) != racks or sizes != [FLEET_RACK]:
+            raise RuntimeError(f"10e: {len(domains)} NVLink domains of sizes {sizes}, want "
+                               f"{len(racks)} of {FLEET_RACK}")
+    finally:
+        watcher.close()
+        writer.close()
+        reader.close()
+        metrics.set_default_registry(previous)
+    writes = 2 * FLEET_NODES
+    return {
+        "nodes": FLEET_NODES,
+        "writes": writes,
+        "fan_out_ms": fan_out_s * 1e3,
+        "writes_per_s": writes / fan_out_s,
+        "batches": batches,
+        "writes_per_batch": (writes - coalesced) / batches if batches else None,
+        "writes_coalesced": coalesced,
+        "http_requests": requests,
+        "informer_refresh_ms": refresh_s * 1e3,
+        "streamed_events": streamed,
+        "paginated_list_ms": list_s * 1e3,
+        "nvlink_domains": len(domains),
+    }
 
 
 def fleet_phase(config, card: str) -> dict:
     """Phase 10: the drain through the full in-memory cluster, at the size
-    of a large fleet (10a-10d; see the module docstring)."""
+    of a large fleet, then through its HTTP facade (10a-10f; see the
+    module docstring)."""
+    from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
+    from k8s_operator_libs_tpu_torch.obs import tracing
+
     cluster, build_s = build_fleet()
     log(f"phase 10a fleet: {FLEET_NODES} nodes of 8 x {FLEET_GPU_PRODUCT}, "
         f"{FLEET_NODES // FLEET_RACK} racks, {FLEET_NODES} driver pods, built in {build_s * 1e3:.1f} ms "
@@ -1930,12 +2103,22 @@ def fleet_phase(config, card: str) -> dict:
     log("phase 10b fan-out (host clock):", json.dumps(fan), "|", card)
     drain = fleet_drain(cluster, config, _fleet_node(FLEET_NODES // 2 + 5))
     log("phase 10c fleet drain:", json.dumps(drain), "|", card)
+    with ApiServerFacade(cluster) as facade:
+        http_fan = http_fan_out(facade)
+        log("phase 10e fan-out over HTTP (host clock; 10b's in-process figures beside):",
+            json.dumps({"http": http_fan, "in_process": fan}), "|", card)
+        with KubeApiClient(KubeConfig(server=facade.url), timeout=30.0) as client:
+            http_drain = fleet_drain(client, config, _fleet_node(FLEET_NODES // 4 + 3), "10f",
+                                     tracer=tracing.Tracer())
+        log("phase 10f fleet drain over HTTP:", json.dumps(http_drain), "|", card)
     dump = json.dumps(cluster.to_dict())
     found = [m for m in TPU_MARKERS if m in dump]
     if found:
         raise RuntimeError(f"10d: the cluster holds {found}")
-    log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}")
-    return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain}
+    log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}"
+        " (after 10e and 10f)")
+    return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain, "http_fan_out": http_fan,
+            "http_drain": http_drain}
 
 
 def compiled_report():
@@ -2163,6 +2346,14 @@ def main(argv=None) -> int:
         check_case(f"ring-pair-s{span}-unmasked-bf16", 8, span, 4, 4, 64, False, "bfloat16",
                    block=span, seed=14)
         check_ring_pairs(f"ring-pairs-s{span}", 8, span, 4, 64, seed=15)
+    # head dims the kernels are not compiled for: zero-padded to the next
+    # compiled width (8 -> 16, 48 -> 64) at the true width's scale
+    for d, seed in ((8, 20), (48, 21)):
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                tag = f"pad-d{d}-{'causal' if causal else 'full'}-{dtype}"
+                check_case(tag, 2, 256, 4, 4, d, causal, dtype, seed=seed)
+    check_case("pad-d8-gqa-bf16", 2, 256, 8, 2, 8, True, "bfloat16", seed=22)
     check_lse_cotangent()
     log("kernels worst err / max(1, max|ref|):", json.dumps(worst_rel),
         f"(tol fp32 {FP32_TOL}, bf16 {BF16_TOL})")
@@ -2328,6 +2519,8 @@ def main(argv=None) -> int:
             "fleet_path_launches": {
                 f"10c fleet drain ({fleet['drain']['drained_at_step']} steps)":
                     fleet["drain"]["flash_launches"][name],
+                f"10f fleet drain over HTTP ({fleet['http_drain']['drained_at_step']} steps)":
+                    fleet["http_drain"]["flash_launches"][name],
             },
         })
     step = int8_timing["per_decode_step"]

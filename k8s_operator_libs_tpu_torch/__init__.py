@@ -1,6 +1,7 @@
 """k8s_operator_libs_tpu_torch — the PyTorch/CUDA port of
 :mod:`k8s_operator_libs_tpu`, for NVIDIA H100 fleets: the workload side
-and, so far, the control plane's vocabulary and in-memory cluster.
+and, so far, the control plane's vocabulary, its in-memory cluster and
+HTTP client, and the observability leaves.
 
 Module names follow the JAX package, so each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never jax, and
@@ -24,7 +25,10 @@ component ``gpu-driver``); their semantics are the JAX package's.
                            under a checkpoint-drain span
   tpu/smoke.py             train, time, drain, restore and resume; the
                            staged benches (STAGES, run_stage)
-  obs/tracing.py           spans and the W3C traceparent carrier
+  obs/tracing.py           spans, the W3C traceparent carrier, and the
+                           Chrome and OTLP exporters
+  obs/events.py            the reason-coded decision log and its sinks
+  obs/history.py           bounded in-process metric history
   consts.py                log levels
   metrics.py               counters, gauges, histograms and their
                            Prometheus exposition
@@ -32,6 +36,11 @@ component ``gpu-driver``); their semantics are the JAX package's.
   api/upgrade_spec.py
   upgrade/consts.py        states, label and annotation key formats
   upgrade/util.py          key builders, StringSet, KeyedMutex, events
+  upgrade/history.py       per-node rollout history from cluster Events
+  upgrade/timeline.py      per-node transition timelines (FlightRecorder)
+  upgrade/schedule.py      maintenance windows and admission pacing
+  tpu/topology.py          NVLink domains: the unit of unavailability
+  tpu/health.py            degraded-GPU detection and domain quarantine
   cluster/errors.py        the apiserver error taxonomy
   cluster/objects.py       object builders and predicates
   cluster/selectors.py,    label and field selectors; CRD structural
@@ -42,8 +51,11 @@ component ``gpu-driver``); their semantics are the JAX package's.
   cluster/inmem.py         InMemoryCluster: the in-memory apiserver
   cluster/cache.py         InformerCache
   cluster/writepipeline.py WriteOp and the batching WriteDispatcher
-  cluster/kubeclient.py    a minimal Node client over urllib, and a
-                           server of the in-memory cluster's Nodes
+  cluster/execauth.py      exec credential plugins (user.exec)
+  cluster/kubeclient.py    KubeApiClient and KubeConfig: the Kubernetes
+                           client over HTTP (watches, batches, TLS)
+  cluster/apiserver.py     ApiServerFacade: the in-memory cluster served
+                           over HTTP on a local port
   convert.py               flax TinyLM params <-> torch state_dict
   graft_entry.py           entry(): a loss step on TinyLM
   examples/generate.py     train or restore, then KV-cache decode

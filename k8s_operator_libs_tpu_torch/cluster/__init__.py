@@ -1,12 +1,10 @@
-"""Client plumbing: the in-memory apiserver, the informer cache,
-selectors, retry and the batched write pipeline (the analog of
-controller-runtime's client, client-go and envtest in the reference).
-
-The HTTP side (an apiserver facade and a full Kubernetes client) is not
-here; :mod:`.kubeclient` is a minimal Node client for the drain workers
-of a multi-process job.
+"""Client plumbing: the in-memory apiserver and its HTTP facade, the
+Kubernetes client, the informer cache, selectors, retry and the batched
+write pipeline (the analog of controller-runtime's client, client-go and
+envtest in the reference).
 """
 
+from .apiserver import FAULT_KINDS, ApiServerFacade, FaultSpec
 from .cache import InformerCache
 from .client import KIND_REGISTRY, ClusterClient, KindInfo, kind_info, register_kind
 from .errors import (
@@ -24,17 +22,30 @@ from .errors import (
     is_not_found,
     is_too_many_requests,
 )
+from .execauth import (
+    ExecCredential,
+    ExecCredentialError,
+    ExecCredentialPlugin,
+    ExecPluginSpec,
+)
 from .inmem import InMemoryCluster, ListPage, WatchEvent, merge_patch
 from .strategicmerge import register_merge_key, strategic_merge
+from .kubeclient import KubeApiClient, KubeConfig, KubeConfigError
 from .retry import retry_on_conflict
 from .selectors import labels_to_selector, match_label_selector, matches, parse_selector
 
 __all__ = [
+    "ApiServerFacade",
+    "FAULT_KINDS",
+    "FaultSpec",
     "ClusterClient",
     "KindInfo",
     "KIND_REGISTRY",
     "kind_info",
     "register_kind",
+    "KubeApiClient",
+    "KubeConfig",
+    "KubeConfigError",
     "InformerCache",
     "InMemoryCluster",
     "ListPage",
@@ -60,4 +71,8 @@ __all__ = [
     "TooManyRequestsError",
     "is_too_many_requests",
     "UnauthorizedError",
+    "ExecCredential",
+    "ExecCredentialError",
+    "ExecCredentialPlugin",
+    "ExecPluginSpec",
 ]

@@ -1,134 +1,1798 @@
-"""A minimal Kubernetes API client for Nodes, over ``urllib``.
+"""KubeApiClient — the real-Kubernetes backend for ClusterClient.
 
-What the drain worker of a multi-process job needs to reach its node:
-``get("Node", name)`` is ``GET /api/v1/nodes/{name}`` and
-``patch("Node", name, body)`` is a ``PATCH`` with
-``application/merge-patch+json``, as the JAX package's ``KubeApiClient``
-sends them.  A 404 raises :class:`~.errors.NotFoundError`.  Nodes only:
-no watch, no retry, no authentication.
+This is the production adapter the reference gets from controller-runtime
+/ client-go (go.mod:11-16): it satisfies the same
+:class:`~.client.ClusterClient` protocol as
+:class:`~.inmem.InMemoryCluster`, but over raw apiserver HTTP(S) using
+only the standard library (http.client + ssl) plus PyYAML for
+kubeconfig parsing — no ``kubernetes`` package dependency.
 
-:class:`NodeStoreServer` serves the same two calls from an
-:class:`~.inmem.InMemoryCluster` on a local port, so that a job's
-workers can be pointed at a node without an apiserver.
+Capabilities mapped to the reference:
+
+* **kubeconfig / in-cluster config loading** — ``KubeConfig.load()``
+  parses clusters/users/contexts (server URL, CA data/file,
+  insecure-skip-tls, bearer token, client cert/key);
+  ``KubeConfig.in_cluster()`` reads the ServiceAccount token + CA the
+  way ``ctrl.GetConfig()`` does (crdutil.go:56-67).
+* **CRUD + patch routing** — create/get/list/update/patch/delete over
+  the standard REST layout resolved from the shared
+  :data:`~.client.KIND_REGISTRY`; PATCH sends
+  ``application/merge-patch+json`` by default or
+  ``application/strategic-merge-patch+json`` with
+  ``patch_type="strategic"`` (list-aware Kubernetes semantics, see
+  :mod:`.strategicmerge` — the reference's one strategic use, the state
+  label patch at node_upgrade_state_provider.go:80-82, is byte-identical
+  either way for map-typed fields).
+* **Eviction subresource** — ``evict()`` POSTs ``policy/v1`` Eviction
+  and maps 429 onto :class:`~.errors.TooManyRequestsError` so kubectl-
+  drain retry semantics work unchanged (drain_manager.go:109-133).
+* **watch → journal shim** — ``events_since(seq)`` issues bounded
+  watches (``watch=true&resourceVersion=seq``) per registered kind and
+  converts the streamed frames into :class:`~.inmem.WatchEvent`-shaped
+  records, synthesizing each event's ``old`` object from a local
+  last-seen map exactly the way an informer's delta FIFO does — so
+  :class:`~..controller.controller.Controller` and the requestor-mode
+  predicates run unchanged on either backend.  410 Gone maps onto
+  :class:`~.errors.ExpiredError` → the controller relists.
+
+Error mapping: apiserver ``Status`` reasons / HTTP codes →
+the :mod:`~.errors` hierarchy (NotFound/409 Conflict vs AlreadyExists/
+410 Gone/429 TooManyRequests/400 BadRequest), keeping every manager's
+retry logic backend-agnostic.
+
+Sequence semantics: each kind resumes from its OWN bookmark and
+delivers above its OWN floor (per-kind, per the formal opacity of
+resourceVersions across resources); integer RV ordering is used only
+for merged presentation and within-kind positions, where it is exact
+against :class:`~.apiserver.ApiServerFacade` (RV == journal seq) and
+holds against real apiservers (etcd revisions are monotonic integers).
 """
 
 from __future__ import annotations
 
+import atexit
+import base64
+import hashlib
 import json
+import logging
+import os
+import ssl
+import tempfile
 import threading
-import urllib.error
-import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict
-from urllib.parse import quote, unquote
+import time
+from collections import deque
+from http.client import (
+    HTTPConnection,
+    HTTPException,
+    HTTPResponse,
+    HTTPSConnection,
+)
+from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import quote, urlencode, urlparse
 
-from .errors import NotFoundError
-from .inmem import InMemoryCluster
+from .. import metrics
+from .client import KIND_REGISTRY, JsonObj, KindInfo, kind_info
+from .execauth import (
+    ExecCredential,
+    ExecCredentialError,
+    ExecCredentialPlugin,
+    ExecPluginSpec,
+)
+from .errors import (
+    AlreadyExistsError,
+    ApiError,
+    BadRequestError,
+    ConflictError,
+    ExpiredError,
+    InvalidError,
+    NotFoundError,
+    TooManyRequestsError,
+    UnauthorizedError,
+)
+from .inmem import WatchEvent, json_copy
+from .selectors import parse_selector
+from .writepipeline import (
+    BATCH_WRITE_API_VERSION,
+    BATCH_WRITE_PATH,
+    JOURNAL_WAIT_PATH,
+    MAX_BATCH_ITEMS,
+    MAX_JOURNAL_WAIT_SECONDS,
+    WriteOp,
+    WriteResult,
+    apply_write_op,
+    encode_write_op,
+)
 
-JsonObj = Dict[str, Any]
-_NODES = "/api/v1/nodes/"
+logger = logging.getLogger(__name__)
+
+_SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "Node":
-        raise ValueError(f"this client reaches Nodes, not {kind!r}")
+class KubeConfigError(Exception):
+    pass
+
+
+class KubeConfig:
+    """Connection parameters for one apiserver (one kubeconfig context)."""
+
+    def __init__(
+        self,
+        server: str,
+        token: Optional[str] = None,
+        ca_file: Optional[str] = None,
+        client_cert_file: Optional[str] = None,
+        client_key_file: Optional[str] = None,
+        insecure_skip_tls_verify: bool = False,
+        exec_plugin: Optional[ExecCredentialPlugin] = None,
+        qps: float = 0.0,
+        burst: int = 0,
+    ) -> None:
+        self.server = server.rstrip("/")
+        self.token = token
+        self.ca_file = ca_file
+        self.client_cert_file = client_cert_file
+        self.client_key_file = client_key_file
+        self.insecure_skip_tls_verify = insecure_skip_tls_verify
+        #: GKE/EKS-style credential plugin (client-go exec authenticator
+        #: analog); consulted when no static token/cert is configured.
+        self.exec_plugin = exec_plugin
+        #: Client-side token-bucket throttle — client-go's
+        #: flowcontrol.NewTokenBucketRateLimiter, applied to EVERY
+        #: request before it reaches the wire (rest.Config QPS/Burst;
+        #: controller-runtime defaults to 20/30).  Deviation: 0 disables
+        #: throttling (client-go defaults to 5/10) — the in-repo
+        #: simulation benches measure engine cost, not a self-imposed
+        #: rate cap; the assembled operator example opts in to 20/30.
+        self.qps = qps
+        self.burst = burst
+
+    # ------------------------------------------------------------- loaders
+    @classmethod
+    def load(
+        cls, path: Optional[str] = None, context: Optional[str] = None
+    ) -> "KubeConfig":
+        """Parse a kubeconfig file (reference: ctrl.GetConfig, which
+        honors $KUBECONFIG then ~/.kube/config — crdutil.go:56-67)."""
+        import yaml
+
+        path = (
+            path
+            or os.environ.get("KUBECONFIG")
+            or os.path.expanduser("~/.kube/config")
+        )
+        try:
+            with open(path, "r", encoding="utf-8") as fh:
+                doc = yaml.safe_load(fh) or {}
+        except OSError as err:
+            raise KubeConfigError(f"cannot read kubeconfig {path}: {err}") from err
+
+        ctx_name = context or doc.get("current-context")
+        if not ctx_name:
+            raise KubeConfigError(f"{path}: no current-context")
+        contexts = {c["name"]: c["context"] for c in doc.get("contexts") or []}
+        clusters = {c["name"]: c["cluster"] for c in doc.get("clusters") or []}
+        users = {u["name"]: u["user"] for u in doc.get("users") or []}
+        if ctx_name not in contexts:
+            raise KubeConfigError(f"{path}: context {ctx_name!r} not found")
+        ctx = contexts[ctx_name]
+        cluster = clusters.get(ctx.get("cluster", ""))
+        if cluster is None:
+            raise KubeConfigError(
+                f"{path}: cluster {ctx.get('cluster')!r} not found"
+            )
+        user = users.get(ctx.get("user", ""), {})
+        # GKE/EKS kubeconfigs authenticate through a user.exec credential
+        # plugin (gke-gcloud-auth-plugin / aws eks get-token) — run it the
+        # way client-go's exec authenticator does.  The removed legacy
+        # auth-provider API stays a loud error: silently sending
+        # unauthenticated requests would surface an opaque 401 far from
+        # the real cause.
+        has_static = bool(
+            user.get("token")
+            or user.get("client-certificate")
+            or user.get("client-certificate-data")
+        )
+        exec_plugin: Optional[ExecCredentialPlugin] = None
+        if not has_static and user.get("auth-provider"):
+            raise KubeConfigError(
+                f"{path}: user {ctx.get('user')!r} uses the legacy "
+                "auth-provider block, which was removed from Kubernetes; "
+                "migrate to an exec credential plugin or provide a static "
+                "token or client certificate for this context"
+            )
+        if not has_static and user.get("exec"):
+            try:
+                spec = ExecPluginSpec.from_kubeconfig(user["exec"])
+                exec_plugin = ExecCredentialPlugin(
+                    spec,
+                    cluster_info={
+                        "server": cluster.get("server", ""),
+                        "certificate-authority-data": cluster.get(
+                            "certificate-authority-data"
+                        ),
+                        "insecure-skip-tls-verify": bool(
+                            cluster.get("insecure-skip-tls-verify")
+                        ),
+                    },
+                )
+            except ExecCredentialError as err:
+                raise KubeConfigError(f"{path}: {err}") from err
+        # Inline base64 *-data wins over *-file paths (kubeconfig
+        # precedence); data is written to temp files for the ssl APIs.
+        return cls(
+            exec_plugin=exec_plugin,
+            server=cluster.get("server", ""),
+            token=user.get("token"),
+            ca_file=(
+                None
+                if cluster.get("insecure-skip-tls-verify")
+                else _first_file(
+                    _maybe_b64_file(cluster.get("certificate-authority-data")),
+                    cluster.get("certificate-authority"),
+                )
+            ),
+            client_cert_file=_first_file(
+                _maybe_b64_file(user.get("client-certificate-data")),
+                user.get("client-certificate"),
+            ),
+            client_key_file=_first_file(
+                _maybe_b64_file(user.get("client-key-data")),
+                user.get("client-key"),
+            ),
+            insecure_skip_tls_verify=bool(
+                cluster.get("insecure-skip-tls-verify")
+            ),
+        )
+
+    @classmethod
+    def in_cluster(cls) -> "KubeConfig":
+        """ServiceAccount-mounted config (rest.InClusterConfig analog)."""
+        host = os.environ.get("KUBERNETES_SERVICE_HOST")
+        port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
+        if not host:
+            raise KubeConfigError(
+                "not running in-cluster (KUBERNETES_SERVICE_HOST unset)"
+            )
+        try:
+            with open(f"{_SA_DIR}/token", "r", encoding="utf-8") as fh:
+                token = fh.read().strip()
+        except OSError as err:
+            raise KubeConfigError(f"cannot read SA token: {err}") from err
+        ca = f"{_SA_DIR}/ca.crt"
+        return cls(
+            server=f"https://{host}:{port}",
+            token=token,
+            ca_file=ca if os.path.exists(ca) else None,
+        )
+
+
+#: Materialized inline-data temp files, keyed by content hash so repeated
+#: KubeConfig.load() calls reuse one file; all removed at exit (the files
+#: hold key material — they must not outlive the process).
+_MATERIALIZED: Dict[str, str] = {}
+_MATERIALIZED_LOCK = threading.Lock()
+
+
+def _cleanup_materialized() -> None:
+    with _MATERIALIZED_LOCK:
+        for path in _MATERIALIZED.values():
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        _MATERIALIZED.clear()
+
+
+atexit.register(_cleanup_materialized)
+
+
+def _maybe_b64_file(data: Optional[str]) -> Optional[str]:
+    if not data:
+        return None
+    digest = hashlib.sha256(data.encode()).hexdigest()
+    with _MATERIALIZED_LOCK:
+        cached = _MATERIALIZED.get(digest)
+        if cached and os.path.exists(cached):
+            return cached
+        tmp = tempfile.NamedTemporaryFile(
+            delete=False, suffix=".pem", mode="wb"
+        )
+        tmp.write(base64.b64decode(data))
+        tmp.close()
+        _MATERIALIZED[digest] = tmp.name
+        return tmp.name
+
+
+def _first_file(*candidates: Optional[str]) -> Optional[str]:
+    for c in candidates:
+        if c:
+            return c
+    return None
+
+
+class _TokenBucket:
+    """client-go flowcontrol.NewTokenBucketRateLimiter: *qps* refill,
+    *burst* capacity, blocking acquire.  Thread-safe; monotonic clock."""
+
+    def __init__(self, qps: float, burst: int) -> None:
+        self._qps = qps
+        self._capacity = max(1, burst)
+        self._tokens = float(self._capacity)
+        self._stamp = time.monotonic()
+        self._lock = threading.Lock()
+        #: Cumulative seconds callers spent blocked — client-go logs
+        #: "Waited for Xs due to client-side throttling"; this is the
+        #: observable for tests and operators.
+        self.waited_seconds = 0.0
+
+    def acquire(self) -> None:
+        with self._lock:
+            now = time.monotonic()
+            self._tokens = min(
+                self._capacity, self._tokens + (now - self._stamp) * self._qps
+            )
+            self._stamp = now
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return
+            need = (1.0 - self._tokens) / self._qps
+            self._tokens = 0.0
+            self._stamp = now + need  # the refill we are pre-spending
+            self.waited_seconds += need
+        metrics.record_client_throttle_wait(need)
+        time.sleep(need)
+
+
+class _PooledConn:
+    """One pooled keep-alive connection + its reuse/credential state."""
+
+    __slots__ = ("conn", "used", "gen")
+
+    def __init__(self, conn, gen: int) -> None:
+        self.conn = conn
+        #: True once a request/response cycle completed on it — feeds
+        #: the stale-keep-alive replay policy (see _transport).
+        self.used = False
+        #: Credential generation the connection's TLS context was built
+        #: against; a rotation invalidates it at release time.
+        self.gen = gen
+
+
+class _ConnPool:
+    """Shared LIFO pool of persistent apiserver connections.
+
+    Every request borrows a connection exclusively and returns it after
+    the response body is fully read, so one warm socket serves many
+    threads over its lifetime — the per-node worker fan-out (drain
+    workers, write-dispatcher workers, completion checkers) reuses a
+    bounded set of keep-alive connections instead of paying TCP/TLS
+    setup per short-lived thread.  LIFO keeps the hottest socket
+    hottest (fewer server-side idle closes).  ``invalidate()`` bumps the
+    generation: idle connections are closed immediately and borrowed
+    ones are closed at release (exec-plugin client-cert rotation)."""
+
+    def __init__(self, factory, max_idle: int = 32) -> None:
+        self._factory = factory
+        self._lock = threading.Lock()
+        self._idle: list = []
+        self._max_idle = max_idle
+        self._gen = 0
+        #: Observability (tests/bench): how often a warm socket was
+        #: reused vs newly dialed.
+        self.reuses = 0
+        self.dials = 0
+
+    def acquire(self) -> _PooledConn:
+        with self._lock:
+            while self._idle:
+                pc = self._idle.pop()
+                if pc.gen != self._gen:
+                    self._close(pc)
+                    continue
+                self.reuses += 1
+                return pc
+            gen = self._gen
+            self.dials += 1
+        return _PooledConn(self._factory(), gen)
+
+    def release(self, pc: _PooledConn, reusable: bool = True) -> None:
+        pc.used = True
+        with self._lock:
+            if (
+                reusable
+                and pc.gen == self._gen
+                and len(self._idle) < self._max_idle
+            ):
+                self._idle.append(pc)
+                return
+        self._close(pc)
+
+    def discard(self, pc: _PooledConn) -> None:
+        self._close(pc)
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self._gen += 1
+            idle, self._idle = self._idle, []
+        for pc in idle:
+            self._close(pc)
+
+    @staticmethod
+    def _close(pc: _PooledConn) -> None:
+        try:
+            pc.conn.close()
+        except OSError:
+            pass
 
 
 class KubeApiClient:
-    """``get`` and ``patch`` of Nodes at *server* (``http://host:port``)."""
+    """ClusterClient over apiserver HTTP(S).
 
-    def __init__(self, server: str, timeout: float = 10.0) -> None:
-        self.server = server.rstrip("/")
+    Thread-safe: requests borrow persistent connections from a shared
+    keep-alive pool (managers drain/evict from worker threads; the
+    write dispatcher fans out over the same pool)."""
+
+    #: batch_write here saves real round trips (one POST per batch) —
+    #: the write dispatcher batches only against clusters that say so;
+    #: the in-memory store's parity batch_write saves nothing and would
+    #: bypass test wrappers' per-verb overrides.
+    transport_batching = True
+
+    def __init__(
+        self,
+        config: KubeConfig,
+        timeout: float = 30.0,
+        pool_connections: int = 32,
+    ) -> None:
+        self.config = config
         self.timeout = timeout
-
-    def _request(self, method: str, name: str, body=None, content_type=None) -> JsonObj:
-        req = urllib.request.Request(
-            self.server + _NODES + quote(name),
-            data=None if body is None else json.dumps(body).encode(),
-            method=method,
-            headers={"Accept": "application/json"},
+        #: Shared keep-alive connection pool (see _ConnPool); sized to
+        #: the worker fan-out — beyond *pool_connections* idle sockets
+        #: are closed rather than hoarded.
+        self._pool = _ConnPool(self._dial, max_idle=pool_connections)
+        #: None = unprobed; True/False cached after the first batch_write
+        #: against this server (a vanilla apiserver 404s the endpoint and
+        #: the client degrades to per-op writes for the process).
+        self._batch_supported: Optional[bool] = None
+        #: Same probe-and-cache for the journal long-poll route.
+        self._journal_wait_supported: Optional[bool] = None
+        #: Escape hatch: False forces per-op writes even against our own
+        #: facade (bench A/B; conservative deployments).
+        self.use_batch_endpoint = True
+        #: Client-side throttle (KubeConfig.qps/burst; None = unlimited).
+        self._limiter: Optional[_TokenBucket] = (
+            _TokenBucket(config.qps, config.burst) if config.qps > 0 else None
         )
-        if content_type is not None:
-            req.add_header("Content-Type", content_type)
-        try:
-            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
-                return json.loads(resp.read())
-        except urllib.error.HTTPError as err:
-            if err.code == 404:
-                raise NotFoundError(f"nodes {name!r} not found") from err
-            raise
+        #: APF load-shed 429s transparently replayed after Retry-After.
+        self.overload_retries = 0
+        #: Per-kind watch label selectors (start_held_watches) — ride
+        #: every watch request for that kind, held or bounded.
+        self._watch_selectors: Dict[str, str] = {}
+        parsed = urlparse(config.server)
+        self._scheme = parsed.scheme or "http"
+        self._host = parsed.hostname or "localhost"
+        self._port = parsed.port or (443 if self._scheme == "https" else 80)
+        self._ssl_context: Optional[ssl.SSLContext] = None
+        #: Plugin issuance the current SSL context was built against
+        #: (exec plugins can rotate client certs; a new generation forces
+        #: a context rebuild + connection drop).
+        self._ssl_cred_generation = -1
+        if self._scheme == "https":
+            self._ssl_context = self._build_ssl_context(None)
+        # Last-seen objects per (kind, ns, name) — synthesizes the `old`
+        # side of watch events the way an informer's store does, so
+        # old/new predicates (ConditionChangedPredicate) work unchanged.
+        # Seeded per kind by an initial list (else the first Modified
+        # after client startup would carry old=None and the requestor
+        # predicates would silently drop it).
+        self._last_seen: Dict[Tuple[str, str, str], JsonObj] = {}
+        self._seeded_kinds: set = set()
+        self._last_seen_lock = threading.Lock()
+        # Per-kind watch bookmarks: the API treats
+        # resourceVersions as opaque and PER-RESOURCE — a Node list RV is
+        # formally not a valid Pod watch start.  Each kind's watches
+        # resume from an RV observed for THAT kind (its own list response
+        # or last watch frame), the client-go informer list-then-watch
+        # contract.  Consequence: the watch stream is single-consumer per
+        # client instance (like a real informer); a second independent
+        # watcher should use its own KubeApiClient.
+        self._kind_bookmarks: Dict[str, int] = {}
+        #: Highest seq RETURNED to the consumer per kind — the bounded
+        #: poll's delivery floor.  Per-kind: the
+        #: caller's global cursor is only the first-poll fallback, so no
+        #: cross-kind resourceVersion comparison decides delivery.
+        self._kind_delivered: Dict[str, int] = {}
+        #: Frames consumed by a poll that then died on a later kind's 410
+        #: — redelivered by the next events_since (bookmarks had already
+        #: advanced past them).
+        self._pending_events: list = []
+        #: Kinds whose watch 410'd: their next poll resumes from the
+        #: fresh seed-list RV, never the caller's (known-stale) cursor.
+        self._kind_reset: set = set()
+        #: Held-watch machinery (start_held_watches): per-kind streaming
+        #: threads feeding this queue; events_since drains it instead of
+        #: issuing bounded polls for covered kinds.
+        self._held_watchers: list = []
+        self._held_kinds: frozenset = frozenset()
+        self._held_queue: deque = deque()
+        self._held_cond = threading.Condition()
+        self._held_expired: set = set()
+        self._held_max_queue = 100_000
+        #: Server-side bound for each bounded-poll watch request
+        #: (seconds).  Keep it at/below 2: the test facade HOLDS watches
+        #: asking for more than HELD_WATCH_MIN_TIMEOUT (2 s), which would
+        #: turn every poll into a multi-second blocking stream.  Held
+        #: streams configure their own longer hold via
+        #: start_held_watches(hold_seconds=...).
+        self.watch_timeout_seconds = 1
+        #: Chunked-LIST page size (client-go pager default 500).  Every
+        #: list() asks for at most this many items per response and
+        #: follows ``metadata.continue`` until the collection is drained;
+        #: 0 disables client-side chunking (the server may still
+        #: paginate — the pager loop always honors continue tokens).
+        self.list_page_size = 500
 
-    def get(self, kind: str, name: str) -> JsonObj:
-        _check_kind(kind)
-        obj = self._request("GET", name)
+    @property
+    def throttle_waited_seconds(self) -> float:
+        """Cumulative seconds requests spent blocked in the client-side
+        token bucket (0.0 when throttling is disabled) — the client-go
+        "Waited for Xs due to client-side throttling" observable."""
+        return self._limiter.waited_seconds if self._limiter else 0.0
+
+    # ------------------------------------------------------------ transport
+    def _build_ssl_context(
+        self, cred: Optional[ExecCredential]
+    ) -> ssl.SSLContext:
+        ctx = ssl.create_default_context(cafile=self.config.ca_file)
+        if self.config.insecure_skip_tls_verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        # static kubeconfig client cert wins; else an exec-issued pair
+        if self.config.client_cert_file:
+            ctx.load_cert_chain(
+                self.config.client_cert_file, self.config.client_key_file
+            )
+        elif cred is not None and cred.client_cert_file:
+            ctx.load_cert_chain(cred.client_cert_file, cred.client_key_file)
+        return ctx
+
+    def _refresh_auth(
+        self, refresh_if_generation: Optional[int] = None
+    ) -> Optional[ExecCredential]:
+        """Current exec credential (None without a plugin), rebuilding the
+        TLS context + dropping pooled connections when the plugin rotates
+        a client-cert credential.  *refresh_if_generation* (the 401 path)
+        forces a plugin re-run only if no other thread has refreshed past
+        that generation already."""
+        plugin = self.config.exec_plugin
+        if plugin is None:
+            return None
+        cred = plugin.credential(
+            force_refresh=refresh_if_generation is not None,
+            observed_generation=refresh_if_generation,
+        )
+        if (
+            self._scheme == "https"
+            and cred.client_cert_file
+            and plugin.generation != self._ssl_cred_generation
+        ):
+            self._ssl_context = self._build_ssl_context(cred)
+            self._ssl_cred_generation = plugin.generation
+            self._drop_conn()
+        return cred
+
+    def _dial(self):
+        if self._scheme == "https":
+            return HTTPSConnection(
+                self._host,
+                self._port,
+                timeout=self.timeout,
+                context=self._ssl_context,
+            )
+        # (http.client sets TCP_NODELAY on connect; the server-side
+        # Nagle fix lives in ApiServerFacade._Handler.)
+        return HTTPConnection(self._host, self._port, timeout=self.timeout)
+
+    def _drop_conn(self) -> None:
+        """Invalidate every pooled connection (credential rotation)."""
+        self._pool.invalidate()
+
+    def _headers(
+        self,
+        content_type: Optional[str] = None,
+        cred: Optional[ExecCredential] = None,
+    ) -> Dict[str, str]:
+        headers = {"Accept": "application/json"}
+        if content_type:
+            headers["Content-Type"] = content_type
+        if self.config.token:
+            headers["Authorization"] = f"Bearer {self.config.token}"
+        elif cred is not None and cred.token:
+            headers["Authorization"] = f"Bearer {cred.token}"
+        return headers
+
+    #: Verbs safe to replay after a connection error that may have hit
+    #: the server: GET reads; PUT carries a resourceVersion (a replayed
+    #: apply turns into 409 Conflict, not a double-write); DELETE twice
+    #: is NotFound, which every caller handles; the library's PATCHes are
+    #: merge patches of absolute label/annotation values.  POST (create,
+    #: evict) is NOT replayed — a connection dropped during getresponse
+    #: may have delivered the request, and replaying would double-create
+    #: (spurious AlreadyExists) or double-evict (PDB budget spent twice).
+    #: This matches client-go, which auto-retries idempotent verbs only.
+    _IDEMPOTENT_METHODS = frozenset({"GET", "PUT", "DELETE", "PATCH"})
+
+    def _transport(
+        self,
+        method: str,
+        path: str,
+        payload: Optional[bytes],
+        content_type: Optional[str],
+        refresh_if_generation: Optional[int] = None,
+    ) -> Tuple[HTTPResponse, bytes]:
+        """One HTTP exchange: auth, pooled-connection handling, bounded
+        retry.  A failed attempt is replayed once when (a) the verb is
+        idempotent, (b) the connection was refused (the request provably
+        never reached a server), or (c) the failure happened on a REUSED
+        pooled connection (stale keep-alive closed by the server — the
+        net/http errServerClosedIdle rule); otherwise non-idempotent
+        verbs surface the error rather than risk a double-delivery."""
+        if self._limiter is not None:
+            self._limiter.acquire()
+        cred = self._refresh_auth(refresh_if_generation)
+        headers = self._headers(content_type, cred)
+        for attempt in (1, 2):
+            pc = self._pool.acquire()
+            # Freshness feeds the replay policy: an error on a REUSED
+            # pooled connection is almost always the server having
+            # closed the idle keep-alive — safe to replay any verb once
+            # on a fresh socket (net/http's errServerClosedIdle rule,
+            # which client-go rides).
+            fresh = not pc.used
+            try:
+                pc.conn.request(method, path, body=payload, headers=headers)
+                resp = pc.conn.getresponse()
+                data = resp.read()
+                # a response the server will close-delimit (or asked to
+                # close) leaves the socket unusable — don't pool it
+                self._pool.release(
+                    pc, reusable=not getattr(resp, "will_close", False)
+                )
+                return resp, data
+            except (ConnectionError, ssl.SSLError, OSError, HTTPException) as err:
+                self._pool.discard(pc)
+                replayable = (
+                    method in self._IDEMPOTENT_METHODS
+                    or isinstance(err, ConnectionRefusedError)
+                    or not fresh
+                )
+                if attempt == 2 or not replayable:
+                    raise
+        raise AssertionError("unreachable")
+
+    def _request(
+        self,
+        method: str,
+        path: str,
+        body: Optional[JsonObj] = None,
+        query: Optional[Dict[str, str]] = None,
+        content_type: str = "application/json",
+    ) -> Tuple[int, JsonObj]:
+        if query:
+            path = f"{path}?{urlencode(query)}"
+        payload = json.dumps(body).encode() if body is not None else None
+        resp, data = self._transport(method, path, payload, content_type)
+        # Priority-and-fairness load shedding: a 429 carrying the APF
+        # flow-schema header was rejected BEFORE processing, so any verb
+        # is safe to replay after Retry-After (client-go's rest client
+        # honors Retry-After the same way).  Eviction's PDB-driven 429s
+        # carry no such header and surface to the kubectl-style caller
+        # loop unchanged.
+        attempts = 0
+        while (
+            resp.status == 429
+            and resp.getheader("X-Kubernetes-PF-FlowSchema-UID") is not None
+            and attempts < 4
+        ):
+            attempts += 1
+            self.overload_retries += 1
+            metrics.record_overload_retry()
+            try:
+                delay = float(resp.getheader("Retry-After") or 1.0)
+            except ValueError:
+                delay = 1.0
+            time.sleep(min(max(delay, 0.05), 5.0))
+            resp, data = self._transport(method, path, payload, content_type)
+        if resp.status == 401 and self.config.exec_plugin is not None:
+            # Server-side revocation can precede the credential's stamped
+            # expiry: force one plugin re-run and replay.  Any verb is
+            # safe — a 401 was rejected before processing.  Passing the
+            # generation the failed request used dedupes a burst of
+            # worker-thread 401s into a single plugin run.
+            resp, data = self._transport(
+                method,
+                path,
+                payload,
+                content_type,
+                refresh_if_generation=self.config.exec_plugin.generation,
+            )
+        parsed: JsonObj = {}
+        if data:
+            try:
+                parsed = json.loads(data)
+            except json.JSONDecodeError:
+                parsed = {"message": data.decode(errors="replace")}
+        if resp.status >= 400:
+            raise self._to_api_error(resp.status, parsed)
+        return resp.status, parsed
+
+    @staticmethod
+    def _to_api_error(code: int, status: JsonObj) -> ApiError:
+        reason = status.get("reason", "")
+        message = status.get("message", f"HTTP {code}")
+        if code == 404 or reason == "NotFound":
+            return NotFoundError(message)
+        if code == 401 or reason == "Unauthorized":
+            return UnauthorizedError(message)
+        if reason == "AlreadyExists":
+            return AlreadyExistsError(message)
+        if code == 409 or reason == "Conflict":
+            return ConflictError(message)
+        if code == 410 or reason in ("Gone", "Expired", "ResourceExpired"):
+            return ExpiredError(message)
+        if code == 429 or reason == "TooManyRequests":
+            return TooManyRequestsError(message)
+        if code == 422 or reason == "Invalid":
+            return InvalidError(message)
+        if code == 400 or reason == "BadRequest":
+            return BadRequestError(message)
+        return ApiError(message)
+
+    # ----------------------------------------------------------------- CRUD
+    def create(self, obj: JsonObj) -> JsonObj:
+        kind = obj.get("kind") or ""
+        info = kind_info(kind)
+        meta = obj.get("metadata") or {}
+        path = info.path(namespace=meta.get("namespace", ""))
+        _, created = self._request("POST", path, body=obj)
+        return created
+
+    def get(self, kind: str, name: str, namespace: str = "") -> JsonObj:
+        info = kind_info(kind)
+        _, obj = self._request(
+            "GET", info.path(namespace=namespace, name=quote(name))
+        )
         obj.setdefault("kind", kind)
         return obj
 
-    def patch(self, kind: str, name: str, patch_body: JsonObj) -> JsonObj:
-        """PATCH with JSON merge-patch (RFC 7386) semantics."""
-        _check_kind(kind)
-        return self._request("PATCH", name, patch_body, "application/merge-patch+json")
+    def list(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: str = "",
+        field_filter: Optional[Callable[[JsonObj], bool]] = None,
+        field_selector: str = "",
+    ) -> List[JsonObj]:
+        info = kind_info(kind)
+        base_query: Dict[str, str] = {}
+        if label_selector:
+            base_query["labelSelector"] = label_selector
+        if field_selector:
+            base_query["fieldSelector"] = field_selector
+        if self.list_page_size:
+            base_query["limit"] = str(self.list_page_size)
+        path = info.path(namespace=namespace or "")
+        # Chunked-LIST pager (client-go pager semantics): follow
+        # ``metadata.continue`` until the collection is drained.  A 410
+        # mid-pagination means the server compacted the snapshot the
+        # token pins — restart the whole list once from scratch (the
+        # pager's full-relist fallback); pages before the restart are
+        # discarded, never mixed across snapshots.
+        first_body: JsonObj = {}
+        items: List[JsonObj] = []
+        for attempt in (0, 1):
+            query = dict(base_query)
+            items = []
+            try:
+                while True:
+                    _, body = self._request(
+                        "GET", path, query=query or None
+                    )
+                    if not items:
+                        first_body = body
+                    items.extend(body.get("items") or [])
+                    token = (body.get("metadata") or {}).get("continue")
+                    if not token:
+                        break
+                    query = dict(base_query)
+                    query["continue"] = token
+                break
+            except ExpiredError:
+                if attempt:
+                    raise
+                metrics.record_list_pagination_restart()
+        # The collection RV is a valid watch start for THIS kind (the
+        # informer list-then-watch contract) — it SEEDS the kind's
+        # bookmark so watches never borrow another kind's RV.  Seed only:
+        # later lists (managers relist constantly) must never advance the
+        # watch position past frames the watcher hasn't consumed — only
+        # delivered frames and server BOOKMARK events do that.  With
+        # pagination every page reports the SNAPSHOT revision, so the
+        # first page's RV is the right (and identical) seed.
+        self._seed_bookmark(kind, first_body)
+        out = []
+        for item in items:
+            item.setdefault("kind", kind)
+            # Cluster-wide list of a namespaced kind with namespace=None:
+            # real apiservers return all namespaces from the unprefixed
+            # path, matching the in-mem contract.
+            if field_filter is not None and not field_filter(item):
+                continue
+            out.append(item)
+        out.sort(
+            key=lambda o: (
+                (o.get("metadata") or {}).get("namespace", ""),
+                (o.get("metadata") or {}).get("name", ""),
+            )
+        )
+        # The FIRST unfiltered cluster-wide list doubles as the informer
+        # seed: the controller's initial list is exactly this call, so
+        # `old` synthesis starts from the state the watcher bookmarked —
+        # not from whatever the store holds at first poll (which would
+        # race with writes between startup and poll).  Once seeded, lists
+        # never touch the map again: only the watch stream advances it,
+        # else a concurrent resync list could overwrite last-seen with
+        # the post-change object and old/new predicates would see
+        # old == new and drop the transition.
+        if (
+            namespace is None
+            and not label_selector
+            and not field_selector
+            and field_filter is None
+        ):
+            with self._last_seen_lock:
+                if kind not in self._seeded_kinds:
+                    for obj in out:
+                        meta = obj.get("metadata") or {}
+                        key = (
+                            kind,
+                            meta.get("namespace", ""),
+                            meta.get("name", ""),
+                        )
+                        self._last_seen.setdefault(key, json_copy(obj))
+                    self._seeded_kinds.add(kind)
+        return out
 
+    def update(self, obj: JsonObj) -> JsonObj:
+        kind = obj.get("kind") or ""
+        info = kind_info(kind)
+        meta = obj.get("metadata") or {}
+        path = info.path(
+            namespace=meta.get("namespace", ""), name=quote(meta.get("name", ""))
+        )
+        _, updated = self._request("PUT", path, body=obj)
+        return updated
 
-class _NodeHandler(BaseHTTPRequestHandler):
-    store: InMemoryCluster  # set on the per-server subclass
+    def update_status(self, obj: JsonObj) -> JsonObj:
+        kind = obj.get("kind") or ""
+        info = kind_info(kind)
+        meta = obj.get("metadata") or {}
+        path = (
+            info.path(
+                namespace=meta.get("namespace", ""),
+                name=quote(meta.get("name", "")),
+            )
+            + "/status"
+        )
+        _, updated = self._request("PUT", path, body=obj)
+        return updated
 
-    def _name(self):
-        if not self.path.startswith(_NODES):
-            return None
-        return unquote(self.path[len(_NODES):].split("?", 1)[0])
+    def patch(
+        self,
+        kind: str,
+        name: str,
+        patch_body: JsonObj,
+        namespace: str = "",
+        patch_type: str = "merge",
+    ) -> JsonObj:
+        """PATCH with ``merge`` (RFC 7386, default) or ``strategic``
+        (Kubernetes list-aware) semantics — the content type selects the
+        server-side behavior, exactly as client-go's Patch types do."""
+        if patch_type == "strategic":
+            content_type = "application/strategic-merge-patch+json"
+        elif patch_type == "merge":
+            content_type = "application/merge-patch+json"
+        else:
+            raise BadRequestError(f"unsupported patch type {patch_type!r}")
+        info = kind_info(kind)
+        _, patched = self._request(
+            "PATCH",
+            info.path(namespace=namespace, name=quote(name)),
+            body=patch_body,
+            content_type=content_type,
+        )
+        return patched
 
-    def _reply(self, code: int, obj: JsonObj) -> None:
-        data = json.dumps(obj).encode()
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(data)))
-        self.end_headers()
-        self.wfile.write(data)
+    def delete(
+        self,
+        kind: str,
+        name: str,
+        namespace: str = "",
+        grace_period_seconds: Optional[int] = None,
+    ) -> None:
+        info = kind_info(kind)
+        body: Optional[JsonObj] = None
+        if grace_period_seconds is not None:
+            body = {
+                "kind": "DeleteOptions",
+                "apiVersion": "v1",
+                "gracePeriodSeconds": grace_period_seconds,
+            }
+        self._request(
+            "DELETE", info.path(namespace=namespace, name=quote(name)), body=body
+        )
 
-    def _serve(self, call) -> None:
-        name = self._name()
-        if not name:
-            self._reply(404, {"kind": "Status", "code": 404, "reason": "NotFound"})
-            return
+    def evict(
+        self,
+        name: str,
+        namespace: str = "",
+        grace_period_seconds: Optional[int] = None,
+    ) -> None:
+        info = kind_info("Pod")
+        eviction: JsonObj = {
+            "apiVersion": "policy/v1",
+            "kind": "Eviction",
+            "metadata": {"name": name, "namespace": namespace},
+        }
+        if grace_period_seconds is not None:
+            eviction["deleteOptions"] = {
+                "gracePeriodSeconds": grace_period_seconds
+            }
+        self._request(
+            "POST",
+            info.path(namespace=namespace, name=quote(name)) + "/eviction",
+            body=eviction,
+        )
+
+    def exists(self, kind: str, name: str, namespace: str = "") -> bool:
         try:
-            self._reply(200, call(name))
+            self.get(kind, name, namespace)
+            return True
         except NotFoundError:
-            self._reply(404, {"kind": "Status", "code": 404, "reason": "NotFound"})
+            return False
 
-    def do_GET(self) -> None:  # noqa: N802 (http.server's name)
-        self._serve(lambda name: self.store.get("Node", name))
+    # ---------------------------------------------------------- batch writes
+    def batch_write(self, ops: List[WriteOp]) -> List[WriteResult]:
+        """Apply *ops* in order with per-item status — ONE round trip
+        against an :class:`~.apiserver.ApiServerFacade` serving the
+        batch endpoint, transparently degrading to per-op requests
+        against a vanilla apiserver (the 404/400 probe result is cached
+        for the life of the client).
 
-    def do_PATCH(self) -> None:  # noqa: N802
-        if self.headers.get("Content-Type") != "application/merge-patch+json":
-            self._reply(415, {"kind": "Status", "code": 415, "reason": "UnsupportedMediaType"})
-            return
-        body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
-        self._serve(lambda name: self.store.patch("Node", name, body))
+        Atomicity is per OBJECT, exactly like the individual verbs: each
+        item applies fully or fails with its own error; a failed item
+        never blocks later items.  The whole-batch POST follows the
+        normal transport rules — APF 429s are replayed after
+        Retry-After, and a connection error on a reused keep-alive is
+        replayed once (the batch is a plain POST; per-item merge patches
+        and deletes are idempotent, and eviction batches surface the
+        error to their caller exactly as a lone eviction POST would)."""
+        if not ops:
+            return []
+        if not self.use_batch_endpoint or self._batch_supported is False:
+            return [apply_write_op(self, op) for op in ops]
+        if len(ops) > MAX_BATCH_ITEMS:
+            # chunk to the server's per-request cap: a whole-wave caller
+            # (pod-restart wave, eviction sweep) may hand us thousands
+            # of ops, and an oversized POST would 400 — which the probe
+            # below must be free to read as "no batch endpoint"
+            results = []
+            for i in range(0, len(ops), MAX_BATCH_ITEMS):
+                results.extend(self.batch_write(ops[i : i + MAX_BATCH_ITEMS]))
+            return results
+        body = {
+            "apiVersion": BATCH_WRITE_API_VERSION,
+            "kind": "BatchWrite",
+            "items": [encode_write_op(op) for op in ops],
+        }
+        try:
+            _, parsed = self._request("POST", BATCH_WRITE_PATH, body=body)
+        except (NotFoundError, BadRequestError):
+            # No batch route on this server (vanilla apiserver): degrade
+            # for good — re-probing per batch would pay a wasted round
+            # trip per wave forever.
+            self._batch_supported = False
+            metrics.record_batch_endpoint_fallback()
+            return [apply_write_op(self, op) for op in ops]
+        self._batch_supported = True
+        results: List[WriteResult] = []
+        for item in parsed.get("items") or []:
+            if not isinstance(item, dict):
+                results.append((None, ApiError("malformed batch item result")))
+                continue
+            try:
+                status = int(item.get("status") or 0)
+            except (TypeError, ValueError):
+                status = 0
+            if 200 <= status < 400:
+                results.append((item.get("object"), None))
+            else:
+                results.append(
+                    (None, self._to_api_error(status, item.get("error") or {}))
+                )
+        # a miscounting server must not silently drop writes
+        while len(results) < len(ops):
+            results.append((None, ApiError("missing batch item result")))
+        return results[: len(ops)]
 
-    def log_message(self, *args) -> None:  # quiet: the callers log
-        pass
+    # ---------------------------------------------------------------- watch
+    def journal_seq(self) -> int:
+        """Highest resourceVersion currently visible (a list's
+        ``metadata.resourceVersion`` — the standard informer bookmark).
+        The match-nothing label selector keeps the response to ZERO
+        items (the collection RV reflects the whole collection's
+        revision regardless of the selector) — and, since nothing
+        paginates, a page-capped server never cuts a continue snapshot
+        for a probe that will not continue it (wait_for_seq polls this
+        every 50 ms; orphan snapshots would churn the server's token
+        table)."""
+        info = kind_info("Node")
+        _, body = self._request(
+            "GET",
+            info.path(),
+            query={"labelSelector": "k8s-operator-libs-tpu/rv-probe=none"},
+        )
+        # This IS a Node list — its RV seeds the Node watch bookmark at
+        # cursor time (first-touch only, like every list).
+        return self._seed_bookmark("Node", body)
 
+    def _seed_bookmark(self, kind: str, list_body: JsonObj) -> int:
+        """Record a collection RV as *kind*'s watch bookmark (first touch
+        only — see the seed-only rationale in :meth:`list`); returns the
+        parsed RV (0 when absent/garbled)."""
+        try:
+            rv = int(
+                (list_body.get("metadata") or {}).get("resourceVersion") or 0
+            )
+        except ValueError:
+            return 0
+        if rv:
+            with self._last_seen_lock:
+                self._kind_bookmarks.setdefault(kind, rv)
+        return rv
 
-class NodeStoreServer:
-    """Serve *store*'s Nodes at ``self.url`` (127.0.0.1, a free port) to
-    :class:`KubeApiClient`, from a daemon thread, until :meth:`stop`.
-    Usable as a context manager."""
+    def events_since(self, seq: int, kind=None) -> List[WatchEvent]:
+        """Bounded watch over the requested kinds, merged and ordered by
+        resourceVersion.  *kind*: None = every registered kind, a string
+        = one kind, or a tuple/set of kinds (a controller passes its
+        watched set to avoid per-registered-kind round trips).  ``old``
+        objects are synthesized from the local last-seen map — seeded by
+        an initial list per kind — the informer delta-FIFO pattern, so
+        old/new predicates behave identically on both backends.
 
-    def __init__(self, store: InMemoryCluster) -> None:
-        handler = type("NodeHandler", (_NodeHandler,), {"store": store})
-        self._server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
-        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
-        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
-        self._thread.start()
+        Each kind's watch starts from the kind's OWN bookmark (its list
+        RV / last frame, never another kind's RV), and delivery is
+        filtered by the kind's OWN floor (the highest seq already
+        returned for that kind) — *seq* is only the first-poll fallback
+        for a never-watched kind, so no cross-kind resourceVersion
+        comparison ever decides whether an event is delivered
+        (resourceVersions are formally per-resource; a caller cursor
+        advanced by one kind's churn must not swallow another kind's
+        late-arriving frame).  Single-consumer per client instance,
+        like a real informer."""
+        if isinstance(kind, str):
+            kinds = [kind]
+        elif kind is not None:
+            kinds = sorted(kind)
+        else:
+            kinds = list(KIND_REGISTRY)
+        #: lockcheck: unguarded(immutable frozenset swapped whole; start/stop_held_watches are quiesced setup/teardown seams on the single consumer thread)
+        if self._held_kinds:
+            held_part = [k for k in kinds if k in self._held_kinds]
+            poll_part = [k for k in kinds if k not in self._held_kinds]
+            if held_part and not poll_part:
+                return self._drain_held(held_part)
+            if held_part:
+                # Mixed request: drain the streamed kinds (never bounded-
+                # poll them — the stream's bookmarks are already past the
+                # queued frames) and poll only the rest.  If the poll
+                # side 410s, the already-popped held events go BACK to
+                # the queue front (pop-once delivery must not turn into
+                # zero-times on an unrelated kind's expiry).
+                merged = self._drain_held(held_part)
+                try:
+                    merged.extend(
+                        self.events_since(seq, kind=tuple(poll_part))
+                    )
+                except BaseException:
+                    with self._held_cond:
+                        self._held_queue.extendleft(reversed(merged))
+                    raise
+                merged.sort(key=lambda e: e.seq)
+                return merged
+        # Start from frames consumed by a previous poll that died on a
+        # later kind's 410: their bookmarks already advanced past them,
+        # so dropping them here would lose the deltas for good.
+        with self._last_seen_lock:
+            events = [
+                e for e in self._pending_events if e.kind in kinds
+            ]
+            self._pending_events = [
+                e
+                for e in self._pending_events
+                if e.kind not in kinds
+            ]
+        for k in kinds:
+            info = KIND_REGISTRY[k]
+            # Capture the bookmark BEFORE seeding: a bookmark that exists
+            # now is kind-valid resume state; if the kind was never
+            # touched, fall back to the caller's seq for this one watch
+            # (the seed list below establishes a kind-valid bookmark for
+            # every later call — and if the server rejects the foreign
+            # RV, the 410 handler resets and the retry is kind-valid).
+            with self._last_seen_lock:
+                start = self._kind_bookmarks.get(k)
+            self._seed_last_seen(k)
+            if start is None:
+                with self._last_seen_lock:
+                    if k in self._kind_reset:
+                        # Post-410: the caller's cursor is known-stale —
+                        # resume from the fresh seed-list RV instead.
+                        start = self._kind_bookmarks.get(k, seq)
+                        self._kind_reset.discard(k)
+                    else:
+                        start = seq
+            query = {
+                "watch": "true",
+                "resourceVersion": str(start),
+                # BOOKMARK frames (kind-valid positions with no object)
+                # are how a quiet kind's position stays inside the
+                # server's retention window: real apiservers send one
+                # when a timed-out watch closes, and the test facade
+                # mirrors that — without them a never-changing kind would
+                # keep its seed RV until foreign-kind churn expires it
+                # into a spurious 410 relist every journal-cap's worth of
+                # writes
+                "allowWatchBookmarks": "true",
+                # bound the stream: a real apiserver holds watches open
+                # indefinitely — without this the read blocks until the
+                # socket timeout and discards streamed frames
+                "timeoutSeconds": str(self.watch_timeout_seconds),
+            }
+            sel = self._watch_selectors.get(k)
+            if sel:
+                query["labelSelector"] = sel
+            try:
+                raw = self._request_watch(info, query)
+            except NotFoundError:
+                continue  # kind not served (CRD not applied) — skip
+            except ExpiredError:
+                # This kind's bookmark fell out of the server's watch
+                # window (410): drop the kind-local informer state so the
+                # next call re-seeds from a fresh list, then surface the
+                # 410 — callers respond by relisting (controller/cache).
+                # Frames already consumed from EARLIER kinds this call are
+                # stashed for the next poll: their bookmarks advanced past
+                # them, so raising without stashing would lose them.
+                metrics.record_watch_expired(k)
+                self._reset_kind_state(k)
+                with self._last_seen_lock:
+                    self._pending_events.extend(events)
+                raise
+            # Pin the stream position even when no frames arrived: once a
+            # watch is established for this kind, a later list() must not
+            # "seed" the bookmark past frames the watcher hasn't consumed
+            # (lists only seed NEVER-watched kinds).  The delivery floor
+            # pins at the cursor of the poll that STARTED watching — a
+            # later poll's (globally advanced) cursor must not retro-
+            # actively raise it past frames this kind hasn't delivered.
+            with self._last_seen_lock:
+                self._kind_bookmarks.setdefault(k, start)
+                self._kind_delivered.setdefault(k, seq)
+            for frame in raw:
+                event = self._ingest_watch_frame(k, frame, fallback_seq=seq + 1)
+                if event is not None:
+                    events.append(event)
+        events.sort(key=lambda e: e.seq)
+        # Per-kind delivery floors: an event passes if it is newer than
+        # what was already RETURNED for ITS kind; the caller's global
+        # cursor only initializes a never-delivered kind's floor.
+        # (Redelivered _pending_events pass naturally — the poll that
+        # stashed them died before returning, so the floor never
+        # advanced past them.)
+        delivered: List[WatchEvent] = []
+        with self._last_seen_lock:
+            floors = {
+                k: self._kind_delivered.get(k, seq) for k in kinds
+            }
+            for e in events:
+                ek = e.kind
+                if ek not in floors or e.seq > floors[ek]:
+                    delivered.append(e)
+            for e in delivered:
+                ek = e.kind
+                if ek in floors:
+                    self._kind_delivered[ek] = max(
+                        self._kind_delivered.get(ek, 0), e.seq
+                    )
+        return delivered
 
-    def stop(self) -> None:
-        self._server.shutdown()
-        self._server.server_close()
-        self._thread.join(timeout=10)
+    def _ingest_watch_frame(
+        self, k: str, frame: JsonObj, fallback_seq: int = 0
+    ) -> Optional[WatchEvent]:
+        """Apply one parsed watch frame to the informer state (bookmark +
+        last-seen) and return the WatchEvent, or None for BOOKMARK frames.
+        Shared by the bounded-poll and held-stream paths."""
+        obj = frame.get("object") or {}
+        if frame.get("type") == "BOOKMARK":
+            meta = obj.get("metadata") or {}
+            try:
+                bm = int(meta.get("resourceVersion") or 0)
+            except ValueError:
+                bm = 0
+            if bm:
+                with self._last_seen_lock:
+                    self._kind_bookmarks[k] = max(
+                        self._kind_bookmarks.get(k, 0), bm
+                    )
+            return None
+        obj.setdefault("kind", k)
+        meta = obj.get("metadata") or {}
+        try:
+            ev_seq = int(meta.get("resourceVersion") or 0)
+        except ValueError:
+            ev_seq = fallback_seq
+        key = (k, meta.get("namespace", ""), meta.get("name", ""))
+        with self._last_seen_lock:
+            self._kind_bookmarks[k] = max(
+                self._kind_bookmarks.get(k, 0), ev_seq
+            )
+            old = self._last_seen.get(key)
+            type_ = {
+                "ADDED": "Added",
+                "MODIFIED": "Modified",
+                "DELETED": "Deleted",
+            }.get(frame.get("type", ""), "Modified")
+            if type_ == "Deleted":
+                self._last_seen.pop(key, None)
+                return WatchEvent(ev_seq, type_, old or json_copy(obj), None)
+            self._last_seen[key] = json_copy(obj)
+            return WatchEvent(ev_seq, type_, old, obj)
 
-    def __enter__(self) -> "NodeStoreServer":
+    def _reset_kind_state(self, k: str) -> None:
+        """Drop a kind's informer-local state after a 410 so the next
+        touch re-seeds from a fresh list."""
+        with self._last_seen_lock:
+            self._kind_bookmarks.pop(k, None)
+            self._kind_delivered.pop(k, None)
+            self._seeded_kinds.discard(k)
+            self._kind_reset.add(k)
+            for key in [key for key in self._last_seen if key[0] == k]:
+                self._last_seen.pop(key)
+
+    def _seed_last_seen(self, kind: str) -> None:
+        """First touch of a kind: list it so every pre-existing object
+        has a last-seen entry (the informer's initial list) — scoped by
+        the kind's watch selector when one is set, matching the stream's
+        view."""
+        with self._last_seen_lock:
+            if kind in self._seeded_kinds:
+                return
+        try:
+            items = self.list(
+                kind,
+                label_selector=self._watch_selectors.get(kind, ""),
+            )
+        except (NotFoundError, ApiError):
+            items = []  # not served yet; seeding retries next call
+        else:
+            with self._last_seen_lock:
+                for obj in items:
+                    meta = obj.get("metadata") or {}
+                    key = (kind, meta.get("namespace", ""), meta.get("name", ""))
+                    self._last_seen.setdefault(key, obj)
+                self._seeded_kinds.add(kind)
+
+    def _request_watch(self, info: KindInfo, query: Dict[str, str]):
+        """One bounded watch request → list of parsed JSON frames."""
+        path = f"{info.path()}?{urlencode(query)}"
+        resp, data = self._transport("GET", path, None, None)
+        if resp.status == 401 and self.config.exec_plugin is not None:
+            resp, data = self._transport(
+                "GET",
+                path,
+                None,
+                None,
+                refresh_if_generation=self.config.exec_plugin.generation,
+            )
+        if resp.status >= 400:
+            parsed: JsonObj = {}
+            try:
+                parsed = json.loads(data)
+            except json.JSONDecodeError:
+                pass
+            raise self._to_api_error(resp.status, parsed)
+        frames = []
+        for line in data.decode().splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                frame = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            # In-band error frame (real apiservers send 410 this way)
+            if frame.get("type") == "ERROR":
+                status = frame.get("object") or {}
+                raise self._to_api_error(
+                    int(status.get("code") or 410), status
+                )
+            frames.append(frame)
+        return frames
+
+    def wait_for_seq(self, seq: int, timeout: float = 1.0) -> int:
+        """Block until the cluster resourceVersion advances past *seq*
+        (or timeout); returns the head.
+
+        Against an :class:`~.apiserver.ApiServerFacade` this is ONE
+        long-poll round trip (writepipeline.JOURNAL_WAIT_PATH): the
+        server holds the request on the store's condition variable and
+        answers the moment the journal moves — the same zero-latency
+        wakeup as the in-mem path.  A vanilla apiserver 404s the route
+        (cached for the life of the client, like the batch endpoint)
+        and this degrades to the coarse 50 ms ``journal_seq`` poll —
+        still far cheaper than per-caller 10 ms busy loops."""
+        deadline = time.monotonic() + timeout
+        if self._journal_wait_supported is not False and self.use_batch_endpoint:
+            try:
+                while True:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return self.journal_seq()
+                    # hold comfortably inside the transport timeout so a
+                    # quiet journal never reads as a dead socket
+                    hold = min(
+                        remaining,
+                        MAX_JOURNAL_WAIT_SECONDS,
+                        max(1.0, self.timeout / 2.0),
+                    )
+                    _, parsed = self._request(
+                        "GET",
+                        JOURNAL_WAIT_PATH,
+                        query={
+                            "seq": str(seq),
+                            "timeoutSeconds": f"{hold:.3f}",
+                        },
+                    )
+                    self._journal_wait_supported = True
+                    head = int(parsed.get("seq") or 0)
+                    if head > seq:
+                        return head
+            except (NotFoundError, BadRequestError):
+                # no long-poll route on this server: degrade for good
+                self._journal_wait_supported = False
+            except ApiError:
+                # transient server trouble — fall back to polling for
+                # THIS wait only; the next wait tries the route again
+                pass
+        head = self.journal_seq()
+        while head <= seq and time.monotonic() < deadline:
+            time.sleep(min(0.05, max(0.0, deadline - time.monotonic())))
+            head = self.journal_seq()
+        return head
+
+    # ---------------------------------------------------------- held watches
+    def start_held_watches(
+        self,
+        kinds,
+        hold_seconds: float = 20.0,
+        label_selectors: Optional[Dict[str, str]] = None,
+    ) -> None:
+        """Switch *kinds* from bounded polling to HELD watch streams —
+        one background thread per kind keeps a long watch open (the
+        controller-runtime informer pattern),
+        ingests frames as the server pushes them, and feeds a local
+        queue that :meth:`events_since` drains with zero per-poll HTTP.
+
+        Single-consumer: one events_since caller (the Controller) drains
+        the queue.  A kind's 410 resets its informer state and surfaces
+        one ExpiredError from the next events_since so the caller
+        relists, while the stream reconnects from a fresh seed.  The
+        Controller detects held coverage via :attr:`held_watch_kinds`
+        and switches to blocking on :meth:`wait_for_held_event` — no
+        journal_seq LIST per poll."""
+        if self._held_watchers:
+            raise RuntimeError("held watches already started")
+        wanted = frozenset(kinds)
+        for k in sorted(wanted):
+            kind_info(k)  # fail fast on unregistered kinds, state untouched
+        # server-side filtered watches (client-go ListOptions.
+        # LabelSelector): per-kind selectors ride every watch request —
+        # non-matching objects' frames never cross the wire, and the
+        # server rewrites frame types on selector transitions (an object
+        # that stops matching arrives as DELETED).  The informer's view
+        # for that kind is then the MATCHING subset only.
+        self._watch_selectors = dict(label_selectors or {})
+        # Seed every kind SYNCHRONOUSLY, before any watcher thread exists:
+        # the seed list pins the kind's bookmark in THIS thread, so a write
+        # issued after start_held_watches() returns is strictly past the
+        # bookmark and the stream replays it.  Seeding inside the watcher
+        # thread raced the caller's first write — a create landing before
+        # the thread's list was absorbed into the list RV and never
+        # delivered (the cache-sync-before-start contract of
+        # controller-runtime informers).  A seed list that fails (apiserver
+        # briefly down, 429/5xx) must not crash startup NOR hand seeding
+        # back to the watcher thread: the bookmark is pinned to 0 instead,
+        # so the stream opens with a full-journal replay (over-delivery,
+        # never loss) and the thread's own list can no longer absorb
+        # unconsumed writes (setdefault finds the key already present).
+        for k in sorted(wanted):
+            try:
+                self._seed_last_seen(k)
+            except (
+                OSError,
+                HTTPException,
+                ValueError,
+                ExecCredentialError,
+            ) as err:
+                # OSError: refused/reset; HTTPException: IncompleteRead/
+                # BadStatusLine from a server dying mid-response;
+                # ValueError: garbled JSON body; ExecCredentialError: the
+                # GKE/EKS auth helper transiently failing.  All degrade,
+                # never crash — the watcher thread retries auth itself.
+                logger.warning(
+                    "held watch %s: seed list failed (%s); "
+                    "stream will replay from journal start",
+                    k,
+                    err,
+                )
+            with self._last_seen_lock:
+                self._kind_bookmarks.setdefault(k, 0)
+        self._held_kinds = wanted
+        # Events stashed by a pre-held bounded-poll 410 (their bookmarks
+        # already advanced past them) must flow into the held queue, or
+        # they are stranded for good — the held branch never reads the
+        # pending stash.
+        with self._last_seen_lock:
+            # e.kind (the WatchEvent slot), never e.new/e.old: blob-
+            # backed events must not materialize for a kind filter
+            flush = [
+                e for e in self._pending_events if e.kind in wanted
+            ]
+            self._pending_events = [
+                e for e in self._pending_events if e.kind not in wanted
+            ]
+        for e in flush:
+            self._held_enqueue(e)
+        for k in sorted(wanted):
+            watcher = _HeldWatcher(self, k, hold_seconds)
+            self._held_watchers.append(watcher)
+            watcher.start()
+
+    @property
+    def held_watch_kinds(self) -> frozenset:
+        """Kinds currently covered by held watch streams (empty set
+        when polling) — consumers use it to pick their wait strategy."""
+        return self._held_kinds
+
+    def stop_held_watches(self) -> None:
+        for watcher in self._held_watchers:
+            watcher.stop()
+        for watcher in self._held_watchers:
+            watcher.join(5.0)
+        self._held_watchers = []
+        self._held_kinds = frozenset()
+        with self._held_cond:
+            self._held_queue.clear()
+            self._held_expired.clear()
+        metrics.set_held_queue_depth(0)
+
+    def close(self) -> None:
+        """Stop the held watch streams and close every pooled
+        connection.  The client stays usable: a later request dials
+        anew."""
+        self.stop_held_watches()
+        self._pool.invalidate()
+
+    def __enter__(self) -> "KubeApiClient":
         return self
 
     def __exit__(self, *exc) -> None:
-        self.stop()
+        self.close()
+
+    def _drain_held(self, kinds) -> List[WatchEvent]:
+        """Pop queued events of *kinds*, exactly once each.  The queue IS
+        the delivery state — the caller's seq cursor is deliberately NOT
+        used as a filter: with asynchronous push delivery, a frame
+        committed before the caller's head read can arrive after it, and
+        a seq filter would drop it for good (the bounded-poll path's
+        head-first invariant does not transfer to held mode)."""
+        wanted = set(kinds)
+        with self._held_cond:
+            if self._held_expired & wanted:
+                self._held_expired -= wanted
+                raise ExpiredError(
+                    "held watch stream expired (410); relist required"
+                )
+            events = []
+            keep = deque()
+            for e in self._held_queue:
+                if e.kind in wanted:
+                    events.append(e)
+                else:
+                    keep.append(e)
+            self._held_queue = keep
+            metrics.set_held_queue_depth(len(keep))
+        events.sort(key=lambda e: e.seq)
+        return events
+
+    def _held_enqueue(self, event: WatchEvent) -> None:
+        with self._held_cond:
+            if len(self._held_queue) >= self._held_max_queue:
+                # Consumer stopped draining: dropping silently would lose
+                # deltas for good — convert to the 410 recovery path.
+                self._held_queue.clear()
+                self._held_expired.update(self._held_kinds)
+                for k in self._held_kinds:
+                    self._reset_kind_state(k)
+                metrics.record_held_queue_overflow()
+                metrics.set_held_queue_depth(0)
+                return
+            self._held_queue.append(event)
+            # Edge-triggered: waiters' predicate is "queue non-empty",
+            # which only changes on the empty→non-empty transition —
+            # notifying on every frame made each burst a thundering herd
+            # across every held-event waiter.
+            if len(self._held_queue) == 1:
+                self._held_cond.notify_all()
+            # inside the lock: a deferred stale depth from a slow
+            # enqueuer must not overwrite a newer drain's zero
+            metrics.set_held_queue_depth(len(self._held_queue))
+
+    def _held_mark_expired(self, k: str) -> None:
+        with self._held_cond:
+            self._held_expired.add(k)
+            self._held_cond.notify_all()
+
+    def wait_for_held_event(self, seq: int = 0, timeout: float = 1.0) -> bool:
+        """Block until the held queue holds any event (or an expiry is
+        pending); False on timeout.  Lets consumers sleep on the stream
+        instead of polling.  *seq* is accepted for call-shape parity but
+        unused — held delivery is pop-once, not cursor-filtered."""
+        del seq
+        deadline = time.monotonic() + timeout
+        with self._held_cond:
+            while True:
+                if self._held_expired or self._held_queue:
+                    return True
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._held_cond.wait(remaining)
+
+    # ----------------------------------------------------------- cache shim
+    def snapshot(
+        self, kinds: Optional[Tuple[str, ...]] = None
+    ) -> Dict[Tuple[str, str, str], JsonObj]:
+        """Deep snapshot across registered kinds (InformerCache seed);
+        *kinds* restricts the dump — one HTTP list per kind, so callers
+        with a known working set avoid 10+ round trips.  Kinds the server
+        does not serve (CRD not applied) are skipped."""
+        snap: Dict[Tuple[str, str, str], JsonObj] = {}
+        for k in kinds if kinds is not None else KIND_REGISTRY:
+            try:
+                items = self.list(k)
+            except NotFoundError:
+                continue  # kind not served (CRD not applied)
+            # any other ApiError (403 RBAC, 429, 5xx) propagates: a
+            # silently partial snapshot would let drains proceed on
+            # stale emptiness
+            for obj in items:
+                meta = obj.get("metadata") or {}
+                snap[(k, meta.get("namespace", ""), meta.get("name", ""))] = obj
+        return snap
+
+    # The in-mem store accepts a label_selector matcher everywhere; the
+    # HTTP backend passes selector strings server-side.  parse_selector is
+    # re-exported so callers can post-filter identically if needed.
+    parse_selector = staticmethod(parse_selector)
+
+
+class _ReconnectBackoff:
+    """client-go reflector retry pacing: exponential backoff with full
+    jitter, reset on a healthy stream.  A fixed retry interval against
+    a down apiserver is a reconnect storm multiplied by every watcher
+    in the fleet; jitter de-synchronizes them."""
+
+    def __init__(
+        self, base: float = 0.2, factor: float = 2.0, cap: float = 30.0
+    ) -> None:
+        import random
+
+        self._base = base
+        self._factor = factor
+        self._cap = cap
+        self._current = base
+        self._rng = random.Random()
+
+    def next(self) -> float:
+        delay = self._current * (0.5 + self._rng.random() * 0.5)
+        self._current = min(self._current * self._factor, self._cap)
+        return delay
+
+    def reset(self) -> None:
+        self._current = self._base
+
+
+class _HeldWatcher(threading.Thread):
+    """One kind's held watch stream: a dedicated connection holds a long
+    watch, frames are ingested as the server pushes them, reconnecting
+    from the kind's own bookmark when the hold times out (the
+    client-go reflector loop)."""
+
+    def __init__(self, client: "KubeApiClient", kind: str, hold_seconds: float):
+        super().__init__(name=f"held-watch-{kind}", daemon=True)
+        self._client = client
+        self._kind = kind
+        self._hold = hold_seconds
+        self._backoff = _ReconnectBackoff()
+        self._stop_event = threading.Event()
+        self._conn = None
+        #: The raw socket, captured at request time — getresponse()
+        #: detaches it from the connection (conn.sock becomes None) for
+        #: close-delimited streams, and shutdown() on it is the only
+        #: reliable way to wake a reader blocked in recv.
+        self._sock = None
+        self._conn_lock = threading.Lock()
+
+    def stop(self) -> None:
+        self._stop_event.set()
+        with self._conn_lock:
+            if self._sock is not None:
+                try:
+                    # shutdown() (not just close()) is what actually wakes
+                    # a reader blocked in recv on another thread
+                    import socket as _socket
+
+                    self._sock.shutdown(_socket.SHUT_RDWR)
+                except OSError:
+                    pass
+            if self._conn is not None:
+                try:
+                    self._conn.close()
+                except OSError:
+                    pass
+
+    # ------------------------------------------------------------- running
+    def run(self) -> None:
+        first = True
+        while not self._stop_event.is_set():
+            try:
+                if not first:
+                    metrics.record_watch_reconnect(self._kind)
+                first = False
+                self._run_stream()
+                # a stream that held to its natural expiry means the
+                # server is healthy: next failure starts from scratch
+                self._backoff.reset()
+            except ExpiredError:
+                metrics.record_watch_expired(self._kind)
+                self._client._reset_kind_state(self._kind)
+                self._client._held_mark_expired(self._kind)
+                self._stop_event.wait(0.05)
+            except UnauthorizedError:
+                if self._stop_event.is_set():
+                    return
+                # Force one exec-plugin re-run (the bounded path's 401
+                # replay): a token revoked before its cached expiry must
+                # not wedge the stream in a silent 401 loop.
+                plugin = self._client.config.exec_plugin
+                if plugin is not None:
+                    try:
+                        self._client._refresh_auth(plugin.generation)
+                    except Exception as err:  # noqa: BLE001
+                        logger.warning(
+                            "held watch %s: credential refresh failed: %s",
+                            self._kind,
+                            err,
+                        )
+                else:
+                    logger.warning(
+                        "held watch %s: 401 with no credential plugin",
+                        self._kind,
+                    )
+                self._stop_event.wait(max(0.2, self._backoff.next()))
+            except Exception as err:  # noqa: BLE001 — thread boundary
+                if self._stop_event.is_set():
+                    return
+                delay = self._backoff.next()
+                logger.debug(
+                    "held watch %s: stream error (%s); reconnecting in "
+                    "%.2fs",
+                    self._kind,
+                    err,
+                    delay,
+                )
+                self._stop_event.wait(delay)
+
+    def _open_connection(self):
+        client = self._client
+        timeout = self._hold + 10.0
+        if client._scheme == "https":
+            return HTTPSConnection(
+                client._host,
+                client._port,
+                timeout=timeout,
+                context=client._ssl_context,
+            )
+        return HTTPConnection(client._host, client._port, timeout=timeout)
+
+    def _run_stream(self) -> None:
+        client = self._client
+        client._seed_last_seen(self._kind)
+        with client._last_seen_lock:
+            start = client._kind_bookmarks.get(self._kind, 0)
+            client._kind_reset.discard(self._kind)
+        info = kind_info(self._kind)
+        query = {
+            "watch": "true",
+            "resourceVersion": str(start),
+            "allowWatchBookmarks": "true",
+            "timeoutSeconds": str(self._hold),
+        }
+        sel = client._watch_selectors.get(self._kind)
+        if sel:
+            query["labelSelector"] = sel
+        path = f"{info.path()}?{urlencode(query)}"
+        cred = client._refresh_auth(None)
+        conn = self._open_connection()
+        with self._conn_lock:
+            if self._stop_event.is_set():
+                conn.close()
+                return
+            self._conn = conn
+        try:
+            conn.request("GET", path, headers=client._headers(None, cred))
+            with self._conn_lock:
+                self._sock = conn.sock  # before getresponse() detaches it
+            resp = conn.getresponse()
+            if resp.status >= 400:
+                data = resp.read()
+                parsed: JsonObj = {}
+                try:
+                    parsed = json.loads(data)
+                except json.JSONDecodeError:
+                    pass
+                raise client._to_api_error(resp.status, parsed)
+            # the watch is established: client-go resets reflector
+            # backoff HERE, not only on natural expiry — a flaky LB
+            # RSTing healthy streams must not ratchet every reconnect
+            # to the 30s cap
+            self._backoff.reset()
+            while not self._stop_event.is_set():
+                line = resp.readline()
+                if not line:
+                    return  # hold expired server-side; reconnect
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    frame = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if frame.get("type") == "ERROR":
+                    status = frame.get("object") or {}
+                    raise client._to_api_error(
+                        int(status.get("code") or 410), status
+                    )
+                event = client._ingest_watch_frame(self._kind, frame)
+                if event is not None:
+                    client._held_enqueue(event)
+        finally:
+            with self._conn_lock:
+                self._conn = None
+                self._sock = None
+            try:
+                conn.close()
+            except OSError:
+                pass

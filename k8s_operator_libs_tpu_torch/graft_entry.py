@@ -19,10 +19,9 @@ import torch
 
 from .tpu import workload as wl
 
-#: The dryrun's model: the JAX dryrun's (vocab 64, d_model 32, 2 layers,
-#: d_ff 64, seq 16) with 2 heads in place of 4, since the CUDA flash
-#: kernels take head dims 16 to 128 and 4 heads of 32 features are 8 wide.
-DRYRUN_BASE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq_len=16)
+#: The dryrun's model: the JAX dryrun's (vocab 64, d_model 32, 4 heads,
+#: 2 layers, d_ff 64, seq 16).
+DRYRUN_BASE = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq_len=16)
 #: How far the ring and flash losses may stray from the gather losses on
 #: the same weights and batch: the JAX dryrun's bound.
 DRYRUN_TOL = 1e-4

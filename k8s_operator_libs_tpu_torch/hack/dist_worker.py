@@ -274,10 +274,10 @@ def coordinator_watcher(rank: int):
     ``FACADE_URL``; None on every other rank."""
     if rank != 0:
         return None
-    from ..cluster.kubeclient import KubeApiClient
+    from ..cluster.kubeclient import KubeApiClient, KubeConfig
     from ..tpu.drain_handshake import DrainSignalWatcher
 
-    client = KubeApiClient(os.environ["FACADE_URL"], timeout=10.0)
+    client = KubeApiClient(KubeConfig(server=os.environ["FACADE_URL"]), timeout=10.0)
     return DrainSignalWatcher(client, os.environ["DRAIN_NODE_NAME"])
 
 

@@ -12,7 +12,10 @@ Pallas TPU kernels become three CUDA kernels in
 
 All three run bf16 on the tensor cores (wgmma) and fp32 on scalar
 kernels; :data:`DEVICE_KERNELS` names the device kernel each (entry
-point, dtype) launches.
+point, dtype) launches.  The kernels are compiled for the head dims of
+:data:`HEAD_DIMS`; a narrower head is zero-padded to the next of them
+and its outputs sliced back (:func:`head_padded`), at the softmax scale
+of its true width.
 
 Beside each kernel sits its plain PyTorch version: dense, fp32, masked
 with ``_NEG``.  A wrapper takes the plain version only for a tensor on the
@@ -31,6 +34,7 @@ kernels, as it stays outside Pallas in JAX.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Tuple
 
 import torch
@@ -69,7 +73,8 @@ device_launch_counts: Dict[str, int] = {
     name: 0 for kernels in DEVICE_KERNELS.values() for name in kernels.values()
 }
 
-#: Head dims the CUDA kernels are compiled for.
+#: Head dims the CUDA kernels are compiled for.  Any head dim up to the
+#: last runs on them, padded to the next (:func:`head_padded`).
 HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -144,21 +149,26 @@ def _expand_kv(x, g: int):
     return x.repeat_interleave(g, dim=0) if g > 1 else x
 
 
-def _scores(qf, kf, g: int, causal: bool):
+def _scale(qf, scale):
+    """The softmax scale: *scale*, or 1/sqrt(head_dim) of *qf*."""
+    return 1.0 / math.sqrt(qf.shape[2]) if scale is None else scale
+
+
+def _scores(qf, kf, g: int, causal: bool, scale=None):
     """Scaled fp32 scores [b*h, s, s], masked with ``_NEG``."""
-    s, d = qf.shape[1], qf.shape[2]
+    s = qf.shape[1]
     scores = torch.bmm(qf.float(), _expand_kv(kf, g).float().transpose(1, 2))
-    scores.mul_(1.0 / math.sqrt(d))
+    scores.mul_(_scale(qf, scale))
     if causal:
         mask = _causal_mask(0, 0, s, s, device=qf.device)
         scores.masked_fill_(~mask, _NEG)
     return scores
 
 
-def flash_forward_plain(qf, kf, vf, g: int, causal: bool):
+def flash_forward_plain(qf, kf, vf, g: int, causal: bool, scale=None):
     """Plain version of the forward kernel: ``(O, lse)`` with O in q's
-    dtype and lse fp32 [b*h, s]."""
-    scores = _scores(qf, kf, g, causal)
+    dtype and lse fp32 [b*h, s].  *scale* defaults to 1/sqrt(head_dim)."""
+    scores = _scores(qf, kf, g, causal, scale)
     lse = torch.logsumexp(scores, dim=-1)
     # out of place: autograd of the plain version is the kernels' oracle
     probs = torch.exp(scores - lse[..., None])
@@ -166,31 +176,63 @@ def flash_forward_plain(qf, kf, vf, g: int, causal: bool):
     return out.to(qf.dtype), lse
 
 
-def _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
+def _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g: int, causal: bool, scale=None):
     """P = exp(S*scale - lse) and dS = P (dO V^T - dvec) scale, fp32."""
-    scale = 1.0 / math.sqrt(qf.shape[2])
-    probs = _scores(qf, kf, g, causal).sub_(lse[..., None]).exp_()
+    scale = _scale(qf, scale)
+    probs = _scores(qf, kf, g, causal, scale).sub_(lse[..., None]).exp_()
     dp = torch.bmm(dof.float(), _expand_kv(vf, g).float().transpose(1, 2))
     ds = dp.sub_(dvec[..., None]).mul_(probs).mul_(scale)
     return probs, ds
 
 
-def flash_bwd_dq_plain(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
+def flash_bwd_dq_plain(qf, kf, vf, dof, lse, dvec, g: int, causal: bool, scale=None):
     """Plain version of the dQ kernel: dQ = dS K, in q's dtype."""
-    _, ds = _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g, causal)
+    _, ds = _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g, causal, scale)
     return torch.bmm(ds, _expand_kv(kf, g).float()).to(qf.dtype)
 
 
-def flash_bwd_dkv_plain(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
+def flash_bwd_dkv_plain(qf, kf, vf, dof, lse, dvec, g: int, causal: bool, scale=None):
     """Plain version of the dK/dV kernel: per-query-head partials
     dK = dS^T Q and dV = P^T dO, [b*h, s, d] in k's and v's dtypes."""
-    probs, ds = _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g, causal)
+    probs, ds = _probs_and_dscores(qf, kf, vf, dof, lse, dvec, g, causal, scale)
     dv = torch.bmm(probs.transpose(1, 2), dof.float())
     dk = torch.bmm(ds.transpose(1, 2), qf.float())
     return dk.to(kf.dtype), dv.to(vf.dtype)
 
 
 # ------------------------------------------------------ kernel wrappers
+
+
+def padded_head_dim(d: int) -> int:
+    """The compiled head dim a *d*-wide head runs at: the least width of
+    :data:`HEAD_DIMS` that holds it."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"flash attention kernels take head_dim up to {HEAD_DIMS[-1]}, got {d}"
+    )
+
+
+def head_padded(fn, n_padded: int, qf, *args):
+    """``fn(qf, *args, scale=...)`` at the compiled head dim.
+
+    The first *n_padded* tensors (q, k, v, and dO for the backward) are
+    zero-padded to :func:`padded_head_dim`, and every 3-D output is sliced
+    back to the true width.  Exact: a zero column adds 0 to each score,
+    so lse and P are those of the true width, and the padded columns of
+    O, dQ, dK and dV are dropped.  The scale is that of the true width;
+    dvec = rowsum(dO * O) comes in from the caller, unpadded."""
+    d = qf.shape[2]
+    width = padded_head_dim(d)
+    tensors = (qf, *args[: n_padded - 1])
+    rest = args[n_padded - 1:]
+    scale = 1.0 / math.sqrt(d)
+    if width == d:
+        return fn(*tensors, *rest, scale=scale)
+    out = fn(*(F.pad(t, (0, width - d)) for t in tensors), *rest, scale=scale)
+    narrow = lambda t: t[..., :d].contiguous() if t.dim() == 3 else t  # noqa: E731
+    return tuple(map(narrow, out)) if isinstance(out, tuple) else narrow(out)
 
 
 def _check_kernel_inputs(what: str, qf, kf, vf, g: int, dof=None, lse=None, dvec=None):
@@ -221,9 +263,10 @@ def _check_kernel_inputs(what: str, qf, kf, vf, g: int, dof=None, lse=None, dvec
         raise ValueError(f"{what}: bf16 q/k/v/dO must start on a 16-byte boundary")
 
 
-def _launch_env(qf) -> Tuple:
-    """(library, is_bf16, scale, stream) of a launch.  The C entry points
-    launch on the current device, so the tensors must be there."""
+def _launch_env(qf, scale) -> Tuple:
+    """(library, is_bf16, scale, stream) of a launch; *scale* defaults
+    to 1/sqrt(head_dim).  The C entry points launch on the current
+    device, so the tensors must be there."""
     lib = _build.load("flash_attention")
     if qf.device.index != torch.cuda.current_device():
         raise ValueError(
@@ -233,14 +276,14 @@ def _launch_env(qf) -> Tuple:
     return (
         lib,
         int(qf.dtype == torch.bfloat16),
-        1.0 / math.sqrt(qf.shape[2]),
+        _scale(qf, scale),
         torch.cuda.current_stream(qf.device).cuda_stream,
     )
 
 
-def _flash_forward_cuda(qf, kf, vf, g: int, causal: bool):
+def _flash_forward_cuda(qf, kf, vf, g: int, causal: bool, scale=None):
     _check_kernel_inputs("flash_fwd", qf, kf, vf, g)
-    lib, is_bf16, scale, stream = _launch_env(qf)
+    lib, is_bf16, scale, stream = _launch_env(qf, scale)
     bh, s, d = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty(bh, s, dtype=torch.float32, device=qf.device)
@@ -255,9 +298,9 @@ def _flash_forward_cuda(qf, kf, vf, g: int, causal: bool):
     return out, lse
 
 
-def _flash_bwd_dq_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
+def _flash_bwd_dq_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool, scale=None):
     _check_kernel_inputs("flash_bwd_dq", qf, kf, vf, g, dof, lse, dvec)
-    lib, is_bf16, scale, stream = _launch_env(qf)
+    lib, is_bf16, scale, stream = _launch_env(qf, scale)
     bh, s, d = qf.shape
     dq = torch.empty_like(qf)
     _build.check(
@@ -272,9 +315,9 @@ def _flash_bwd_dq_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
     return dq
 
 
-def _flash_bwd_dkv_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
+def _flash_bwd_dkv_cuda(qf, kf, vf, dof, lse, dvec, g: int, causal: bool, scale=None):
     _check_kernel_inputs("flash_bwd_dkv", qf, kf, vf, g, dof, lse, dvec)
-    lib, is_bf16, scale, stream = _launch_env(qf)
+    lib, is_bf16, scale, stream = _launch_env(qf, scale)
     bh, s, d = qf.shape
     dk = torch.empty_like(qf)  # per query head: group-summed by the caller
     dv = torch.empty_like(qf)
@@ -301,13 +344,16 @@ def _route(cuda_fn, plain_fn, qf, *args):
 
 def flash_forward(qf, kf, vf, g: int, causal: bool):
     """Forward on folded tensors: ``(O [b*h, s, d], lse [b*h, s])``."""
-    return _route(_flash_forward_cuda, flash_forward_plain, qf, kf, vf, g, causal)
+    return _route(
+        partial(head_padded, _flash_forward_cuda, 3), flash_forward_plain,
+        qf, kf, vf, g, causal,
+    )
 
 
 def flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
     """dQ on folded tensors."""
     return _route(
-        _flash_bwd_dq_cuda, flash_bwd_dq_plain,
+        partial(head_padded, _flash_bwd_dq_cuda, 4), flash_bwd_dq_plain,
         qf, kf, vf, dof, lse, dvec, g, causal,
     )
 
@@ -315,7 +361,7 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
 def flash_bwd_dkv(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
     """Per-query-head (dK, dV) partials on folded tensors."""
     return _route(
-        _flash_bwd_dkv_cuda, flash_bwd_dkv_plain,
+        partial(head_padded, _flash_bwd_dkv_cuda, 4), flash_bwd_dkv_plain,
         qf, kf, vf, dof, lse, dvec, g, causal,
     )
 

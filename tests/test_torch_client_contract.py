@@ -1,0 +1,724 @@
+"""The port's Kubernetes client and apiserver facade: CRUD, eviction,
+watches, transport retries, bookmarks and strategic merge.
+
+The classes of ``tests/test_client_contract.py`` up to ``TestStrategicMergePatch``, as cases of the
+same names, run on the port's :class:`KubeApiClient`, :class:`ApiServerFacade`
+and :class:`InMemoryCluster`, in the port's vocabulary.  The classes that
+drive the upgrade state machine, the controller or the CLI wait for those
+modules.  Every client a test makes is closed when it ends
+(``test_torch_vocab.close_every_client``): its held watch threads are
+joined (and must have stopped) and its pooled sockets closed.  The JAX and the port's HTTP stacks are held to each other on one
+seeded operation sequence in ``tests/test_torch_http_parity.py``.
+"""
+
+
+
+import threading
+
+
+import time
+
+
+from http.client import IncompleteRead
+
+
+import pytest
+
+
+from k8s_operator_libs_tpu_torch.cluster import (
+    ApiServerFacade,
+    ConflictError,
+    ExecCredentialError,
+    ExpiredError,
+    InMemoryCluster,
+    KubeApiClient,
+    KubeConfig,
+    NotFoundError,
+    TooManyRequestsError,
+)
+
+
+from k8s_operator_libs_tpu_torch.cluster.objects import make_node, make_pod
+
+
+from test_torch_vocab import close_every_client, port_globals  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("port_globals", "close_every_client")
+
+
+def _wait_until(pred, timeout=10.0, what="condition"):
+    """Wait on *pred* (polled) instead of sleeping a fixed time."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.005)
+
+
+def _streams_open(client):
+    """True once every held watcher has sent its watch request."""
+    watchers = list(client._held_watchers)
+    return bool(watchers) and all(w._sock is not None for w in watchers)
+
+
+def _join_all(threads, timeout=30.0):
+    for t in threads:
+        t.join(timeout)
+    assert not [t.name for t in threads if t.is_alive()], "threads still running"
+
+
+@pytest.fixture(params=["inmem", "http"])
+def backend(request):
+    """Yields (client, store): the ClusterClient under test plus the
+    backing store (for journal-cap manipulation in the 410 test)."""
+    store = InMemoryCluster()
+    if request.param == "inmem":
+        yield store, store
+        return
+    facade = ApiServerFacade(store).start()
+    client = KubeApiClient(KubeConfig(server=facade.url), timeout=10.0)
+    try:
+        yield client, store
+    finally:
+        facade.stop()
+
+
+class TestCrudContract:
+    def test_create_get_roundtrip(self, backend):
+        client, _ = backend
+        client.create(make_node("n1", labels={"pool": "tpu"}))
+        node = client.get("Node", "n1")
+        assert node["metadata"]["name"] == "n1"
+        assert node["metadata"]["labels"]["pool"] == "tpu"
+        assert node["metadata"]["resourceVersion"]
+
+    def test_get_missing_raises_not_found(self, backend):
+        client, _ = backend
+        with pytest.raises(NotFoundError):
+            client.get("Node", "ghost")
+        assert not client.exists("Node", "ghost")
+
+    def test_namespaced_create_list(self, backend):
+        client, _ = backend
+        client.create(make_pod("p1", "ml", "n1", labels={"app": "x"}))
+        client.create(make_pod("p2", "other", "n1", labels={"app": "x"}))
+        assert len(client.list("Pod", namespace="ml")) == 1
+        assert len(client.list("Pod")) == 2  # all namespaces
+
+    def test_label_selector_list(self, backend):
+        client, _ = backend
+        client.create(make_node("a", labels={"pool": "tpu", "gen": "v5"}))
+        client.create(make_node("b", labels={"pool": "cpu"}))
+        names = [
+            n["metadata"]["name"]
+            for n in client.list("Node", label_selector="pool=tpu")
+        ]
+        assert names == ["a"]
+        names = [
+            n["metadata"]["name"]
+            for n in client.list("Node", label_selector="pool in (tpu,cpu),!gen")
+        ]
+        assert names == ["b"]
+
+    def test_field_selector_pods_by_node(self, backend):
+        client, _ = backend
+        client.create(make_pod("p1", "ml", "n1"))
+        client.create(make_pod("p2", "ml", "n2"))
+        names = [
+            p["metadata"]["name"]
+            for p in client.list("Pod", field_selector="spec.nodeName=n1")
+        ]
+        assert names == ["p1"]
+
+    def test_update_conflict_on_stale_rv(self, backend):
+        client, _ = backend
+        client.create(make_node("n1"))
+        stale = client.get("Node", "n1")
+        fresh = client.get("Node", "n1")
+        fresh["metadata"]["labels"] = {"touched": "yes"}
+        client.update(fresh)
+        stale["metadata"]["labels"] = {"loser": "true"}
+        with pytest.raises(ConflictError):
+            client.update(stale)
+
+    def test_merge_patch_null_deletes_annotation(self, backend):
+        client, _ = backend
+        node = make_node("n1")
+        node["metadata"]["annotations"] = {"keep": "1", "drop": "2"}
+        client.create(node)
+        client.patch(
+            "Node", "n1", {"metadata": {"annotations": {"drop": None}}}
+        )
+        annotations = client.get("Node", "n1")["metadata"]["annotations"]
+        assert annotations == {"keep": "1"}
+
+    def test_rv_guarded_patch_conflicts(self, backend):
+        client, _ = backend
+        client.create(make_node("n1"))
+        seen = client.get("Node", "n1")
+        client.patch("Node", "n1", {"metadata": {"labels": {"x": "1"}}})
+        with pytest.raises(ConflictError):
+            client.patch(
+                "Node",
+                "n1",
+                {
+                    "metadata": {
+                        "resourceVersion": seen["metadata"]["resourceVersion"],
+                        "labels": {"y": "2"},
+                    }
+                },
+            )
+
+    def test_delete_and_idempotency_error(self, backend):
+        client, _ = backend
+        client.create(make_node("n1"))
+        client.delete("Node", "n1")
+        assert not client.exists("Node", "n1")
+        with pytest.raises(NotFoundError):
+            client.delete("Node", "n1")
+
+    def test_finalizer_marks_then_update_removes(self, backend):
+        client, _ = backend
+        pod = make_pod("p1", "ml", "n1")
+        pod["metadata"]["finalizers"] = ["example.com/cleanup"]
+        client.create(pod)
+        client.delete("Pod", "p1", "ml")
+        terminating = client.get("Pod", "p1", "ml")
+        assert terminating["metadata"]["deletionTimestamp"]
+        terminating["metadata"]["finalizers"] = []
+        client.update(terminating)
+        assert not client.exists("Pod", "p1", "ml")
+
+    def test_graceful_delete_creates_terminating_window(self, backend):
+        client, store = backend
+        store.termination_grace_scale = 0.02
+        pod = make_pod("p1", "ml", "n1")
+        pod["spec"]["terminationGracePeriodSeconds"] = 3
+        client.create(pod)
+        client.delete("Pod", "p1", "ml")
+        cur = client.get("Pod", "p1", "ml")
+        assert cur["metadata"]["deletionGracePeriodSeconds"] == 3
+        deadline = time.monotonic() + 2.0
+        while client.exists("Pod", "p1", "ml"):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+
+    def test_update_status(self, backend):
+        client, _ = backend
+        client.create(make_node("n1"))
+        node = client.get("Node", "n1")
+        node.setdefault("status", {})["allocatable"] = {"tpu": "4"}
+        client.update_status(node)
+        assert client.get("Node", "n1")["status"]["allocatable"] == {
+            "tpu": "4"
+        }
+
+
+class TestEvictionContract:
+    def _pdb(self, client, min_available=1):
+        client.create(
+            {
+                "kind": "PodDisruptionBudget",
+                "metadata": {"name": "pdb", "namespace": "ml"},
+                "spec": {
+                    "selector": {"matchLabels": {"job": "train"}},
+                    "minAvailable": min_available,
+                },
+            }
+        )
+
+    def test_evict_no_pdb(self, backend):
+        client, _ = backend
+        client.create(make_pod("p1", "ml", "n1"))
+        client.evict("p1", "ml")
+        assert not client.exists("Pod", "p1", "ml")
+
+    def test_evict_blocked_by_pdb_raises_429(self, backend):
+        client, _ = backend
+        client.create(make_pod("p1", "ml", "n1", labels={"job": "train"}))
+        self._pdb(client)
+        with pytest.raises(TooManyRequestsError):
+            client.evict("p1", "ml")
+        assert client.exists("Pod", "p1", "ml")
+
+    def test_evict_missing_pod_raises_not_found(self, backend):
+        client, _ = backend
+        with pytest.raises(NotFoundError):
+            client.evict("ghost", "ml")
+
+    def test_evict_passes_grace_through(self, backend):
+        client, store = backend
+        store.termination_grace_scale = 100.0  # reaper effectively never
+        client.create(make_pod("p1", "ml", "n1"))
+        client.evict("p1", "ml", grace_period_seconds=30)
+        cur = client.get("Pod", "p1", "ml")
+        assert cur["metadata"]["deletionGracePeriodSeconds"] == 30
+
+
+class TestWatchContract:
+    def test_events_old_new_and_ordering(self, backend):
+        client, _ = backend
+        seq = client.journal_seq()
+        client.create(make_node("n1"))
+        client.patch("Node", "n1", {"metadata": {"labels": {"x": "1"}}})
+        client.delete("Node", "n1")
+        events = client.events_since(seq, kind="Node")
+        types = [e.type for e in events]
+        assert types == ["Added", "Modified", "Deleted"]
+        added, modified, deleted = events
+        assert added.new["metadata"]["name"] == "n1"
+        # the HTTP shim synthesizes old from its last-seen store; the
+        # in-mem journal records it directly — both must carry it
+        assert modified.old is not None
+        assert modified.new["metadata"]["labels"]["x"] == "1"
+        assert deleted.new is None and deleted.old is not None
+        assert [e.seq for e in events] == sorted(e.seq for e in events)
+
+    def test_events_filtered_by_kind(self, backend):
+        client, _ = backend
+        seq = client.journal_seq()
+        client.create(make_node("n1"))
+        client.create(make_pod("p1", "ml", "n1"))
+        node_events = client.events_since(seq, kind="Node")
+        assert all(
+            (e.new or e.old)["kind"] == "Node" for e in node_events
+        )
+
+    def test_journal_seq_advances(self, backend):
+        client, _ = backend
+        before = client.journal_seq()
+        client.create(make_node("n1"))
+        assert client.journal_seq() > before
+
+    def test_expired_watch_raises_gone(self, backend):
+        client, store = backend
+        store._journal_cap = 5  # shrink the retained window
+        client.create(make_node("n0"))
+        seq = client.journal_seq()
+        for i in range(1, 10):
+            client.create(make_node(f"n{i}"))
+        with pytest.raises(ExpiredError):
+            client.events_since(max(0, seq - 2), kind="Node")
+
+
+class TestHttpSpecifics:
+    """Behaviors only meaningful over the wire."""
+
+    def test_status_error_body_roundtrip(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            with pytest.raises(NotFoundError) as exc:
+                client.get("Node", "ghost")
+            assert "ghost" in str(exc.value)
+
+    def test_concurrent_threads_share_client(self):
+        """Per-thread pooled connections: parallel writers never cross
+        streams (the drain manager evicts from worker threads)."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            errors = []
+
+            def spin(i):
+                try:
+                    for j in range(10):
+                        client.create(make_node(f"n{i}-{j}"))
+                        client.get("Node", f"n{i}-{j}")
+                except Exception as err:  # noqa: BLE001
+                    errors.append(err)
+
+            threads = [
+                threading.Thread(target=spin, args=(i,)) for i in range(8)
+            ]
+            for t in threads:
+                t.start()
+            _join_all(threads)
+            assert errors == []
+            assert len(client.list("Node")) == 80
+
+    def test_unregistered_kind_rejected_client_side(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            with pytest.raises(KeyError, match="not registered"):
+                client.get("FrobnicatorPolicy", "x")
+
+
+class TestReviewRegressions:
+    """Regression coverage for the adapter-review findings."""
+
+    def test_namespace_object_routes(self):
+        """/api/v1/namespaces/<name> is the Namespace RESOURCE, not a
+        namespace prefix."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            client.create(
+                {"kind": "Namespace", "metadata": {"name": "tpu-ops"}}
+            )
+            assert client.get("Namespace", "tpu-ops")["metadata"]["name"] == (
+                "tpu-ops"
+            )
+            assert client.exists("Namespace", "tpu-ops")
+            names = [
+                n["metadata"]["name"] for n in client.list("Namespace")
+            ]
+            assert names == ["tpu-ops"]
+            client.delete("Namespace", "tpu-ops")
+            assert not client.exists("Namespace", "tpu-ops")
+
+    def test_first_modified_after_startup_carries_old(self):
+        """A client started against pre-existing objects must synthesize
+        `old` for the first Modified (informer seed), or old/new
+        predicates silently drop the event."""
+        store = InMemoryCluster()
+        store.create(make_node("n1", labels={"v": "1"}))
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            # the controller's startup sequence: initial list (which
+            # seeds the informer store) + journal bookmark
+            client.list("Node")
+            seq = client.journal_seq()
+            client.patch("Node", "n1", {"metadata": {"labels": {"v": "2"}}})
+            events = client.events_since(seq, kind="Node")
+            assert len(events) == 1
+            ev = events[0]
+            assert ev.type == "Modified"
+            assert ev.old is not None
+            assert ev.old["metadata"]["labels"]["v"] == "1"
+            assert ev.new["metadata"]["labels"]["v"] == "2"
+
+    def test_events_since_accepts_kind_tuple(self, backend):
+        client, _ = backend
+        seq = client.journal_seq()
+        client.create(make_node("n1"))
+        client.create(make_pod("p1", "ml", "n1"))
+        client.create(
+            {
+                "kind": "PodDisruptionBudget",
+                "metadata": {"name": "pdb", "namespace": "ml"},
+                "spec": {"selector": {"matchLabels": {"x": "y"}}},
+            }
+        )
+        events = client.events_since(seq, kind=("Node", "Pod"))
+        kinds = {(e.new or e.old)["kind"] for e in events}
+        assert kinds == {"Node", "Pod"}
+
+    def test_kubeconfig_data_files_deduped(self, tmp_path):
+        """Inline cert data materializes to ONE temp file across repeated
+        loads (key material must not accumulate in /tmp)."""
+        import base64 as b64
+
+        from k8s_operator_libs_tpu_torch.cluster.kubeclient import _maybe_b64_file
+
+        data = b64.b64encode(b"FAKE-PEM").decode()
+        first = _maybe_b64_file(data)
+        second = _maybe_b64_file(data)
+        assert first == second
+
+
+class TestSecondReviewRegressions:
+    def test_version_root_path_routes_to_none(self):
+        from k8s_operator_libs_tpu_torch.cluster.client import route_for_path
+
+        assert route_for_path("/api/v1") is None
+        assert route_for_path("/apis/apps/v1") is None
+        assert route_for_path("/api") is None
+        assert route_for_path("/") is None
+        assert route_for_path("/api/v1/namespaces") is not None  # Namespace list
+
+    def test_resync_list_does_not_clobber_watch_old_state(self):
+        """A resync list between a change and its watch poll must not
+        overwrite last-seen, or old==new suppresses predicate
+        transitions."""
+        store = InMemoryCluster()
+        store.create(make_node("n1", labels={"v": "1"}))
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            client.list("Node")  # initial list (seed)
+            seq = client.journal_seq()
+            client.patch("Node", "n1", {"metadata": {"labels": {"v": "2"}}})
+            client.list("Node")  # concurrent RESYNC list before the poll
+            events = client.events_since(seq, kind="Node")
+            assert len(events) == 1
+            assert events[0].old["metadata"]["labels"]["v"] == "1"
+            assert events[0].new["metadata"]["labels"]["v"] == "2"
+
+    def test_exec_credential_kubeconfig_builds_plugin(self, tmp_path):
+        """A GKE-shaped kubeconfig (user.exec, no static credential) now
+        loads with an exec plugin attached (round-2 missing #1; full
+        behavior in tests/test_execauth.py)."""
+        import yaml
+
+        cfg = {
+            "apiVersion": "v1",
+            "kind": "Config",
+            "current-context": "gke",
+            "contexts": [
+                {"name": "gke", "context": {"cluster": "c", "user": "u"}}
+            ],
+            "clusters": [
+                {"name": "c", "cluster": {"server": "https://1.2.3.4"}}
+            ],
+            "users": [
+                {
+                    "name": "u",
+                    "user": {
+                        "exec": {
+                            "apiVersion": "client.authentication.k8s.io/v1",
+                            "command": "gke-gcloud-auth-plugin",
+                        }
+                    },
+                }
+            ],
+        }
+        path = tmp_path / "kubeconfig"
+        path.write_text(yaml.safe_dump(cfg))
+        loaded = KubeConfig.load(str(path))
+        assert loaded.exec_plugin is not None
+        assert loaded.exec_plugin.spec.command == "gke-gcloud-auth-plugin"
+        assert loaded.token is None
+
+
+class TestTransportRetryPolicy:
+    """connection-error replay must be limited to verbs
+    that are safe to deliver twice.  POST (create/evict) is not — a
+    connection dropped after delivery would double-create/double-evict."""
+
+    def _flaky(self, client, exc, times=1):
+        pool = client._pool
+        orig_acquire = pool.acquire
+        state = {"fail": times}
+
+        class Flaky:
+            def __init__(self, inner):
+                self.__dict__["inner"] = inner
+
+            def request(self, *a, **k):
+                if state["fail"] > 0:
+                    state["fail"] -= 1
+                    raise exc
+                return self.inner.request(*a, **k)
+
+            def __getattr__(self, name):
+                return getattr(self.inner, name)
+
+        def acquire():
+            pc = orig_acquire()
+            if not isinstance(pc.conn, Flaky):
+                pc.conn = Flaky(pc.conn)
+            return pc
+
+        pool.acquire = acquire
+        return state
+
+    def test_get_replayed_after_connection_reset(self):
+        store = InMemoryCluster()
+        store.create(make_node("n1"))
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            self._flaky(client, ConnectionResetError("pooled conn died"))
+            assert client.get("Node", "n1")["metadata"]["name"] == "n1"
+
+    def test_post_not_replayed_after_connection_reset(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            self._flaky(client, ConnectionResetError("dropped mid-response"))
+            with pytest.raises(OSError):
+                client.create(make_node("n1"))
+
+    def test_post_replayed_after_connection_refused(self):
+        """Refused = the request provably never reached a server; any
+        verb is safe to retry."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            self._flaky(client, ConnectionRefusedError("nothing listening"))
+            client.create(make_node("n1"))
+            assert client.exists("Node", "n1")
+
+    def test_post_replayed_on_reused_stale_keepalive_conn(self):
+        """A POST that fails on a REUSED pooled connection (server closed
+        the idle keep-alive) is replayed once on a fresh socket — the
+        net/http errServerClosedIdle rule; only a failure on a FRESH
+        connection surfaces to the caller."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url))
+            client.create(make_node("warm"))  # pools a connection
+            state = self._flaky(
+                client, ConnectionResetError("idle conn closed")
+            )
+            client.create(make_node("n1"))  # replayed transparently
+            assert client.exists("Node", "n1")
+            assert state["fail"] == 0
+
+
+class TestPerKindWatchBookmarks:
+    """watch RVs are never reused across kinds — each
+    kind's watch resumes from an RV observed for THAT kind (its own list
+    response or last frame), the client-go informer contract."""
+
+    def _client(self, facade):
+        return KubeApiClient(KubeConfig(server=facade.url), timeout=10.0)
+
+    def _capture_watch_rvs(self, client):
+        calls = []
+        original = client._request_watch
+
+        def spy(info, query):
+            calls.append((info.kind, int(query["resourceVersion"])))
+            return original(info, query)
+
+        client._request_watch = spy
+        return calls
+
+    def test_watches_use_each_kinds_own_bookmark(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            seq = client.journal_seq()
+            calls = self._capture_watch_rvs(client)
+            client.create(make_node("n1"))
+            client.create(make_pod("p1", "ml", "n1"))
+            client.events_since(seq, kind=("Node", "Pod"))
+            # advance ONLY Node
+            client.create(make_node("n2"))
+            events = client.events_since(seq, kind=("Node", "Pod"))
+            # the new Node arrived exactly once
+            added = [
+                e for e in events
+                if e.type == "Added"
+                and (e.new or {}).get("metadata", {}).get("name") == "n2"
+            ]
+            assert len(added) == 1
+            # Every later watch resumes from the kind's OWN bookmark (its
+            # frames / closing BOOKMARKs / seed list) — never from the
+            # caller's stale cross-kind cursor.
+            calls.clear()
+            bookmarks_before = dict(client._kind_bookmarks)
+            client.events_since(seq, kind=("Node", "Pod"))
+            rv_by_kind = dict(calls)
+            assert rv_by_kind["Node"] == bookmarks_before["Node"]
+            assert rv_by_kind["Pod"] == bookmarks_before["Pod"]
+            assert rv_by_kind["Node"] != seq
+            assert rv_by_kind["Pod"] != seq
+
+    def test_consecutive_polls_deliver_exactly_once(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            seq = client.journal_seq()
+            client.create(make_node("n1"))
+            first = client.events_since(seq, kind="Node")
+            assert [e.type for e in first] == ["Added"]
+            seq = max(e.seq for e in first)
+            client.create(make_node("n2"))
+            second = client.events_since(seq, kind="Node")
+            names = [
+                (e.new or {}).get("metadata", {}).get("name") for e in second
+            ]
+            assert names == ["n2"]  # no replay of n1, no loss of n2
+
+    def test_manager_lists_do_not_advance_the_watch_position(self):
+        """Event-loss regression: managers relist constantly (build_state
+        lists Pods every reconcile); a list must never advance the watch
+        bookmark past frames the watcher has not consumed."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            seq = client.journal_seq()
+            client.events_since(seq, kind="Node")  # establish the stream
+            client.create(make_node("n1"))
+            client.list("Node")  # manager-style relist sees n1 already
+            events = client.events_since(seq, kind="Node")
+            assert [e.type for e in events] == ["Added"]
+
+    def test_expired_kind_resets_and_reseeds(self):
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            store._journal_cap = 5
+            client.create(make_node("n0"))
+            seq = client.journal_seq()
+            client.events_since(seq, kind="Node")
+            for i in range(1, 10):  # blow past the retained window
+                client.create(make_node(f"n{i}"))
+            with pytest.raises(ExpiredError):
+                client.events_since(seq, kind="Node")
+            # the kind-local state was reset: the next call re-seeds from
+            # a fresh list and works again
+            assert "Node" not in client._kind_bookmarks
+            head = client.journal_seq()
+            client.create(make_node("n10"))
+            events = client.events_since(head, kind="Node")
+            assert [e.type for e in events] == ["Added"]
+
+    def test_mid_poll_410_does_not_lose_earlier_kinds_frames(self):
+        """Review regression: a 410 on one kind mid multi-kind poll must
+        not drop already-consumed frames of earlier kinds — their
+        bookmarks advanced past them, so they are stashed and delivered
+        by the next poll."""
+        store = InMemoryCluster()
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            seq = client.journal_seq()
+            client.events_since(seq, kind=("DaemonSet", "Node"))
+            store._journal_cap = 4
+            for i in range(8):  # push the journal floor above RV 1
+                client.create(make_pod(f"p{i}", "ml", "n1"))
+            ds = client.create(
+                {
+                    "kind": "DaemonSet",
+                    "metadata": {"name": "ds1", "namespace": "ml"},
+                }
+            )
+            ds_rv = int(ds["metadata"]["resourceVersion"])
+            # Force the divergence a lagging fleet produces: DaemonSet's
+            # bookmark fresh (its watch runs first — kinds are sorted —
+            # and will consume ds1's Added), Node's stale below the floor
+            # (its watch then 410s).
+            with client._last_seen_lock:
+                client._kind_bookmarks["DaemonSet"] = ds_rv - 1
+                client._kind_bookmarks["Node"] = 1
+            with pytest.raises(ExpiredError):
+                client.events_since(seq, kind=("DaemonSet", "Node"))
+            # the consumed DaemonSet frame was stashed, not lost
+            events = client.events_since(seq, kind=("DaemonSet", "Node"))
+            ds_added = [
+                e
+                for e in events
+                if (e.new or {}).get("kind") == "DaemonSet"
+                and e.type == "Added"
+            ]
+            assert len(ds_added) == 1
+
+    def test_quiet_kind_tracks_advancing_cursor(self):
+        """Review regression: a kind with no churn must advance with the
+        caller's cursor after each successful poll — a frozen seed RV
+        would age out of the retention window while other kinds churn,
+        turning every poll into a spurious 410 full relist."""
+        store = InMemoryCluster()
+        store._journal_cap = 8
+        with ApiServerFacade(store) as facade:
+            client = self._client(facade)
+            seq = client.journal_seq()
+            client.events_since(seq, kind=("Node", "Pod"))
+            # churn ONLY Pods, far past the journal cap, polling like the
+            # controller does (head first, then events)
+            for i in range(20):
+                client.create(make_pod(f"p{i}", "ml", "n1"))
+                head = client.journal_seq()
+                client.events_since(seq, kind=("Node", "Pod"))
+                seq = head
+            # the quiet Node stream stayed inside the window: next poll
+            # neither raises ExpiredError nor misses a fresh event
+            client.create(make_node("n-new"))
+            events = client.events_since(seq, kind=("Node", "Pod"))
+            names = [
+                (e.new or {}).get("metadata", {}).get("name")
+                for e in events
+                if (e.new or {}).get("kind") == "Node"
+            ]
+            assert names == ["n-new"]

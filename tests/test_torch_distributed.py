@@ -21,7 +21,8 @@ import torch.distributed as dist
 from k8s_operator_libs_tpu.tpu import workload as jwl
 from k8s_operator_libs_tpu_torch.cluster import errors, inmem
 from k8s_operator_libs_tpu_torch.cluster.objects import make_node as port_make_node
-from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, NodeStoreServer
+from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
+from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
 from k8s_operator_libs_tpu_torch.convert import params_to_jax
 from k8s_operator_libs_tpu_torch.hack import dist_worker
 from k8s_operator_libs_tpu_torch.hack.dist_worker import Ranks
@@ -379,7 +380,7 @@ def test_kube_client_reads_and_patches_the_jax_facade():
     store.create(make_node("n-1"))
     facade = ApiServerFacade(store).start()
     try:
-        client = KubeApiClient(facade.url, timeout=10.0)
+        client = KubeApiClient(KubeConfig(server=facade.url), timeout=10.0)
         node = client.get("Node", "n-1")
         assert node["kind"] == "Node" and node["metadata"]["name"] == "n-1"
         client.patch("Node", "n-1", {"metadata": {"annotations": {"a": "1", "b": "2"}}})
@@ -390,8 +391,10 @@ def test_kube_client_reads_and_patches_the_jax_facade():
             client.get("Node", "missing")
         with pytest.raises(errors.NotFoundError):
             client.patch("Node", "missing", {})
-        with pytest.raises(ValueError, match="Nodes"):
-            client.get("Pod", "n-1")
+        # the full client reaches every registered kind, not Nodes alone
+        with pytest.raises(errors.NotFoundError):
+            client.get("Pod", "n-1", "default")
+        client.close()
     finally:
         facade.stop()
 
@@ -403,8 +406,7 @@ def test_the_port_node_server_answers_the_client_and_the_watcher():
     store = inmem.InMemoryCluster()
     store.create(port_make_node("gpu-host"))
     key = util.get_pre_drain_checkpoint_annotation_key()
-    with NodeStoreServer(store) as server:
-        client = KubeApiClient(server.url)
+    with ApiServerFacade(store) as server, KubeApiClient(KubeConfig(server=server.url)) as client:
         watcher = DrainSignalWatcher(client, "gpu-host")
         assert not watcher.checkpoint_requested()
         store.patch("Node", "gpu-host", {"metadata": {"annotations": {key: "requested:t-9"}}})

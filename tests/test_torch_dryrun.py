@@ -64,3 +64,26 @@ def test_dryrun_multichip_defaults_to_the_card_and_raises_without_it(monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         graft_entry.dryrun_multichip(N)
+
+
+def _reference_dryrun_base() -> dict:
+    """The ``base`` dict of the JAX package's ``__graft_entry__.
+    dryrun_multichip``, read from its source (no jax runs)."""
+    import ast
+    from pathlib import Path
+
+    source = Path(__file__).resolve().parent.parent / "__graft_entry__.py"
+    for node in ast.walk(ast.parse(source.read_text())):
+        if (
+            isinstance(node, ast.Assign)
+            and [getattr(t, "id", None) for t in node.targets] == ["base"]
+            and isinstance(node.value, ast.Call)
+            and getattr(node.value.func, "id", None) == "dict"
+        ):
+            return {kw.arg: ast.literal_eval(kw.value) for kw in node.value.keywords}
+    raise AssertionError("no base = dict(...) in __graft_entry__.py")
+
+
+def test_the_dryrun_model_is_the_references():
+    assert graft_entry.DRYRUN_BASE == _reference_dryrun_base()
+    assert graft_entry.DRYRUN_BASE["n_heads"] == 4

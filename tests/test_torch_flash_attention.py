@@ -292,3 +292,51 @@ def test_mask_value_and_group_size_match_jax():
     q, k = torch.zeros(1, 4, 8, 16), torch.zeros(1, 4, 2, 16)
     assert fa._group_size(q, k) == jfa._group_size(np.zeros(q.shape), np.zeros(k.shape)) == 4
     assert fa._check_blocks(100, 128, 128) == jfa._check_blocks(100, 128, 128)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize(
+    "d,hk", [(8, 4), (24, 4), (48, 4), (8, 2), (48, 1)],
+    ids=["d8", "d24", "d48", "d8-gqa", "d48-mqa"],
+)
+def test_head_padded_route_matches_jax_flash(d, hk, causal):
+    """A head dim the kernels are not compiled for runs zero-padded to the
+    next compiled width at its own scale, and sliced back: the helper the
+    CUDA route calls, here around the plain versions, against the JAX
+    kernels in interpret mode (which take any head dim)."""
+    b, s, h = 2, 64, 4
+    g = h // hk
+    rng = np.random.default_rng(100 + d + hk)
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, hk, d)).astype(np.float32) for _ in range(2))
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    out_j, lse_j = jfa._flash_forward(*jargs, causal, 32, 32, True)
+    dq_j, dk_j, dv_j = jfa._flash_backward(
+        *jargs, out_j, lse_j, jnp.asarray(do), causal, 32, 32, True
+    )
+    qf, kf, vf, dof = (fa._fold(torch.from_numpy(x)) for x in (q, k, v, do))
+    assert fa.padded_head_dim(d) > d  # the route pads
+    o, lse = fa.head_padded(fa.flash_forward_plain, 3, qf, kf, vf, g, causal)
+    assert o.shape == qf.shape and lse.shape == (b * h, s)
+    assert _max_err(fa._unfold(o, b), out_j) < 1e-5
+    assert _max_err(lse, lse_j) < 1e-5
+    dvec = (o * dof).sum(-1)
+    args = (qf, kf, vf, dof, lse, dvec, g, causal)
+    dq = fa.head_padded(fa.flash_bwd_dq_plain, 4, *args)
+    dk, dv = fa.head_padded(fa.flash_bwd_dkv_plain, 4, *args)
+    assert dq.shape == dk.shape == dv.shape == qf.shape
+    dk = dk.reshape(b * hk, g, s, d).sum(1)
+    dv = dv.reshape(b * hk, g, s, d).sum(1)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        assert _max_err(fa._unfold(got, b), want) < 1e-4
+
+
+def test_head_dims_past_the_widest_kernel_are_refused():
+    assert [fa.padded_head_dim(d) for d in (8, 16, 17, 48, 64, 100, 128)] == [
+        16, 16, 32, 64, 64, 128, 128,
+    ]
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        fa.padded_head_dim(129)
+    q = torch.zeros(2, 16, 160)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        fa.head_padded(fa.flash_forward_plain, 3, q, q, q, 1, True)

@@ -237,6 +237,49 @@ def test_the_scans_see_the_serving_modules():
     } <= scanned
 
 
+def test_the_scans_see_the_http_cluster_and_the_observability_leaves():
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {
+        "cluster/execauth.py", "cluster/kubeclient.py", "cluster/apiserver.py",
+        "obs/tracing.py", "obs/history.py", "obs/events.py",
+        "upgrade/history.py", "upgrade/timeline.py", "upgrade/schedule.py",
+        "tpu/topology.py", "tpu/health.py",
+    } <= scanned
+
+
+def test_the_whole_port_imports_without_yaml():
+    """PyYAML is optional: only KubeConfig.load imports it, inside the
+    function.  A fresh interpreter where ``import yaml`` fails imports
+    every module of the port."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        "class NoYaml:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'yaml' or name.startswith('yaml.'):\n"
+        "            raise ImportError('yaml is not installed')\n"
+        "sys.meta_path.insert(0, NoYaml())\n"
+        "try:\n"
+        "    import yaml\n"
+        "    raise SystemExit('yaml imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from k8s_operator_libs_tpu_torch.cluster import KubeApiClient, KubeConfig\n"
+        "KubeApiClient(KubeConfig(server='http://127.0.0.1:1'))\n"
+        "print(len(modules := [m for m in sys.modules if m.startswith('k8s_operator_libs_tpu_torch')]) > 0,"
+        " 'yaml' in sys.modules)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True False"
+
+
 #: The one exception handler the measurement surface keeps: gpu_stage
 #: reports a stage's timeout as that stage's outcome, and then exits
 #: non-zero (tests/test_torch_entry_points.py).

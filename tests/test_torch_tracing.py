@@ -1,13 +1,20 @@
-"""The port's minimal tracer (k8s_operator_libs_tpu_torch/obs/tracing.py)
-against the JAX package's obs/tracing.py.
+"""The port's tracer (k8s_operator_libs_tpu_torch/obs/tracing.py) against
+the JAX package's obs/tracing.py.
 
 The traceparent carrier is what the two sides of the drain handshake
 meet on, so formatting and parsing must agree with the orchestrator's on
 every input; spans keep the orchestrator's record keys and parentage
-order.
+order.  ``TestSpanBasics``, ``TestLogInjection`` and the exporter round
+trips of ``TestExportersAndCli`` (``tests/test_tracing.py``) run on the
+port as cases of the same names; a trace exported by either package is
+read back by the other, and the same trace dicts export to the same
+Chrome and OTLP payloads.
 """
 
+import json
+import logging
 import threading
+import time
 
 import pytest
 from hypothesis import given, settings
@@ -15,6 +22,10 @@ from hypothesis import strategies as st
 
 from k8s_operator_libs_tpu.obs import tracing as jtracing
 from k8s_operator_libs_tpu_torch.obs import tracing
+
+from test_torch_vocab import port_globals  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("port_globals")
 
 HEX = "0123456789abcdef"
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
@@ -147,3 +158,256 @@ def test_default_tracer_swap_and_a_thread_does_not_inherit_the_current_span():
         assert seen[0].parent_id == "" and seen[0].trace_id != main.trace_id
     finally:
         tracing.set_default_tracer(previous)
+
+
+# ---- the full tracer: the JAX package's classes, then the exporters across packages
+
+
+class TestSpanBasics:
+    def test_nesting_and_context_restore(self):
+        tracer = tracing.Tracer()
+        with tracer.start_span("root") as root:
+            assert tracer.current_span() is root
+            with tracer.start_span("child") as child:
+                assert child.trace_id == root.trace_id
+                assert child.parent_id == root.span_id
+            assert tracer.current_span() is root
+        assert tracer.current_span() is None
+        (trace,) = tracer.traces()
+        assert trace["complete"] and trace["name"] == "root"
+        assert {s["name"] for s in trace["spans"]} == {"root", "child"}
+
+    def test_exception_marks_error_status(self):
+        tracer = tracing.Tracer()
+        with pytest.raises(RuntimeError):
+            with tracer.start_span("boom"):
+                raise RuntimeError("drain wedged")
+        (trace,) = tracer.traces()
+        (span,) = trace["spans"]
+        assert span["status"] == "error"
+        assert "drain wedged" in span["status_message"]
+
+    def test_traceparent_round_trip_and_rejects_garbage(self):
+        with tracing.start_span("root") as root:
+            carrier = tracing.current_traceparent()
+        assert tracing.parse_traceparent(carrier) == (
+            root.trace_id,
+            root.span_id,
+        )
+        for bad in (None, "", "junk", "00-zz-yy-01", "00-" + "0" * 32 + "-" + "1" * 16 + "-01"):
+            assert tracing.parse_traceparent(bad) is None
+
+    def test_cross_thread_handoff_joins_the_trace(self):
+        tracer = tracing.Tracer()
+        seen = {}
+
+        def worker(carrier):
+            with tracer.start_span("async-work", traceparent=carrier) as span:
+                seen["trace_id"] = span.trace_id
+
+        with tracer.start_span("root") as root:
+            t = threading.Thread(target=worker, args=(root.traceparent,))
+            t.start()
+            t.join(2.0)
+        assert seen["trace_id"] == root.trace_id
+        (trace,) = tracer.traces()
+        assert {s["name"] for s in trace["spans"]} == {"root", "async-work"}
+
+    def test_late_async_span_lands_in_completed_trace(self):
+        """A drain worker ending after the reconcile root closed must
+        still append to the (already completed) trace — the async-result
+        pattern the whole state machine is built on."""
+        tracer = tracing.Tracer()
+        with tracer.start_span("root") as root:
+            carrier = root.traceparent
+        assert tracer.traces()[0]["complete"]
+        with tracer.start_span("late-drain", traceparent=carrier):
+            pass
+        (trace,) = tracer.traces()
+        assert "late-drain" in {s["name"] for s in trace["spans"]}
+
+    def test_orphan_child_of_evicted_trace_dropped_not_resurrected(self):
+        """A child span whose trace a FULL buffer already evicted must
+        not create a ghost (never-complete) entry that evicts a real
+        completed trace — it is counted and dropped."""
+        tracer = tracing.Tracer(capacity=2)
+        with tracer.start_span("old") as old:
+            carrier = old.traceparent
+        for i in range(2):  # evicts "old"
+            with tracer.start_span(f"new{i}"):
+                pass
+        survivors = {t["name"] for t in tracer.traces()}
+        with tracer.start_span("late-child", traceparent=carrier):
+            pass
+        assert tracer.orphan_spans == 1
+        assert {t["name"] for t in tracer.traces()} == survivors
+
+    def test_full_buffer_keeps_interiors_of_new_traces(self):
+        """Steady state (buffer at capacity for the rest of the process
+        lifetime): new reconcile trees must keep their INTERIOR spans —
+        children record before their root, and a naive orphan guard
+        would drop them all once eviction holds the buffer at
+        capacity."""
+        tracer = tracing.Tracer(capacity=2)
+        for i in range(5):  # well past capacity
+            with tracer.start_span(f"root{i}"):
+                with tracer.start_span("child"):
+                    pass
+        traces = tracer.traces()
+        assert len(traces) == 2
+        for trace in traces:
+            assert {s["name"] for s in trace["spans"]} >= {"child"}
+        assert tracer.orphan_spans == 0
+
+    def test_capacity_evicts_oldest(self):
+        tracer = tracing.Tracer(capacity=2)
+        ids = []
+        for i in range(3):
+            with tracer.start_span(f"r{i}") as span:
+                ids.append(span.trace_id)
+        kept = {t["trace_id"] for t in tracer.traces()}
+        assert kept == set(ids[1:])
+
+    def test_span_cap_counts_drops(self):
+        tracer = tracing.Tracer(max_spans_per_trace=2)
+        with tracer.start_span("root"):
+            for _ in range(3):
+                with tracer.start_span("child"):
+                    pass
+        (trace,) = tracer.traces()
+        assert len(trace["spans"]) == 2
+        assert trace["dropped_spans"] == 2  # 2 extra children + root
+
+    def test_record_span_backdates(self):
+        tracer = tracing.Tracer()
+        with tracer.start_span("root") as root:
+            queued = tracer.record_span("queue-wait", 1.5, parent=root)
+        assert queued.duration == pytest.approx(1.5, abs=0.05)
+        assert queued.parent_id == root.span_id
+        assert tracer.current_span() is None
+
+    def test_default_tracer_swap(self):
+        mine = tracing.Tracer()
+        prev = tracing.set_default_tracer(mine)
+        try:
+            with tracing.start_span("via-module"):
+                assert tracing.current_trace_id() is not None
+            assert mine.traces()
+        finally:
+            tracing.set_default_tracer(prev)
+
+
+class TestExportersAndCli:
+    def _one_trace(self):
+        tracer = tracing.Tracer()
+        with tracer.start_span("Reconcile") as root:
+            with tracer.start_span("BuildState"):
+                time.sleep(0.001)
+        return tracer.traces(), root
+
+    def test_chrome_export_and_reimport(self):
+        traces, root = self._one_trace()
+        chrome = json.loads(json.dumps(tracing.to_chrome(traces)))
+        assert all(e["ph"] == "X" for e in chrome["traceEvents"])
+        assert {e["name"] for e in chrome["traceEvents"]} == {
+            "Reconcile", "BuildState",
+        }
+        back = tracing.traces_from_payload(chrome)
+        assert back[0]["trace_id"] == root.trace_id
+
+    def test_otlp_export_and_reimport(self):
+        traces, root = self._one_trace()
+        otlp = json.loads(json.dumps(tracing.to_otlp(traces)))
+        spans = otlp["resourceSpans"][0]["scopeSpans"][0]["spans"]
+        assert all(
+            int(s["endTimeUnixNano"]) >= int(s["startTimeUnixNano"])
+            for s in spans
+        )
+        back = tracing.traces_from_payload(otlp)
+        assert {s["name"] for s in back[0]["spans"]} == {
+            "Reconcile", "BuildState",
+        }
+
+    def test_render_tree_orders_and_indents(self):
+        traces, _ = self._one_trace()
+        text = tracing.render_trace_tree(traces[0])
+        lines = text.splitlines()
+        assert "Reconcile" in lines[1]
+        assert "BuildState" in lines[2]
+        assert lines[2].index("BuildState") > lines[1].index("Reconcile")
+
+    def test_selftest_passes(self):
+        assert "ok" in tracing.selftest()
+
+
+
+class TestLogInjection:
+    def test_filter_stamps_trace_and_span_ids(self):
+        tracer = tracing.Tracer()
+        filt = tracing.TraceContextFilter(tracer)
+        record = logging.LogRecord("x", logging.INFO, __file__, 1, "m", (), None)
+        filt.filter(record)
+        assert record.trace_id == "-" and record.span_id == "-"
+        with tracer.start_span("spanful") as span:
+            record2 = logging.LogRecord(
+                "x", logging.INFO, __file__, 1, "m", (), None
+            )
+            filt.filter(record2)
+            assert record2.trace_id == span.trace_id
+            assert record2.span_id == span.span_id
+
+    def test_install_on_logger_formats_trace_id(self):
+        tracer = tracing.Tracer()
+        prev = tracing.set_default_tracer(tracer)
+        logger = logging.getLogger("test.trace.inject")
+        import io
+
+        stream = io.StringIO()
+        handler = logging.StreamHandler(stream)
+        handler.setFormatter(logging.Formatter("%(trace_id)s %(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        filt = tracing.install_trace_logging(logger)
+        try:
+            with tracing.start_span("logged") as span:
+                logger.info("hello")
+            assert stream.getvalue().startswith(span.trace_id)
+        finally:
+            logger.removeFilter(filt)
+            logger.removeHandler(handler)
+            tracing.set_default_tracer(prev)
+
+
+def _traces_of(module):
+    tracer = module.Tracer()
+    with tracer.start_span("Reconcile", attributes={"nodes": 3}) as root:
+        with tracer.start_span("BuildState"):
+            pass
+        with tracer.start_span("drain", attributes={"node": "n0"}):
+            with tracer.start_span("checkpoint-drain"):
+                pass
+    return tracer.traces(), root
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+@pytest.mark.parametrize("fmt", ["chrome", "otlp"])
+def test_a_trace_exported_by_one_package_is_read_by_the_other(direction, fmt):
+    source, sink = (jtracing, tracing) if direction == "jax-to-port" else (tracing, jtracing)
+    traces, root = _traces_of(source)
+    payload = json.loads(json.dumps(getattr(source, f"to_{fmt}")(traces)))
+    back, same = sink.traces_from_payload(payload), source.traces_from_payload(payload)
+    assert back == same
+    assert back[0]["trace_id"] == root.trace_id
+    assert sink.render_trace_tree(back[0]) == source.render_trace_tree(same[0])
+
+
+def test_the_same_traces_export_to_the_same_payloads():
+    traces, _ = _traces_of(jtracing)
+    assert tracing.to_chrome(traces) == jtracing.to_chrome(traces)
+    ours, theirs = tracing.to_otlp(traces), jtracing.to_otlp(traces)
+    for payload in (ours, theirs):  # the instrumentation scope names the module
+        for resource in payload["resourceSpans"]:
+            for scope in resource["scopeSpans"]:
+                scope["scope"]["name"] = "<module>"
+    assert ours == theirs
+    assert tracing.render_trace_tree(traces[0]) == jtracing.render_trace_tree(traces[0])

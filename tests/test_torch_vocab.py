@@ -25,9 +25,14 @@ PORT = ROOT / "k8s_operator_libs_tpu_torch"
 
 #: (JAX string, port string), applied in order to every substring.  The
 #: GKE topology label and the GKE multislice label have no GPU-fleet
-#: counterpart and are left as they are.
+#: counterpart and are left as they are.  The table is injective: the two
+#: degraded labels map to two strings.
 PORT_VOCAB = (
     ("cloud.google.com/gke-tpu-slice", "nvidia.com/gpu.clique"),
+    ("cloud.google.com/gke-tpu-degraded", "nvidia.com/gpu.degraded"),
+    ("TpuDegraded", "GpuDegraded"),
+    ("TpuLinkDown", "NVLinkDown"),
+    ("degraded TPU host", "degraded GPU host"),
     ("tpu.google.com", "nvidia.com"),
     ("tpu-runtime", "gpu-driver"),
     ("TpuUpgradePolic", "GpuUpgradePolic"),
@@ -106,6 +111,18 @@ def test_from_port_vocab_inverts_it():
         "kind": "TpuUpgradePolicy",
     }
     assert from_port_vocab(to_port_vocab(tree)) == tree
+
+
+def test_the_table_is_injective():
+    olds = [old for old, _ in PORT_VOCAB]
+    news = [new for _, new in PORT_VOCAB]
+    assert len(set(olds)) == len(olds) and len(set(news)) == len(news)
+    for old in olds:
+        assert from_port_vocab(to_port_vocab(old)) == old
+    health_labels = ("tpu.google.com/degraded", "cloud.google.com/gke-tpu-degraded")
+    assert len({to_port_vocab(k) for k in health_labels}) == 2
+    for key in health_labels + ("tpu.google.com/decision-seq", "TpuLinkDown"):
+        assert from_port_vocab(to_port_vocab(key)) == key
 
 
 def test_the_defaults_are_the_nvidia_references():
@@ -205,3 +222,50 @@ def test_the_scan_finds_a_tpu_string(tmp_path):
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_string_constant_of_the_port_names_the_tpu_fleet(path):
     assert list(_tpu_strings(path)) == []
+
+
+@pytest.fixture()
+def port_globals():
+    """The port's process-global state, fresh for each test, as
+    tests/conftest.py keeps the JAX package's: the component name, the
+    default tracer, flight recorder and decision log, and the topology
+    label keys.  Other files use it as ``pytestmark = pytest.mark.
+    usefixtures("port_globals")`` after importing it."""
+    from k8s_operator_libs_tpu_torch.obs import events, tracing
+    from k8s_operator_libs_tpu_torch.tpu import topology
+    from k8s_operator_libs_tpu_torch.upgrade import timeline
+
+    util.set_component_name("gpu-driver")
+    previous = (
+        tracing.set_default_tracer(tracing.Tracer()),
+        timeline.set_default_recorder(timeline.FlightRecorder()),
+        events.set_default_log(events.DecisionEventLog()),
+    )
+    yield
+    tracing.set_default_tracer(previous[0])
+    timeline.set_default_recorder(previous[1])
+    events.set_default_log(previous[2])
+    topology.set_label_keys()
+    util.set_component_name("gpu-driver")
+
+
+@pytest.fixture()
+def close_every_client(monkeypatch):
+    """Close each port ``KubeApiClient`` a test makes when it ends, and
+    check that its held watch threads stopped: no socket or thread
+    outlives its test.  Used like :func:`port_globals`."""
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient
+
+    made = []
+    init = KubeApiClient.__init__
+
+    def tracking(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(KubeApiClient, "__init__", tracking)
+    yield made
+    for client in made:
+        watchers = list(client._held_watchers)
+        client.close()
+        assert not [w.name for w in watchers if w.is_alive()]
