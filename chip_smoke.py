@@ -149,13 +149,35 @@ failure (the exit code is then non-zero and no result line is printed):
    echoes the token, the checkpoint restores, each flash kernel launches
    on its tensor-core kernel, and the tracer's Chrome export holds the
    trainer's ``checkpoint-drain`` span under the request's trace id;
-   10d, after 10e and 10f, no key or value of ``cluster.to_dict()`` names
-   the TPU fleet (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and
-   8 keep their drain nodes in an ``InMemoryCluster`` served by the
-   same facade class;
-11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's and
-   10f's launches beside its other paths'), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   10g, a whole upgrade wave through the port's node managers in
+   process: every node's state cleared and given a Job's pod, the driver
+   DaemonSet's ``rev2`` published, then pass after pass of the state
+   machine's processors in its order (the SLO and remediation engines,
+   done/unknown, the in-place scheduler, cordon, wait-for-jobs, pod
+   deletion, drain with the ``CheckpointDrainGate``, pod restart, failed,
+   validation, uncordon) over a snapshot the script rebuilds each pass,
+   the script playing the DaemonSet controller, until the admitted wave
+   is ``upgrade-done``.  The first admission takes 16 racks of 16 (slots
+   count racks under the slice-aware policy), every other node waiting
+   and schedulable; every wave node passes cordon, wait-for-jobs, drain,
+   pod-restart and uncordon in its flight-recorder timeline, ends done
+   and schedulable with its Job's pod evicted (one pod a drain) and its
+   driver at ``rev2``; the main path's trainer on one wave node drains
+   on the gate's request, its checkpoint restores, each flash kernel
+   launches ``n_layers`` times a step on its tensor-core kernel, and its
+   ``checkpoint-drain`` span is a child of the gate's ``drain-handshake``
+   span in the Chrome export; ``RolloutStatus`` accounts for all 1,024
+   nodes every pass; the remediation breaker stays closed.  10h, the
+   next wave over HTTP: the managers, the gate and the trainer's watcher
+   on a ``KubeApiClient`` to the facade, with the same gates and the HTTP
+   requests, batch POSTs and writes per batch logged beside 10g's.  10d,
+   after 10e-10h, no key or value of ``cluster.to_dict()`` names the TPU
+   fleet (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and 8 keep
+   their drain nodes in an ``InMemoryCluster`` served by the same facade
+   class;
+11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's,
+   10f's, 10g's and 10h's launches beside its other paths'), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
 
@@ -2087,10 +2109,383 @@ def http_fan_out(facade) -> dict:
     }
 
 
+#: 10g-10h: the job pod each node runs (a drain evicts it) and the wave's
+#: targets: an slos block and a remediation block beside the fleet's policy
+FLEET_JOB_NAMESPACE = "ml"
+WAVE_SLOS = {"maxNodePhaseSeconds": 600, "drainP99Seconds": 300, "fleetCompletionDeadlineSeconds": 3600}
+WAVE_REMEDIATION = {"failureThreshold": 0.5, "minAttempted": 4, "autoRollback": False}
+#: passes a wave may take before the phase fails (it needs about 8)
+WAVE_MAX_PASSES = 40
+
+
+def wave_policy(cluster):
+    """The fleet's GpuUpgradePolicy (10a) with the wave's SLO and
+    remediation blocks: slice-aware, 16 parallel upgrades, 25 % of the
+    racks unavailable, drain with the pre-drain checkpoint."""
+    from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec
+
+    spec = dict(cluster.get("GpuUpgradePolicy", "fleet", FLEET_NAMESPACE)["spec"])
+    policy = UpgradePolicySpec.from_dict({**spec, "slos": WAVE_SLOS, "remediation": WAVE_REMEDIATION})
+    policy.validate()
+    return policy
+
+
+def prepare_upgrade(cluster) -> dict:
+    """Before 10g: clear what 10b and 10e wrote (every node's state label
+    and admission stamp), give each node a workload pod owned by a Job,
+    and publish the driver DaemonSet's ``rev2``, so that every driver pod
+    is out of sync."""
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_controller_revision, make_pod
+    from k8s_operator_libs_tpu_torch.upgrade import util
+
+    t0 = time.perf_counter()
+    for i in range(FLEET_NODES):
+        cluster.patch("Node", _fleet_node(i), {"metadata": {
+            "labels": {util.get_upgrade_state_label_key(): None},
+            "annotations": {util.get_admitted_at_annotation_key(): None}}})
+        job = {"kind": "Job", "metadata": {"name": f"train-{i:04d}", "namespace": FLEET_JOB_NAMESPACE}}
+        cluster.create(make_pod(f"train-{i:04d}", FLEET_JOB_NAMESPACE, _fleet_node(i),
+                                labels={"job-name": f"train-{i:04d}"}, owner=job))
+    ds = cluster.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE)
+    cluster.create(make_controller_revision(ds, 2, "rev2"))
+    return {"prepare_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def build_state(client):
+    """The snapshot the state machine's BuildState takes: a node state a
+    driver pod (its node, pod and DaemonSet), bucketed by the node's
+    state label."""
+    from k8s_operator_libs_tpu_torch.cluster.selectors import labels_to_selector
+    from k8s_operator_libs_tpu_torch.upgrade import util
+    from k8s_operator_libs_tpu_torch.upgrade.common_manager import ClusterUpgradeState, NodeUpgradeState
+
+    selector = labels_to_selector({"app": "gpu-driver"})
+    daemon_sets = {d["metadata"]["uid"]: d for d in client.list(
+        "DaemonSet", namespace=FLEET_NAMESPACE, label_selector=selector)}
+    nodes = {n["metadata"]["name"]: n for n in client.list("Node")}
+    key = util.get_upgrade_state_label_key()
+    state = ClusterUpgradeState()
+    for pod in client.list("Pod", namespace=FLEET_NAMESPACE, label_selector=selector):
+        node = nodes[pod["spec"]["nodeName"]]
+        owner = daemon_sets.get(pod["metadata"]["ownerReferences"][0]["uid"])
+        state.node_states.setdefault(node["metadata"]["labels"].get(key, ""), []).append(
+            NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=owner))
+    return state
+
+
+class WaveManagers:
+    """The port's managers on *client*, assembled as the state machine
+    assembles them (one worker pool for drains and pod restarts, the
+    pre-drain ``CheckpointDrainGate`` on the drain manager), with the SLO
+    and remediation engines."""
+
+    def __init__(self, client, policy, flight):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+        from k8s_operator_libs_tpu_torch.obs.slo import SloEngine
+        from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate
+        from k8s_operator_libs_tpu_torch.upgrade import util
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import CommonUpgradeManager
+        from k8s_operator_libs_tpu_torch.upgrade.cordon_manager import CordonManager
+        from k8s_operator_libs_tpu_torch.upgrade.drain_manager import DrainManager, default_worker_pool_size
+        from k8s_operator_libs_tpu_torch.upgrade.node_upgrade_state_provider import NodeUpgradeStateProvider
+        from k8s_operator_libs_tpu_torch.upgrade.pod_manager import PodManager
+        from k8s_operator_libs_tpu_torch.upgrade.remediation import RemediationManager
+        from k8s_operator_libs_tpu_torch.upgrade.safe_driver_load_manager import SafeDriverLoadManager
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_inplace import InplaceNodeStateManager
+        from k8s_operator_libs_tpu_torch.upgrade.validation_manager import ValidationManager
+
+        recorder = util.EventRecorder()
+        self.provider = NodeUpgradeStateProvider(
+            client, InformerCache(client, lag_seconds=0.0), recorder, cache_sync_timeout_seconds=30.0,
+            cache_sync_poll_seconds=0.01, flight_recorder=flight, async_visibility=True)
+        cordon = CordonManager(client, recorder, provider=self.provider)
+        self.pool = ThreadPoolExecutor(max_workers=default_worker_pool_size(), thread_name_prefix="upgrade-worker")
+        self.gate = CheckpointDrainGate(client, policy.pre_drain_checkpoint)
+        self.drain = DrainManager(client, self.provider, recorder, pre_drain_gate=self.gate,
+                                  cordon_manager=cordon, pool=self.pool)
+        self.pods = PodManager(client, self.provider, recorder, pool=self.pool)
+        self.common = CommonUpgradeManager(
+            client, self.provider, cordon, self.drain, self.pods,
+            ValidationManager(client, self.provider, recorder), SafeDriverLoadManager(self.provider), recorder)
+        self.inplace = InplaceNodeStateManager(self.common)
+        self.slo = SloEngine(flight)
+        self.remediation = RemediationManager(client, self.provider, recorder)
+
+    def apply(self, state, policy) -> dict:
+        """One pass of the state machine's processors, in its order
+        (``upgrade_state.py``'s ApplyState): the SLO and remediation
+        engines, done/unknown, upgrade-required (the in-place scheduler),
+        cordon, wait-for-jobs, pod deletion, drain, pod restart, failed,
+        validation, uncordon; the writes ride the provider's pipeline, and
+        their visibility is awaited once at the end."""
+        from k8s_operator_libs_tpu_torch.obs import tracing
+        from k8s_operator_libs_tpu_torch.upgrade import consts
+
+        common = self.common
+        with tracing.start_span("ApplyState", attributes={"nodes": len(state.all_node_states())}):
+            slo_report = self.slo.evaluate(state, policy)
+            decision = self.remediation.evaluate(state, policy, common)
+            with self.provider.deferred_visibility(), self.provider.pipelined_writes(16):
+                common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_UNKNOWN)
+                common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_DONE)
+                self.remediation.process_recovered_nodes(state, policy, common)
+                self.inplace.process_upgrade_required_nodes(state, policy, decision, None)
+                common.process_cordon_required_nodes(state)
+                common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion)
+                common.process_pod_deletion_required_nodes(state, policy.pod_deletion, True)
+                common.process_drain_nodes(state, policy.drain_spec)
+                common.process_pod_restart_nodes(state)
+                common.process_upgrade_failed_nodes(state)
+                self.remediation.process_failed_nodes(state, policy, common)
+                common.process_validation_required_nodes(state)
+                self.inplace.process_uncordon_required_nodes(state)
+        return slo_report
+
+    def wait_idle(self, what: str) -> None:
+        if not (self.drain.wait_idle(120.0) and self.pods.wait_idle(120.0)):
+            raise RuntimeError(f"{what}: drains or pod restarts still in flight after 120 s")
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+        self.provider.close()
+
+
+def play_daemonset(store) -> int:
+    """The DaemonSet controller: recreate each deleted driver pod at the
+    newest revision, Ready.  Returns how many it created."""
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_pod
+
+    ds = store.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE)
+    have = {p["spec"]["nodeName"] for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+    made = 0
+    for i in range(FLEET_NODES):
+        if _fleet_node(i) not in have:
+            store.create(make_pod(f"gpu-driver-{i:04d}", FLEET_NAMESPACE, _fleet_node(i),
+                                  labels={"app": "gpu-driver"}, owner=ds, revision_hash="rev2"))
+            made += 1
+    return made
+
+
+class _RackWorkloads:
+    """The workloads of the wave's other nodes: each answers its node's
+    checkpoint request at once (its job is not on the card).  Polls the
+    store every 5 ms in a thread until closed."""
+
+    def __init__(self, store):
+        import threading
+
+        self._store = store
+        self._watchers = []
+        self.acks = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="rack-workloads", daemon=True)
+        self._thread.start()
+
+    def watch(self, nodes) -> None:
+        from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+
+        self._watchers = [DrainSignalWatcher(self._store, name) for name in nodes]
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            for watcher in self._watchers:
+                if watcher.checkpoint_requested():
+                    watcher.acknowledge()
+                    self.acks += 1
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+        if self._thread.is_alive():
+            raise RuntimeError("the rack workloads' thread did not stop")
+
+
+def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
+    """10g (and 10h over HTTP, *facade* serving *store* to *client*): the
+    port's managers on *client* take the next wave of the fleet (*store*
+    is the cluster behind it) through a whole upgrade, pass by pass, with
+    the smoke-config trainer on the card on one node of the wave; see the
+    module docstring for the gates.  Returns the host-clock figures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_operator_libs_tpu_torch import metrics
+    from k8s_operator_libs_tpu_torch.obs import events, tracing
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+    from k8s_operator_libs_tpu_torch.upgrade import consts, timeline, util
+    from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
+    from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+
+    class TokenWatcher(DrainSignalWatcher):
+        """The trainer's watcher, keeping the request it answered."""
+
+        answered = None
+
+        def acknowledge(self):
+            self.answered = self._read()
+            super().acknowledge()
+
+    policy = wave_policy(store)
+    state_key = util.get_upgrade_state_label_key()
+    registry, tracer, log_, flight = (metrics.MetricsRegistry(), tracing.Tracer(capacity=4096),
+                                      events.DecisionEventLog(capacity=8192), timeline.FlightRecorder())
+    previous = (metrics.set_default_registry(registry), tracing.set_default_tracer(tracer),
+                events.set_default_log(log_))
+    served0 = None if facade is None else facade.requests_served
+    managers = WaveManagers(client, policy, flight)
+    workloads = _RackWorkloads(store)
+    passes, wave, trainer, run, host = [], [], None, None, None
+    t_admit = t_done = None
+    try:
+        with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{what}-") as ckpt, ThreadPoolExecutor(1) as pool:
+            for n in range(WAVE_MAX_PASSES):
+                t0 = time.perf_counter()
+                state = build_state(client)
+                status = RolloutStatus.from_cluster_state(state, policy)
+                if (status.total_nodes != FLEET_NODES
+                        or status.done + status.in_progress + status.pending + status.unknown != FLEET_NODES):
+                    raise RuntimeError(f"{what}: pass {n}'s status does not account for the fleet: "
+                                       f"{status.by_state}")
+                pending_before = {ns.node["metadata"]["name"] for ns in state.nodes_in(
+                    consts.UPGRADE_STATE_UPGRADE_REQUIRED)}
+                slo_report = managers.apply(state, policy)
+                managers.wait_idle(what)
+                if not wave:
+                    admitted = sorted(n_ for n_ in pending_before if store.get("Node", n_)["metadata"]["labels"].get(
+                        state_key) == consts.UPGRADE_STATE_CORDON_REQUIRED)
+                    if admitted:
+                        t_admit, wave = t0, admitted
+                        host = wave[len(wave) // 2]
+                        workloads.watch([n_ for n_ in wave if n_ != host])
+                        fa.reset_launch_counts()
+                        trainer = wl.CheckpointingTrainer(config, ckpt, watcher=TokenWatcher(client, host),
+                                                          device="cuda")
+                        trainer.run(2)
+                        run = pool.submit(trainer.run, 3000)  # a thread: it drains on its node's request
+                made = play_daemonset(store)
+                passes.append({"ms": (time.perf_counter() - t0) * 1e3, "driver_pods_recreated": made})
+                if wave and all(store.get("Node", n_)["metadata"]["labels"].get(state_key)
+                                == consts.UPGRADE_STATE_DONE for n_ in wave):
+                    t_done = time.perf_counter()
+                    break
+            else:
+                raise RuntimeError(f"{what}: the wave is not done after {WAVE_MAX_PASSES} passes")
+            step = run.result(timeout=300)
+            if not trainer.drained:
+                raise RuntimeError(f"{what}: the trainer on {host} ran {step} steps and was never drained")
+            if wl.restore_checkpoint(ckpt, step)["step"] != step:
+                raise RuntimeError(f"{what}: the checkpoint does not restore at step {step}")
+            answered = trainer.watcher.answered or ""
+        final = build_state(client)
+        status = RolloutStatus.from_cluster_state(final, policy)
+        if (status.total_nodes != FLEET_NODES or status.in_progress
+                or status.done + status.pending + status.unknown != FLEET_NODES):
+            raise RuntimeError(f"{what}: the status after the wave does not account for the fleet: "
+                               f"{status.by_state}")
+        final_slo = managers.slo.evaluate(final, policy)
+        remediation = remediation_report(final, policy)
+        batches, writes = metrics.write_batch_size_histogram().count(), metrics.write_batch_size_histogram().sum()
+        requests = None if facade is None else facade.requests_served - served0
+    finally:
+        workloads.close()
+        managers.close()
+        metrics.set_default_registry(previous[0])
+        tracing.set_default_tracer(previous[1])
+        events.set_default_log(previous[2])
+    launches = dict(fa.launch_counts)
+    _check_flash_launches(what, {k: n for k, n in fa.device_launch_counts.items() if n},
+                          dict.fromkeys(launches, config.n_layers * step))
+    if not all(math.isfinite(x) for x in trainer.losses):
+        raise RuntimeError(f"{what}: losses {trainer.losses}")
+    # the wave: one admission of 16 racks (slots count racks under a
+    # slice-aware policy; tests/test_torch_rollout_parity.py pins it)
+    racks = {store.get("Node", n_)["metadata"]["labels"][consts.SLICE_ID_LABEL_KEYS[0]] for n_ in wave}
+    if len(wave) != FLEET_RACK * FLEET_RACK or len(racks) != FLEET_RACK:
+        raise RuntimeError(f"{what}: the first admission took {len(wave)} nodes in {len(racks)} racks, "
+                           f"want {FLEET_RACK} racks of {FLEET_RACK}")
+    decisions = log_.events()
+    admitted_events = sum(e["count"] for e in decisions if e["type"] == "NodeAdmitted")
+    deferred = {e["target"] for e in decisions if e["type"] == "NodeDeferred"}
+    if admitted_events != len(wave) or deferred & set(wave):
+        raise RuntimeError(f"{what}: {admitted_events} NodeAdmitted decisions for a wave of {len(wave)}; "
+                           f"deferred wave nodes {sorted(deferred & set(wave))[:5]}")
+    # every wave node done, schedulable, its Job pod evicted, its driver at
+    # rev2; every other node schedulable and either waiting untouched or
+    # done by an earlier wave
+    nodes = {n_["metadata"]["name"]: n_ for n_ in store.list("Node")}
+    drivers = {p["spec"]["nodeName"]: p for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+    jobs = {p["spec"]["nodeName"] for p in store.list("Pod", namespace=FLEET_JOB_NAMESPACE)}
+    in_wave = set(wave)
+    upgraded = (consts.UPGRADE_STATE_DONE, "rev2", False)
+    for name, node in nodes.items():
+        label = node["metadata"]["labels"].get(state_key)
+        rev = drivers[name]["metadata"]["labels"].get("controller-revision-hash")
+        ends = (label, rev, name in jobs)
+        ok = ends == upgraded if name in in_wave else ends in (
+            upgraded, (consts.UPGRADE_STATE_UPGRADE_REQUIRED, "rev1", True))
+        if not ok or node["spec"].get("unschedulable"):
+            raise RuntimeError(f"{what}: {name} ({'wave' if name in in_wave else 'outside the wave'}) ends "
+                               f"{label!r}, schedulable {not node['spec'].get('unschedulable')}, driver {rev}, "
+                               f"job pod {'present' if name in jobs else 'gone'}")
+    # each node: cordon, wait-for-jobs, drain, pod-restart, uncordon, done
+    lifecycle = [consts.UPGRADE_STATE_UPGRADE_REQUIRED, consts.UPGRADE_STATE_CORDON_REQUIRED,
+                 consts.UPGRADE_STATE_WAIT_FOR_JOBS_REQUIRED, consts.UPGRADE_STATE_DRAIN_REQUIRED,
+                 consts.UPGRADE_STATE_POD_RESTART_REQUIRED, consts.UPGRADE_STATE_UNCORDON_REQUIRED]
+    timelines = {tl["node"]: tl for tl in flight.timelines()}
+    broken = [n_ for n_ in wave if [p for p, _, _ in timelines[n_]["intervals"]][-len(lifecycle):] != lifecycle
+              or timelines[n_]["current"] != consts.UPGRADE_STATE_DONE]
+    if broken:
+        raise RuntimeError(f"{what}: {len(broken)} wave nodes lack a complete timeline, e.g. "
+                           f"{timelines.get(broken[0])}")
+    # the drain: one pod evicted a node (its Job's; never the driver), and
+    # the trainer's checkpoint-drain span under the gate's drain-handshake
+    spans = [s for t in tracer.traces(complete_only=False) for s in t["spans"]]
+    drains = {s["attributes"]["node"]: s for s in spans if s["name"] == "drain"}
+    evicted = {drains[n_]["attributes"].get("pods_evicted") for n_ in wave if n_ in drains}
+    if len(drains) != len(wave) or evicted != {1}:
+        raise RuntimeError(f"{what}: {len(drains)} drain spans for {len(wave)} nodes, pods evicted {evicted}")
+    [gate] = [s for s in spans if s["name"] == "drain-handshake" and s["attributes"]["node"] == host]
+    chrome = json.loads(json.dumps(tracing.to_chrome(tracer.traces(complete_only=False))))
+    cds = [e for e in chrome["traceEvents"] if e["name"] == "checkpoint-drain"
+           and e["args"]["trace_id"] == gate["trace_id"] and e["args"]["parent_id"] == gate["span_id"]]
+    gate_events = [e for e in chrome["traceEvents"] if e["name"] == "drain-handshake"
+                   and e["args"]["span_id"] == gate["span_id"]]
+    if (gate["attributes"].get("result") != "acknowledged" or len(cds) != 1 or cds[0]["args"]["status"] != "ok"
+            or not answered.startswith(f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:") or len(gate_events) != 1):
+        raise RuntimeError(f"{what}: the gate on {host} ended {gate['attributes']}, answered {answered!r}, "
+                           f"{len(cds)} checkpoint-drain spans under it in the Chrome export")
+    if workloads.acks != len(wave) - 1:
+        raise RuntimeError(f"{what}: the rack workloads answered {workloads.acks} requests, want {len(wave) - 1}")
+    if remediation["blocking"] or (remediation["breaker"] or {}).get("state") == "open" or remediation["nodes"]:
+        raise RuntimeError(f"{what}: remediation {remediation}")
+    gate_ev, cd = gate_events[0], cds[0]
+    rec = {
+        "nodes": len(wave), "racks": len(racks), "rack_ids": sorted(racks), "passes": len(passes),
+        "wave_ms": (t_done - t_admit) * 1e3, "pass_ms": [round(p["ms"], 1) for p in passes],
+        "driver_pods_recreated": sum(p["driver_pods_recreated"] for p in passes),
+        "admitted": admitted_events, "deferred_nodes": len(deferred),
+        "phase_seconds": {p: {"p50": s["p50"], "p95": s["p95"], "count": s["count"]}
+                          for p, s in final_slo["phases"].items()},
+        "host": host, "drained_at_step": step, "flash_launches": launches,
+        "drain_handshake_ms": gate_ev["dur"] / 1e3, "checkpoint_drain_ms": cd["dur"] / 1e3,
+        "request_to_ack_ms": (cd["ts"] + cd["dur"] - gate_ev["ts"]) / 1e3,
+        "provider_writes": writes, "provider_batches": batches,
+        "writes_per_batch": writes / batches if batches else None,
+        "remediation": {"breaker": remediation["breaker"], "blocking": remediation["blocking"]},
+    }
+    if requests is not None:
+        rec["http_requests"] = requests
+    return rec
+
+
 def fleet_phase(config, card: str) -> dict:
     """Phase 10: the drain through the full in-memory cluster, at the size
-    of a large fleet, then through its HTTP facade (10a-10f; see the
-    module docstring)."""
+    of a large fleet, then through its HTTP facade, then two upgrade waves
+    through the node managers, in process and over HTTP (10a-10h; see
+    the module docstring)."""
     from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
     from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
     from k8s_operator_libs_tpu_torch.obs import tracing
@@ -2111,14 +2506,26 @@ def fleet_phase(config, card: str) -> dict:
             http_drain = fleet_drain(client, config, _fleet_node(FLEET_NODES // 4 + 3), "10f",
                                      tracer=tracing.Tracer())
         log("phase 10f fleet drain over HTTP:", json.dumps(http_drain), "|", card)
+        prepared = prepare_upgrade(cluster)
+        t0 = time.perf_counter()
+        wave = upgrade_wave(cluster, cluster, config, "10g")
+        log("phase 10g rack wave (host clock):", json.dumps({**prepared, **wave,
+            "phase_s": time.perf_counter() - t0}), "|", card)
+        t0 = time.perf_counter()
+        with KubeApiClient(KubeConfig(server=facade.url), timeout=30.0) as client:
+            http_wave = upgrade_wave(client, cluster, config, "10h", facade=facade)
+        log("phase 10h rack wave over HTTP (host clock; 10g's in-process figures beside):", json.dumps({
+            "http": {**http_wave, "phase_s": time.perf_counter() - t0}, "in_process": wave}), "|", card)
+    if set(wave["rack_ids"]) & set(http_wave["rack_ids"]):
+        raise RuntimeError(f"10h: the second wave took racks of the first: {http_wave['rack_ids']}")
     dump = json.dumps(cluster.to_dict())
     found = [m for m in TPU_MARKERS if m in dump]
     if found:
         raise RuntimeError(f"10d: the cluster holds {found}")
     log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}"
-        " (after 10e and 10f)")
+        " (after 10e-10h)")
     return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain, "http_fan_out": http_fan,
-            "http_drain": http_drain}
+            "http_drain": http_drain, "wave": wave, "http_wave": http_wave}
 
 
 def compiled_report():
@@ -2521,6 +2928,10 @@ def main(argv=None) -> int:
                     fleet["drain"]["flash_launches"][name],
                 f"10f fleet drain over HTTP ({fleet['http_drain']['drained_at_step']} steps)":
                     fleet["http_drain"]["flash_launches"][name],
+                f"10g rack wave ({fleet['wave']['drained_at_step']} steps)":
+                    fleet["wave"]["flash_launches"][name],
+                f"10h rack wave over HTTP ({fleet['http_wave']['drained_at_step']} steps)":
+                    fleet["http_wave"]["flash_launches"][name],
             },
         })
     step = int8_timing["per_decode_step"]

@@ -1,7 +1,8 @@
 """k8s_operator_libs_tpu_torch — the PyTorch/CUDA port of
 :mod:`k8s_operator_libs_tpu`, for NVIDIA H100 fleets: the workload side
 and, so far, the control plane's vocabulary, its in-memory cluster and
-HTTP client, and the observability leaves.
+HTTP client, the observability leaves, the node managers, the in-place
+scheduler and the rollout analysis.
 
 Module names follow the JAX package, so each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never jax, and
@@ -21,14 +22,16 @@ component ``gpu-driver``); their semantics are the JAX package's.
                            collectives of a torch.distributed job
   tpu/multihost_trainer.py MultihostDrainLoop: the drain of a
                            multi-process job
-  tpu/drain_handshake.py   the workload side of the pre-drain handshake,
-                           under a checkpoint-drain span
+  tpu/drain_handshake.py   the pre-drain handshake: the orchestrator's
+                           CheckpointDrainGate and the workload's
+                           DrainSignalWatcher (a checkpoint-drain span)
   tpu/smoke.py             train, time, drain, restore and resume; the
                            staged benches (STAGES, run_stage)
   obs/tracing.py           spans, the W3C traceparent carrier, and the
                            Chrome and OTLP exporters
   obs/events.py            the reason-coded decision log and its sinks
   obs/history.py           bounded in-process metric history
+  obs/slo.py               flight-recorder analytics and the SLO engine
   consts.py                log levels
   metrics.py               counters, gauges, histograms and their
                            Prometheus exposition
@@ -39,6 +42,17 @@ component ``gpu-driver``); their semantics are the JAX package's.
   upgrade/history.py       per-node rollout history from cluster Events
   upgrade/timeline.py      per-node transition timelines (FlightRecorder)
   upgrade/schedule.py      maintenance windows and admission pacing
+  upgrade/node_upgrade_state_provider.py  state-label writes (with the
+                           flight-recorder annotation), write pipeline
+  upgrade/cordon_manager.py, drain_manager.py, pod_manager.py,
+  validation_manager.py, safe_driver_load_manager.py  the node managers
+  upgrade/common_manager.py  NodeUpgradeState, ClusterUpgradeState and
+                           CommonUpgradeManager's processors
+  upgrade/upgrade_inplace.py  the in-place scheduler (canary census,
+                           InplaceNodeStateManager)
+  upgrade/analysis.py      analysis gates and adaptive pacing
+  upgrade/remediation.py   breaker, retry budget, last-known-good rollback
+  upgrade/rollout_status.py  bucket census, RolloutStatus and its gates
   tpu/topology.py          NVLink domains: the unit of unavailability
   tpu/health.py            degraded-GPU detection and domain quarantine
   cluster/errors.py        the apiserver error taxonomy

@@ -1,11 +1,12 @@
 """Observability surfaces that sit next to the control plane:
 :mod:`.tracing` (in-process spans, W3C traceparent propagation, Chrome
-and OTLP exporters), :mod:`.events` (the reason-coded decision log) and
-:mod:`.history` (bounded metric history).  Metrics live in
+and OTLP exporters), :mod:`.events` (the reason-coded decision log),
+:mod:`.history` (bounded metric history) and :mod:`.slo` (the rollout's
+flight-recorder analytics and SLO engine).  Metrics live in
 :mod:`..metrics`.
 """
 
-from . import events, history
+from . import events, history, slo
 from .tracing import (
     Span,
     TraceContextFilter,
@@ -29,6 +30,7 @@ from .tracing import (
 __all__ = [
     "events",
     "history",
+    "slo",
     "Span",
     "TraceContextFilter",
     "Tracer",

@@ -1,7 +1,7 @@
-"""Checkpoint-on-drain handshake — the workload side.
+"""Checkpoint-on-drain handshake: both sides.
 
-The port of :class:`DrainSignalWatcher` from
-``k8s_operator_libs_tpu/tpu/drain_handshake.py``.  The orchestrator sets
+The port of :class:`CheckpointDrainGate` and :class:`DrainSignalWatcher`
+from ``k8s_operator_libs_tpu/tpu/drain_handshake.py``.  The orchestrator sets
 the node annotation ``nvidia.com/<component>-pre-drain-checkpoint`` to
 ``requested:<token>`` before it drains; the trainer, polling between
 steps, saves a checkpoint and answers ``done:<token>``, echoing the token
@@ -15,27 +15,125 @@ orchestrator writes beside the request
 ``drain-handshake`` span: the cross-process leg of the reconcile trace.
 A missing or malformed traceparent starts a new root.
 
-The watcher takes any client with ``get("Node", name)`` and
+The orchestrator side, :class:`CheckpointDrainGate`, lives beside the
+watcher: the drain manager (:mod:`..upgrade.drain_manager`) runs it after
+cordon and before eviction.  It writes the request with a per-cycle token
+and the traceparent of its own ``drain-handshake`` span, polls for
+``done:<token>``, fails open into eviction on timeout (the checkpoint is
+an optimisation, not a correctness gate, as kubectl drain's own timeout
+fails open), and clears both annotations.
+
+Both sides take any client with ``get("Node", name)`` and
 ``patch("Node", name, merge_patch)``: the port's
-:class:`~..cluster.inmem.InMemoryCluster`, or an orchestrator's own
-cluster client.  The orchestrator side, ``CheckpointDrainGate``, comes
-with the port of the JAX package's control plane.
+:class:`~..cluster.inmem.InMemoryCluster` or
+:class:`~..cluster.kubeclient.KubeApiClient`, or an orchestrator's own
+cluster client.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+import uuid
 from typing import Callable, Optional
 
+from ..api.upgrade_spec import PreDrainCheckpointSpec
 from ..obs import tracing
 from ..upgrade import consts, util
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_POLL_SECONDS = 0.05
 
 
 def _is_not_found(err: Exception) -> bool:
     """True for a client's missing-object error.  Clients name it
     ``NotFoundError`` (the port's cluster and any orchestrator's
-    cluster clients alike); matching the name keeps the port free of
-    the orchestrator's imports."""
+    cluster clients alike); matching the name lets either side take
+    another package's client."""
     return any(cls.__name__ == "NotFoundError" for cls in type(err).__mro__)
+
+
+class CheckpointDrainGate:
+    """Orchestrator side — plugs into :class:`~..upgrade.drain_manager.
+    DrainManager` as its ``pre_drain_gate`` (runs after cordon, before
+    eviction)."""
+
+    def __init__(
+        self,
+        cluster,
+        spec: Optional[PreDrainCheckpointSpec] = None,
+        poll_seconds: float = DEFAULT_POLL_SECONDS,
+    ) -> None:
+        self._cluster = cluster
+        self.spec = spec or PreDrainCheckpointSpec()
+        self._poll = poll_seconds
+
+    def wait_for_checkpoint(self, node) -> None:
+        if not self.spec.enable:
+            return
+        name = (node.get("metadata") or {}).get("name", "")
+        key = util.get_pre_drain_checkpoint_annotation_key()
+        tp_key = util.get_pre_drain_traceparent_annotation_key()
+        # Per-cycle token: the ack must echo it, so a laggard "done" from a
+        # previous timed-out cycle can never satisfy this cycle's gate.
+        token = uuid.uuid4().hex[:12]
+        requested = f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:{token}"
+        expected_ack = f"{consts.PRE_DRAIN_CHECKPOINT_DONE}:{token}"
+        with tracing.start_span(
+            "drain-handshake", attributes={"node": name}
+        ) as span:
+            # The handshake payload carries the span's W3C traceparent so
+            # the workload side (another process, another tracer) parents
+            # its checkpoint-drain span under THIS wait.
+            self._cluster.patch(
+                "Node",
+                name,
+                {
+                    "metadata": {
+                        "annotations": {
+                            key: requested,
+                            tp_key: span.traceparent,
+                        }
+                    }
+                },
+            )
+            deadline = (
+                time.monotonic() + self.spec.timeout_second
+                if self.spec.timeout_second > 0
+                else None
+            )
+            while True:
+                try:
+                    current = self._cluster.get("Node", name)
+                except Exception as err:
+                    if not _is_not_found(err):
+                        raise
+                    span.set_attribute("result", "node-gone")
+                    return
+                annotations = (current.get("metadata") or {}).get("annotations") or {}
+                if annotations.get(key, "") == expected_ack:
+                    logger.info(
+                        "node %s checkpoint acknowledged before drain", name
+                    )
+                    span.set_attribute("result", "acknowledged")
+                    break
+                if deadline is not None and time.monotonic() >= deadline:
+                    logger.warning(
+                        "node %s checkpoint wait timed out after %ss; "
+                        "draining anyway",
+                        name,
+                        self.spec.timeout_second,
+                    )
+                    span.set_attribute("result", "timeout")
+                    break
+                time.sleep(self._poll)
+            # Clear the handshake so the next upgrade cycle starts fresh.
+            self._cluster.patch(
+                "Node",
+                name,
+                {"metadata": {"annotations": {key: None, tp_key: None}}},
+            )
 
 
 class DrainSignalWatcher:

@@ -7,9 +7,11 @@ The port of test_trainer_checkpoints_and_stops_on_drain
 InMemoryCluster and once against the JAX package's, which the test
 passes in: the orchestrator side and the port's workload side meet on the
 same annotation.  The port's keys are the GPU fleet's (``nvidia.com``,
-component ``gpu-driver``); where the JAX package's orchestrator gate
-drives the port's watcher, a test-only client renames the annotation keys
-between the two vocabularies.
+component ``gpu-driver``).  Each orchestrator gate is answered by each
+package's watcher but the JAX pair's: the port's gate by the port's
+watcher, the JAX gate by the port's, and the port's gate by the JAX
+package's; where the two sides speak different vocabularies, a test-only
+client renames the annotation keys between them.
 """
 
 import threading
@@ -26,8 +28,10 @@ from k8s_operator_libs_tpu.obs import tracing as jtracing
 from k8s_operator_libs_tpu.tpu import smoke as jsmoke
 from k8s_operator_libs_tpu.tpu import workload as jwl
 from k8s_operator_libs_tpu.tpu.drain_handshake import CheckpointDrainGate
+from k8s_operator_libs_tpu.tpu.drain_handshake import DrainSignalWatcher as JaxDrainSignalWatcher
 from k8s_operator_libs_tpu.upgrade import consts as jconsts
 from k8s_operator_libs_tpu.upgrade import util as jutil
+from k8s_operator_libs_tpu_torch.api import PreDrainCheckpointSpec as PortPreDrainCheckpointSpec
 from k8s_operator_libs_tpu_torch.cluster import (
     AlreadyExistsError,
     InMemoryCluster,
@@ -38,6 +42,7 @@ from k8s_operator_libs_tpu_torch.cluster.objects import make_node
 from k8s_operator_libs_tpu_torch.obs import tracing
 from k8s_operator_libs_tpu_torch.tpu import smoke
 from k8s_operator_libs_tpu_torch.tpu import workload as wl
+from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate as PortCheckpointDrainGate
 from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
 
@@ -119,23 +124,14 @@ def _spans(tracer, name):
     return [s for t in tracer.traces(complete_only=False) for s in t["spans"] if s["name"] == name]
 
 
-def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
-    """The JAX package's CheckpointDrainGate (orchestrator side) requests
-    a checkpoint with a fresh token and blocks; the port's trainer, in
-    another thread, saves and acknowledges with that token.  Its
-    checkpoint-drain span joins the gate's trace as a child of the
-    gate's drain-handshake span, through the traceparent annotation.
-    The gate writes the JAX package's keys; the watcher reads the port's
-    through :class:`_VocabBridge`."""
-    jax_tracer, port_tracer = tracers
-    cluster = _jax_cluster()
-    gate = CheckpointDrainGate(
-        cluster, PreDrainCheckpointSpec(enable=True, timeout_second=20), poll_seconds=0.01
-    )
-    trainer = wl.CheckpointingTrainer(
-        CFG, str(tmp_path), watcher=DrainSignalWatcher(_VocabBridge(cluster), "gpu-host"),
-        batch_size=2, device="cpu",
-    )
+def _drain_through_gate(gate, gate_tracer, cluster, watcher, watcher_tracer, keys, tmp_path):
+    """*gate* requests a checkpoint with a fresh token and blocks; the
+    port's trainer, in another thread, polls *watcher*, saves and
+    acknowledges with that token.  Its checkpoint-drain span (in
+    *watcher_tracer*) joins the gate's trace (in *gate_tracer*) as a child
+    of the gate's drain-handshake span, through the traceparent
+    annotation, and the gate clears both *keys* on *cluster*."""
+    trainer = wl.CheckpointingTrainer(CFG, str(tmp_path), watcher=watcher, batch_size=2, device="cpu")
     worker = threading.Thread(target=trainer.run, args=(2000,))
     worker.start()
     gate.wait_for_checkpoint(cluster.get("Node", "gpu-host"))  # blocks until the ack
@@ -145,16 +141,83 @@ def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
     assert wl.restore_checkpoint(str(tmp_path), trainer.step)["step"] == trainer.step
     # the gate cleared the handshake after the acknowledgement
     annotations = cluster.get("Node", "gpu-host")["metadata"].get("annotations") or {}
-    assert jutil.get_pre_drain_checkpoint_annotation_key() not in annotations
-    assert jutil.get_pre_drain_traceparent_annotation_key() not in annotations
+    assert not set(keys) & set(annotations)
     # the cross-process leg of the trace
-    [gate_span] = _spans(jax_tracer, "drain-handshake")
-    [drain_span] = _spans(port_tracer, "checkpoint-drain")
+    [gate_span] = _spans(gate_tracer, "drain-handshake")
+    [drain_span] = _spans(watcher_tracer, "checkpoint-drain")
     assert gate_span["attributes"]["result"] == "acknowledged"
     assert drain_span["trace_id"] == gate_span["trace_id"]
     assert drain_span["parent_id"] == gate_span["span_id"]
     assert drain_span["status"] == "ok"
     assert drain_span["attributes"] == {"node": "gpu-host"}
+
+
+def test_port_watcher_answers_the_jax_orchestrator_gate(tmp_path, tracers):
+    """The JAX package's CheckpointDrainGate (orchestrator side) requests
+    a checkpoint and the port's trainer answers it (:func:`_drain_through_gate`).
+    The gate writes the JAX package's keys; the watcher reads the port's
+    through :class:`_VocabBridge`."""
+    jax_tracer, port_tracer = tracers
+    cluster = _jax_cluster()
+    gate = CheckpointDrainGate(
+        cluster, PreDrainCheckpointSpec(enable=True, timeout_second=20), poll_seconds=0.01
+    )
+    keys = (jutil.get_pre_drain_checkpoint_annotation_key(), jutil.get_pre_drain_traceparent_annotation_key())
+    watcher = DrainSignalWatcher(_VocabBridge(cluster), "gpu-host")
+    _drain_through_gate(gate, jax_tracer, cluster, watcher, port_tracer, keys, tmp_path)
+
+
+class _JaxVocabBridge:
+    """A test-only client over the port's cluster that shows the JAX
+    package's watcher the annotation keys in the JAX package's vocabulary:
+    the inverse of :class:`_VocabBridge`."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+
+    def get(self, kind, name, namespace=""):
+        obj = self.cluster.get(kind, name, namespace)
+        meta = obj.get("metadata") or {}
+        meta["annotations"] = from_port_vocab(meta.get("annotations") or {})
+        return obj
+
+    def patch(self, kind, name, body, namespace=""):
+        return self.cluster.patch(kind, name, to_port_vocab(body), namespace)
+
+
+@pytest.mark.parametrize("watcher_side", ["port", "jax"])
+def test_the_port_gate_is_answered_by_each_packages_watcher(watcher_side, tmp_path, tracers):
+    """The port's CheckpointDrainGate, on the port's cluster, answered by
+    the port's watcher (both spans in the port's tracer), and by the JAX
+    package's watcher over :class:`_JaxVocabBridge` (its span in the JAX
+    tracer, under the port gate's span)."""
+    jax_tracer, port_tracer = tracers
+    cluster = _port_cluster()
+    gate = PortCheckpointDrainGate(
+        cluster, PortPreDrainCheckpointSpec(enable=True, timeout_second=20), poll_seconds=0.01
+    )
+    keys = (util.get_pre_drain_checkpoint_annotation_key(), util.get_pre_drain_traceparent_annotation_key())
+    if watcher_side == "port":
+        watcher, watcher_tracer = DrainSignalWatcher(cluster, "gpu-host"), port_tracer
+    else:
+        watcher, watcher_tracer = JaxDrainSignalWatcher(_JaxVocabBridge(cluster), "gpu-host"), jax_tracer
+    _drain_through_gate(gate, port_tracer, cluster, watcher, watcher_tracer, keys, tmp_path)
+
+
+def test_the_port_gate_times_out_open_and_clears_the_request(tracers):
+    """Nobody answers: the gate waits its timeout, records it on its span,
+    and clears both annotations so that the drain proceeds."""
+    _, port_tracer = tracers
+    cluster = _port_cluster()
+    gate = PortCheckpointDrainGate(
+        cluster, PortPreDrainCheckpointSpec(enable=True, timeout_second=0.2), poll_seconds=0.01
+    )
+    gate.wait_for_checkpoint(cluster.get("Node", "gpu-host"))
+    [span] = _spans(port_tracer, "drain-handshake")
+    assert span["attributes"] == {"node": "gpu-host", "result": "timeout"}
+    annotations = cluster.get("Node", "gpu-host")["metadata"].get("annotations") or {}
+    assert util.get_pre_drain_checkpoint_annotation_key() not in annotations
+    assert util.get_pre_drain_traceparent_annotation_key() not in annotations
 
 
 @pytest.mark.parametrize("carrier", ["", "garbage", f"00-{'0' * 32}-{'1' * 16}-01"])
