@@ -152,12 +152,14 @@ failure (the exit code is then non-zero and no result line is printed):
    10g, a whole upgrade wave through the port's node managers in
    process: every node's state cleared and given a Job's pod, the driver
    DaemonSet's ``rev2`` published, then pass after pass of the state
-   machine's processors in its order (the SLO and remediation engines,
-   done/unknown, the in-place scheduler, cordon, wait-for-jobs, pod
-   deletion, drain with the ``CheckpointDrainGate``, pod restart, failed,
-   validation, uncordon) over a snapshot the script rebuilds each pass,
-   the script playing the DaemonSet controller, until the admitted wave
-   is ``upgrade-done``.  The first admission takes 16 racks of 16 (slots
+   machine's BuildState and ApplyState (the SLO, remediation and
+   analysis engines, done/unknown, the in-place scheduler, cordon,
+   wait-for-jobs, pod deletion, drain with the ``CheckpointDrainGate``,
+   pod restart, failed, validation, uncordon) through
+   ``UpgradeStateManager``, the script's stand-in for the JAX package's
+   ``ClusterUpgradeStateManager`` (``tests/test_torch_rollout_parity.py``
+   holds the two equal pass by pass), the script playing the DaemonSet
+   controller, until the admitted wave is ``upgrade-done``.  The first admission takes 16 racks of 16 (slots
    count racks under the slice-aware policy), every other node waiting
    and schedulable; every wave node passes cordon, wait-for-jobs, drain,
    pod-restart and uncordon in its flight-recorder timeline, ends done
@@ -167,7 +169,8 @@ failure (the exit code is then non-zero and no result line is printed):
    launches ``n_layers`` times a step on its tensor-core kernel, and its
    ``checkpoint-drain`` span is a child of the gate's ``drain-handshake``
    span in the Chrome export; ``RolloutStatus`` accounts for all 1,024
-   nodes every pass; the remediation breaker stays closed.  10h, the
+   nodes every pass; the remediation breaker stays closed.  The trainer's
+   step times under the wave are logged beside the gate's.  10h, the
    next wave over HTTP: the managers, the gate and the trainer's watcher
    on a ``KubeApiClient`` to the facade, with the same gates and the HTTP
    requests, batch POSTs and writes per batch logged beside 10g's.  10d,
@@ -1732,6 +1735,7 @@ FLEET_NODES = 1024
 FLEET_RACK = 16
 FLEET_GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
 FLEET_NAMESPACE = "gpu-operator"
+FLEET_DRIVER_LABELS = {"app": "gpu-driver"}
 #: the TPU fleet's domain and GKE's TPU label prefix: no object may hold them
 TPU_MARKERS = ("tpu.google.com", "gke-tpu")
 
@@ -1808,7 +1812,7 @@ def build_fleet():
         raise RuntimeError("10a: the GpuUpgradePolicy schema admitted maxParallelUpgrades -1")
     except InvalidError:
         pass
-    ds = cluster.create(make_daemonset("gpu-driver", FLEET_NAMESPACE, {"app": "gpu-driver"},
+    ds = cluster.create(make_daemonset("gpu-driver", FLEET_NAMESPACE, dict(FLEET_DRIVER_LABELS),
                                        desired_number_scheduled=FLEET_NODES))
     cluster.create(make_controller_revision(ds, 1, "rev1"))
     for i in range(FLEET_NODES):
@@ -1818,7 +1822,7 @@ def build_fleet():
             consts.SLICE_ID_LABEL_KEYS[0]: f"rack-{i // FLEET_RACK:02d}",
         }))
         cluster.create(make_pod(f"gpu-driver-{i:04d}", FLEET_NAMESPACE, _fleet_node(i),
-                                labels={"app": "gpu-driver"}, owner=ds, revision_hash="rev1"))
+                                labels=dict(FLEET_DRIVER_LABELS), owner=ds, revision_hash="rev1"))
     cluster.create(make_node_maintenance("gpu-node-0000-maintenance", FLEET_NAMESPACE, "gpu-operator",
                                          _fleet_node(0)))
     counts = {kind: len(cluster.list(kind)) for kind in ("Node", "Pod", "GpuUpgradePolicy", "NodeMaintenance")}
@@ -2151,41 +2155,28 @@ def prepare_upgrade(cluster) -> dict:
     return {"prepare_ms": (time.perf_counter() - t0) * 1e3}
 
 
-def build_state(client):
-    """The snapshot the state machine's BuildState takes: a node state a
-    driver pod (its node, pod and DaemonSet), bucketed by the node's
-    state label."""
-    from k8s_operator_libs_tpu_torch.cluster.selectors import labels_to_selector
-    from k8s_operator_libs_tpu_torch.upgrade import util
-    from k8s_operator_libs_tpu_torch.upgrade.common_manager import ClusterUpgradeState, NodeUpgradeState
+class UpgradeStateManager:
+    """The state machine's two passes, BuildState and ApplyState, over the
+    port's managers in in-place mode: the stand-in for
+    ``k8s_operator_libs_tpu/upgrade/upgrade_state.py``'s
+    ``ClusterUpgradeStateManager`` until the port has that module.  It
+    takes that class's arguments of the same names, assembles the managers
+    as it does (one worker pool for drains and pod restarts, the SLO,
+    analysis and remediation engines, the flight recorder), and runs the
+    same steps in the same order; ``tests/test_torch_rollout_parity.py``
+    holds it to that class pass by pass.  Left out: requestor mode, the
+    cascade, the state index, reads through the cache, the pod-deletion
+    and validation builders (a policy with a ``validation`` block is
+    refused), the decision-event sink and the reconcile histograms."""
 
-    selector = labels_to_selector({"app": "gpu-driver"})
-    daemon_sets = {d["metadata"]["uid"]: d for d in client.list(
-        "DaemonSet", namespace=FLEET_NAMESPACE, label_selector=selector)}
-    nodes = {n["metadata"]["name"]: n for n in client.list("Node")}
-    key = util.get_upgrade_state_label_key()
-    state = ClusterUpgradeState()
-    for pod in client.list("Pod", namespace=FLEET_NAMESPACE, label_selector=selector):
-        node = nodes[pod["spec"]["nodeName"]]
-        owner = daemon_sets.get(pod["metadata"]["ownerReferences"][0]["uid"])
-        state.node_states.setdefault(node["metadata"]["labels"].get(key, ""), []).append(
-            NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=owner))
-    return state
-
-
-class WaveManagers:
-    """The port's managers on *client*, assembled as the state machine
-    assembles them (one worker pool for drains and pod restarts, the
-    pre-drain ``CheckpointDrainGate`` on the drain manager), with the SLO
-    and remediation engines."""
-
-    def __init__(self, client, policy, flight):
+    def __init__(self, cluster, recorder=None, pre_drain_gate=None, write_pipeline_workers: int = 0,
+                 cache_sync_timeout_seconds: float = 10.0, cache_sync_poll_seconds: float = 1.0,
+                 flight_recorder=None):
         from concurrent.futures import ThreadPoolExecutor
 
         from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
         from k8s_operator_libs_tpu_torch.obs.slo import SloEngine
-        from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate
-        from k8s_operator_libs_tpu_torch.upgrade import util
+        from k8s_operator_libs_tpu_torch.upgrade.analysis import AnalysisEngine
         from k8s_operator_libs_tpu_torch.upgrade.common_manager import CommonUpgradeManager
         from k8s_operator_libs_tpu_torch.upgrade.cordon_manager import CordonManager
         from k8s_operator_libs_tpu_torch.upgrade.drain_manager import DrainManager, default_worker_pool_size
@@ -2196,59 +2187,184 @@ class WaveManagers:
         from k8s_operator_libs_tpu_torch.upgrade.upgrade_inplace import InplaceNodeStateManager
         from k8s_operator_libs_tpu_torch.upgrade.validation_manager import ValidationManager
 
-        recorder = util.EventRecorder()
+        self._cluster, self._recorder = cluster, recorder
+        self.cache = InformerCache(cluster, lag_seconds=0.0)
+        self._flight = flight_recorder
+        self.slo = SloEngine(flight_recorder)
+        self.analysis = AnalysisEngine(history=self.slo.history)
         self.provider = NodeUpgradeStateProvider(
-            client, InformerCache(client, lag_seconds=0.0), recorder, cache_sync_timeout_seconds=30.0,
-            cache_sync_poll_seconds=0.01, flight_recorder=flight, async_visibility=True)
-        cordon = CordonManager(client, recorder, provider=self.provider)
-        self.pool = ThreadPoolExecutor(max_workers=default_worker_pool_size(), thread_name_prefix="upgrade-worker")
-        self.gate = CheckpointDrainGate(client, policy.pre_drain_checkpoint)
-        self.drain = DrainManager(client, self.provider, recorder, pre_drain_gate=self.gate,
-                                  cordon_manager=cordon, pool=self.pool)
-        self.pods = PodManager(client, self.provider, recorder, pool=self.pool)
+            cluster, self.cache, recorder, cache_sync_timeout_seconds=cache_sync_timeout_seconds,
+            cache_sync_poll_seconds=cache_sync_poll_seconds, flight_recorder=flight_recorder,
+            async_visibility=write_pipeline_workers > 0)
+        cordon = CordonManager(cluster, recorder, provider=self.provider)
+        self._pool = ThreadPoolExecutor(max_workers=default_worker_pool_size(),
+                                        thread_name_prefix="upgrade-worker")
+        self.drain_manager = DrainManager(cluster, self.provider, recorder, pre_drain_gate=pre_drain_gate,
+                                          pool=self._pool)
+        self.pod_manager = PodManager(cluster, self.provider, recorder, pool=self._pool)
         self.common = CommonUpgradeManager(
-            client, self.provider, cordon, self.drain, self.pods,
-            ValidationManager(client, self.provider, recorder), SafeDriverLoadManager(self.provider), recorder)
+            cluster, self.provider, cordon, self.drain_manager, self.pod_manager,
+            ValidationManager(cluster, self.provider, recorder), SafeDriverLoadManager(self.provider), recorder)
         self.inplace = InplaceNodeStateManager(self.common)
-        self.slo = SloEngine(flight)
-        self.remediation = RemediationManager(client, self.provider, recorder)
+        self.remediation = RemediationManager(cluster, self.provider, recorder)
+        self._workers = write_pipeline_workers
+        self.last_apply_transitions = 0
 
-    def apply(self, state, policy) -> dict:
-        """One pass of the state machine's processors, in its order
-        (``upgrade_state.py``'s ApplyState): the SLO and remediation
-        engines, done/unknown, upgrade-required (the in-place scheduler),
-        cordon, wait-for-jobs, pod deletion, drain, pod restart, failed,
-        validation, uncordon; the writes ride the provider's pipeline, and
-        their visibility is awaited once at the end."""
+    @property
+    def flight_recorder(self):
+        """The injected flight recorder, else the process default."""
+        from k8s_operator_libs_tpu_torch.upgrade import timeline
+
+        return self._flight if self._flight is not None else timeline.default_recorder()
+
+    def build_state(self, namespace: str, driver_labels: dict):
+        """BuildState, full rebuild: a node state a driver pod (its node,
+        pod and DaemonSet), bucketed by the node's state label; every
+        DaemonSet must have its desired number of pods."""
+        from k8s_operator_libs_tpu_torch.cluster.selectors import labels_to_selector
         from k8s_operator_libs_tpu_torch.obs import tracing
-        from k8s_operator_libs_tpu_torch.upgrade import consts
+        from k8s_operator_libs_tpu_torch.upgrade import consts, util
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import ClusterUpgradeState, NodeUpgradeState
+
+        self.provider.flush_async_visibility()
+        with tracing.start_span("BuildState", attributes={"namespace": namespace, "mode": "full"}):
+            common = self.common
+            self.pod_manager.reset_revision_memo()
+            state = ClusterUpgradeState()
+            daemon_sets = common.get_driver_daemon_sets(namespace, driver_labels)
+            pods = self._cluster.list("Pod", namespace=namespace, label_selector=labels_to_selector(driver_labels))
+            filtered = []
+            for ds in daemon_sets.values():
+                ds_pods = common.get_pods_owned_by_ds(ds, pods)
+                desired = (ds.get("status") or {}).get("desiredNumberScheduled", 0)
+                if int(desired) != len(ds_pods):
+                    raise RuntimeError(f"driver DaemonSet {ds['metadata']['name']} should not have unscheduled "
+                                       f"pods (desired {desired}, found {len(ds_pods)})")
+                filtered.extend(ds_pods)
+            filtered.extend(common.get_orphaned_pods(pods))
+            key = util.get_upgrade_state_label_key()
+            nodes = {(n.get("metadata") or {}).get("name", ""): n for n in self.cache.list("Node")}
+            for pod in filtered:
+                owner = None
+                if not common.is_orphaned_pod(pod):
+                    owner = daemon_sets.get(pod["metadata"]["ownerReferences"][0].get("uid"))
+                node_name = (pod.get("spec") or {}).get("nodeName", "")
+                if not node_name and (pod.get("status") or {}).get("phase") == "Pending":
+                    continue
+                node = nodes.get(node_name) or self.provider.get_node(node_name)
+                bucket = ((node.get("metadata") or {}).get("labels") or {}).get(key, consts.UPGRADE_STATE_UNKNOWN)
+                state.node_states.setdefault(bucket, []).append(
+                    NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=owner))
+            self.flight_recorder.observe(state)
+            return state
+
+    def _publish_gauges(self, state):
+        from k8s_operator_libs_tpu_torch import metrics
 
         common = self.common
-        with tracing.start_span("ApplyState", attributes={"nodes": len(state.all_node_states())}):
-            slo_report = self.slo.evaluate(state, policy)
-            decision = self.remediation.evaluate(state, policy, common)
-            with self.provider.deferred_visibility(), self.provider.pipelined_writes(16):
-                common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_UNKNOWN)
-                common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_DONE)
-                self.remediation.process_recovered_nodes(state, policy, common)
-                self.inplace.process_upgrade_required_nodes(state, policy, decision, None)
-                common.process_cordon_required_nodes(state)
-                common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion)
-                common.process_pod_deletion_required_nodes(state, policy.pod_deletion, True)
-                common.process_drain_nodes(state, policy.drain_spec)
-                common.process_pod_restart_nodes(state)
-                common.process_upgrade_failed_nodes(state)
-                self.remediation.process_failed_nodes(state, policy, common)
-                common.process_validation_required_nodes(state)
-                self.inplace.process_uncordon_required_nodes(state)
-        return slo_report
+        in_progress, pending = common.get_upgrades_in_progress(state), common.get_upgrades_pending(state)
+        failed = common.get_upgrades_failed(state)
+        metrics.publish_rollout_gauges({k: len(v) for k, v in state.node_states.items()},
+                                       common.get_total_managed_nodes(state), in_progress, pending, failed,
+                                       common.get_upgrades_done(state))
+        return in_progress, pending, failed
 
-    def wait_idle(self, what: str) -> None:
-        if not (self.drain.wait_idle(120.0) and self.pods.wait_idle(120.0)):
-            raise RuntimeError(f"{what}: drains or pod restarts still in flight after 120 s")
+    def apply_state(self, state, policy) -> None:
+        """ApplyState: the SLO, remediation and analysis engines, then the
+        processors in the state machine's order (done/unknown,
+        remediation recovery, upgrade-required through the in-place
+        scheduler, cordon, wait-for-jobs, pod deletion, drain, pod
+        restart, failed, remediation retries, validation, uncordon),
+        under one deferred-visibility barrier and, with
+        *write_pipeline_workers*, the provider's write pipeline."""
+        from contextlib import nullcontext
 
-    def close(self) -> None:
-        self.pool.shutdown(wait=True)
+        from k8s_operator_libs_tpu_torch.obs import tracing
+        from k8s_operator_libs_tpu_torch.tpu import topology
+        from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+        self.last_apply_transitions = 0
+        if state is None:
+            raise RuntimeError("currentState should not be empty")
+        if policy is not None and policy.validation is not None:
+            raise ValueError("the stand-in state manager does not configure validation")
+        if policy is None or policy.remediation is None:
+            self.remediation.disable()
+        if policy is None or (policy.slos is None and policy.analysis is None):
+            self.slo.disable()
+        else:
+            self.slo.evaluate(state, policy)
+        if policy is None or policy.analysis is None:
+            self.analysis.disable()
+            self.provider.set_write_concurrency_scale(1.0)
+        if policy is not None:
+            topology.set_label_keys(policy.slice_label_keys, policy.multislice_label_keys)
+            self.provider.set_cache_sync_timeout(policy.cache_sync_timeout_second)
+        else:
+            topology.set_label_keys()
+            self.provider.set_cache_sync_timeout(0)
+        common = self.common
+        if policy is None or not policy.auto_upgrade:
+            self._publish_gauges(state)
+            if policy is not None and policy.analysis is not None:
+                decision = self.analysis.evaluate(state, policy, self.slo.last_report(), common=common)
+                self.provider.set_write_concurrency_scale(decision.wave_scale)
+            return
+        with tracing.start_span("ApplyState", attributes={"nodes": sum(len(v) for v in state.node_states.values())}):
+            in_progress, pending, failed = self._publish_gauges(state)
+            if in_progress or pending or failed:
+                util.log_event(self._recorder, util.get_component_name(), "Normal", util.get_event_reason(),
+                               "Upgrade progress: done {}/{} inProgress {} pending {} failed {}".format(
+                                   common.get_upgrades_done(state), common.get_total_managed_nodes(state),
+                                   in_progress, pending, failed))
+            remediation = None
+            if policy.remediation is not None:
+                remediation = self.remediation.evaluate(state, policy, common)
+            analysis = None
+            if policy.analysis is not None:
+                analysis = self.analysis.evaluate(state, policy, self.slo.last_report(), common=common,
+                                                  remediation=remediation)
+                if (analysis.aborted and policy.remediation is not None
+                        and not (remediation is not None and remediation.paused)):
+                    updated = self.remediation.trip_for_slo(state, policy, common, analysis.abort_reason)
+                    if updated is not None:
+                        remediation = updated
+                self.provider.set_write_concurrency_scale(analysis.wave_scale)
+            drain_enabled = policy.drain_spec is not None and policy.drain_spec.enable
+            phases = [
+                lambda: common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_UNKNOWN),
+                lambda: common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_DONE),
+                lambda: self.remediation.process_recovered_nodes(state, policy, common),
+                lambda: self.inplace.process_upgrade_required_nodes(state, policy, remediation=remediation,
+                                                                    analysis=analysis),
+                lambda: common.process_cordon_required_nodes(state),
+                lambda: common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion),
+                lambda: common.process_pod_deletion_required_nodes(state, policy.pod_deletion, drain_enabled),
+                lambda: common.process_drain_nodes(state, policy.drain_spec),
+                lambda: common.process_pod_restart_nodes(state),
+                lambda: common.process_upgrade_failed_nodes(state),
+                lambda: self.remediation.process_failed_nodes(state, policy, common),
+                lambda: common.process_validation_required_nodes(state),
+                lambda: self.inplace.process_uncordon_required_nodes(state),
+            ]
+            transitions = {"n": 0}
+
+            def count(node, new_state):
+                transitions["n"] += 1
+
+            pipeline = self.provider.pipelined_writes(self._workers) if self._workers > 0 else nullcontext()
+            with self.provider.deferred_visibility(), pipeline, self.provider.transition_listener(count):
+                for phase in phases:
+                    phase()
+            self.last_apply_transitions = transitions["n"]
+
+    def wait_idle(self, what: str, timeout: float = 120.0) -> None:
+        """Waits for the drains and pod restarts in flight."""
+        if not (self.drain_manager.wait_idle(timeout) and self.pod_manager.wait_idle(timeout)):
+            raise RuntimeError(f"{what}: drains or pod restarts still in flight after {timeout:g} s")
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=True)
         self.provider.close()
 
 
@@ -2263,7 +2379,7 @@ def play_daemonset(store) -> int:
     for i in range(FLEET_NODES):
         if _fleet_node(i) not in have:
             store.create(make_pod(f"gpu-driver-{i:04d}", FLEET_NAMESPACE, _fleet_node(i),
-                                  labels={"app": "gpu-driver"}, owner=ds, revision_hash="rev2"))
+                                  labels=dict(FLEET_DRIVER_LABELS), owner=ds, revision_hash="rev2"))
             made += 1
     return made
 
@@ -2271,12 +2387,14 @@ def play_daemonset(store) -> int:
 class _RackWorkloads:
     """The workloads of the wave's other nodes: each answers its node's
     checkpoint request at once (its job is not on the card).  Polls the
-    store every 5 ms in a thread until closed."""
+    store every 5 ms in a thread until closed, through *watcher_cls*
+    (the port's ``DrainSignalWatcher`` unless another is given)."""
 
-    def __init__(self, store):
+    def __init__(self, store, watcher_cls=None):
         import threading
 
         self._store = store
+        self._watcher_cls = watcher_cls
         self._watchers = []
         self.acks = 0
         self._stop = threading.Event()
@@ -2286,7 +2404,8 @@ class _RackWorkloads:
     def watch(self, nodes) -> None:
         from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
 
-        self._watchers = [DrainSignalWatcher(self._store, name) for name in nodes]
+        watcher_cls = self._watcher_cls or DrainSignalWatcher
+        self._watchers = [watcher_cls(self._store, name) for name in nodes]
 
     def _run(self) -> None:
         while not self._stop.wait(0.005):
@@ -2302,6 +2421,18 @@ class _RackWorkloads:
             raise RuntimeError("the rack workloads' thread did not stop")
 
 
+def _step_ms(polls) -> dict:
+    """The trainer's steps under the wave, from its watcher's poll times
+    (host clock): their count, p50, p95 and longest ms, and the last one,
+    the step in flight when the gate's request came."""
+    steps = sorted(b - a for a, b in zip(polls, polls[1:]))
+    if not steps:
+        return {"n": 0}
+    return {"n": len(steps), "p50": steps[len(steps) // 2] * 1e3,
+            "p95": steps[min(len(steps) - 1, int(0.95 * len(steps)))] * 1e3, "max": steps[-1] * 1e3,
+            "last": (polls[-1] - polls[-2]) * 1e3}
+
+
 def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     """10g (and 10h over HTTP, *facade* serving *store* to *client*): the
     port's managers on *client* take the next wave of the fleet (*store*
@@ -2314,15 +2445,25 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     from k8s_operator_libs_tpu_torch.obs import events, tracing
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
-    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate, DrainSignalWatcher
     from k8s_operator_libs_tpu_torch.upgrade import consts, timeline, util
     from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
     from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
 
     class TokenWatcher(DrainSignalWatcher):
-        """The trainer's watcher, keeping the request it answered."""
+        """The trainer's watcher, keeping the request it answered and the
+        host clock at each poll: the trainer polls once a step, so the
+        differences are its steps' host ms (the poll's read included)."""
 
         answered = None
+
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.polls = []
+
+        def check_and_acknowledge(self, on_checkpoint):
+            self.polls.append(time.perf_counter())
+            return super().check_and_acknowledge(on_checkpoint)
 
         def acknowledge(self):
             self.answered = self._read()
@@ -2335,7 +2476,10 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     previous = (metrics.set_default_registry(registry), tracing.set_default_tracer(tracer),
                 events.set_default_log(log_))
     served0 = None if facade is None else facade.requests_served
-    managers = WaveManagers(client, policy, flight)
+    managers = UpgradeStateManager(
+        client, recorder=util.EventRecorder(),
+        pre_drain_gate=CheckpointDrainGate(client, policy.pre_drain_checkpoint), write_pipeline_workers=16,
+        cache_sync_timeout_seconds=30.0, cache_sync_poll_seconds=0.01, flight_recorder=flight)
     workloads = _RackWorkloads(store)
     passes, wave, trainer, run, host = [], [], None, None, None
     t_admit = t_done = None
@@ -2343,7 +2487,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
         with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{what}-") as ckpt, ThreadPoolExecutor(1) as pool:
             for n in range(WAVE_MAX_PASSES):
                 t0 = time.perf_counter()
-                state = build_state(client)
+                state = managers.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
                 status = RolloutStatus.from_cluster_state(state, policy)
                 if (status.total_nodes != FLEET_NODES
                         or status.done + status.in_progress + status.pending + status.unknown != FLEET_NODES):
@@ -2351,7 +2495,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
                                        f"{status.by_state}")
                 pending_before = {ns.node["metadata"]["name"] for ns in state.nodes_in(
                     consts.UPGRADE_STATE_UPGRADE_REQUIRED)}
-                slo_report = managers.apply(state, policy)
+                managers.apply_state(state, policy)
                 managers.wait_idle(what)
                 if not wave:
                     admitted = sorted(n_ for n_ in pending_before if store.get("Node", n_)["metadata"]["labels"].get(
@@ -2364,6 +2508,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
                         trainer = wl.CheckpointingTrainer(config, ckpt, watcher=TokenWatcher(client, host),
                                                           device="cuda")
                         trainer.run(2)
+                        trainer.watcher.polls.clear()  # time the steps under the wave only
                         run = pool.submit(trainer.run, 3000)  # a thread: it drains on its node's request
                 made = play_daemonset(store)
                 passes.append({"ms": (time.perf_counter() - t0) * 1e3, "driver_pods_recreated": made})
@@ -2379,7 +2524,8 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
             if wl.restore_checkpoint(ckpt, step)["step"] != step:
                 raise RuntimeError(f"{what}: the checkpoint does not restore at step {step}")
             answered = trainer.watcher.answered or ""
-        final = build_state(client)
+            polls = trainer.watcher.polls
+        final = managers.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
         status = RolloutStatus.from_cluster_state(final, policy)
         if (status.total_nodes != FLEET_NODES or status.in_progress
                 or status.done + status.pending + status.unknown != FLEET_NODES):
@@ -2391,7 +2537,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
         requests = None if facade is None else facade.requests_served - served0
     finally:
         workloads.close()
-        managers.close()
+        managers.shutdown()
         metrics.set_default_registry(previous[0])
         tracing.set_default_tracer(previous[1])
         events.set_default_log(previous[2])
@@ -2470,6 +2616,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
         "phase_seconds": {p: {"p50": s["p50"], "p95": s["p95"], "count": s["count"]}
                           for p, s in final_slo["phases"].items()},
         "host": host, "drained_at_step": step, "flash_launches": launches,
+        "trainer_step_ms": _step_ms(polls),
         "drain_handshake_ms": gate_ev["dur"] / 1e3, "checkpoint_drain_ms": cd["dur"] / 1e3,
         "request_to_ack_ms": (cd["ts"] + cd["dur"] - gate_ev["ts"]) / 1e3,
         "provider_writes": writes, "provider_batches": batches,

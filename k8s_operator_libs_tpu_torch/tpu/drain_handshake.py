@@ -26,8 +26,9 @@ fails open), and clears both annotations.
 Both sides take any client with ``get("Node", name)`` and
 ``patch("Node", name, merge_patch)``: the port's
 :class:`~..cluster.inmem.InMemoryCluster` or
-:class:`~..cluster.kubeclient.KubeApiClient`, or an orchestrator's own
-cluster client.
+:class:`~..cluster.kubeclient.KubeApiClient`.  The watcher also takes an
+orchestrator's own cluster client; the gate, a copy of the JAX
+package's class, knows a node is gone by the port's ``NotFoundError``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ import uuid
 from typing import Callable, Optional
 
 from ..api.upgrade_spec import PreDrainCheckpointSpec
+from ..cluster.client import ClusterClient
+from ..cluster.errors import NotFoundError
+from ..cluster.inmem import JsonObj
+from ..cluster.objects import get_annotation, name_of
 from ..obs import tracing
 from ..upgrade import consts, util
 
@@ -49,7 +54,7 @@ DEFAULT_POLL_SECONDS = 0.05
 def _is_not_found(err: Exception) -> bool:
     """True for a client's missing-object error.  Clients name it
     ``NotFoundError`` (the port's cluster and any orchestrator's
-    cluster clients alike); matching the name lets either side take
+    cluster clients alike); matching the name lets the watcher take
     another package's client."""
     return any(cls.__name__ == "NotFoundError" for cls in type(err).__mro__)
 
@@ -61,7 +66,7 @@ class CheckpointDrainGate:
 
     def __init__(
         self,
-        cluster,
+        cluster: ClusterClient,
         spec: Optional[PreDrainCheckpointSpec] = None,
         poll_seconds: float = DEFAULT_POLL_SECONDS,
     ) -> None:
@@ -69,10 +74,10 @@ class CheckpointDrainGate:
         self.spec = spec or PreDrainCheckpointSpec()
         self._poll = poll_seconds
 
-    def wait_for_checkpoint(self, node) -> None:
+    def wait_for_checkpoint(self, node: JsonObj) -> None:
         if not self.spec.enable:
             return
-        name = (node.get("metadata") or {}).get("name", "")
+        name = name_of(node)
         key = util.get_pre_drain_checkpoint_annotation_key()
         tp_key = util.get_pre_drain_traceparent_annotation_key()
         # Per-cycle token: the ack must echo it, so a laggard "done" from a
@@ -106,13 +111,10 @@ class CheckpointDrainGate:
             while True:
                 try:
                     current = self._cluster.get("Node", name)
-                except Exception as err:
-                    if not _is_not_found(err):
-                        raise
+                except NotFoundError:
                     span.set_attribute("result", "node-gone")
                     return
-                annotations = (current.get("metadata") or {}).get("annotations") or {}
-                if annotations.get(key, "") == expected_ack:
+                if get_annotation(current, key) == expected_ack:
                     logger.info(
                         "node %s checkpoint acknowledged before drain", name
                     )

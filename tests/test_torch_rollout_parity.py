@@ -53,6 +53,8 @@ from k8s_operator_libs_tpu.cluster.selectors import labels_to_selector as jlabel
 from k8s_operator_libs_tpu.obs import events as jevents
 from k8s_operator_libs_tpu.obs import slo as jslo
 from k8s_operator_libs_tpu.tpu import health as jhealth
+from k8s_operator_libs_tpu.tpu.drain_handshake import CheckpointDrainGate as JCheckpointDrainGate
+from k8s_operator_libs_tpu.tpu.drain_handshake import DrainSignalWatcher as JDrainSignalWatcher
 from k8s_operator_libs_tpu.upgrade import analysis as janalysis
 from k8s_operator_libs_tpu.upgrade import common_manager as jcommon
 from k8s_operator_libs_tpu.upgrade import consts as jconsts
@@ -66,6 +68,7 @@ from k8s_operator_libs_tpu.upgrade import safe_driver_load_manager as jsafe
 from k8s_operator_libs_tpu.upgrade import schedule as jschedule
 from k8s_operator_libs_tpu.upgrade import timeline as jtimeline
 from k8s_operator_libs_tpu.upgrade import upgrade_inplace as jinplace
+from k8s_operator_libs_tpu.upgrade import upgrade_state as jupgrade_state
 from k8s_operator_libs_tpu.upgrade import util as jutil
 from k8s_operator_libs_tpu.upgrade import validation_manager as jvalidation
 from k8s_operator_libs_tpu_torch import api, metrics
@@ -74,6 +77,7 @@ from k8s_operator_libs_tpu_torch.cluster import InformerCache, InMemoryCluster, 
 from k8s_operator_libs_tpu_torch.cluster.selectors import labels_to_selector
 from k8s_operator_libs_tpu_torch.obs import events
 from k8s_operator_libs_tpu_torch.obs import slo
+from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate, DrainSignalWatcher
 from k8s_operator_libs_tpu_torch.upgrade import analysis
 from k8s_operator_libs_tpu_torch.upgrade import common_manager
 from k8s_operator_libs_tpu_torch.upgrade import consts
@@ -90,6 +94,7 @@ from k8s_operator_libs_tpu_torch.upgrade import upgrade_inplace
 from k8s_operator_libs_tpu_torch.upgrade import util
 from k8s_operator_libs_tpu_torch.upgrade import validation_manager
 
+import chip_smoke
 from test_torch_vocab import port_globals, to_port_vocab  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -235,56 +240,31 @@ def build_jax_fleet(seed: int, n: int, now: float):
     return cluster, racks
 
 
-def snapshot(pkg, cluster):
-    """The ``ClusterUpgradeState`` of the driver pods in *cluster*, built
-    as the state machine builds it: one node state a driver pod, bucketed
-    by its node's state label (name order)."""
-    state = pkg.common.ClusterUpgradeState()
-    nodes = {n["metadata"]["name"]: n for n in cluster.list("Node")}
-    daemon_sets = {d["metadata"]["uid"]: d for d in cluster.list(
-        "DaemonSet", namespace=NS, label_selector=pkg.selector(DRIVER_LABELS))}
-    key = pkg.util.get_upgrade_state_label_key()
-    pods = cluster.list("Pod", namespace=NS, label_selector=pkg.selector(DRIVER_LABELS))
-    for pod in sorted(pods, key=lambda p: p["metadata"]["name"]):
-        owner = daemon_sets.get(pod["metadata"]["ownerReferences"][0]["uid"])
-        node = nodes[pod["spec"]["nodeName"]]
-        bucket = node["metadata"]["labels"].get(key, pkg.consts.UPGRADE_STATE_UNKNOWN)
-        state.node_states.setdefault(bucket, []).append(
-            pkg.common.NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=owner))
-    return state
-
-
-def timelines(pkg, state, now):
-    """Every node's timeline, restored from its checkpoint annotation."""
-    recorder = pkg.timeline.FlightRecorder()
-    for ns in state.all_node_states():
-        recorder.observe_node(ns.node, now=now)
-    return recorder
-
-
-def managers(pkg, cluster):
-    """The node managers and ``CommonUpgradeManager`` on *cluster*, as the
-    state machine assembles them."""
-    recorder = pkg.util.EventRecorder()
-    provider = pkg.provider.NodeUpgradeStateProvider(
-        cluster, pkg.cache_cls(cluster, lag_seconds=0.0), recorder,
-        cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01)
-    cordon = pkg.cordon.CordonManager(cluster, recorder, provider=provider)
-    drain = pkg.drain.DrainManager(cluster, provider, recorder, cordon_manager=cordon)
-    pod = pkg.pod.PodManager(cluster, provider, recorder)
-    common = pkg.common.CommonUpgradeManager(
-        cluster, provider, cordon, drain, pod, pkg.validation.ValidationManager(cluster, provider, recorder),
-        pkg.safe.SafeDriverLoadManager(provider), recorder)
-    return common, provider, recorder
+def state_manager(pkg, cluster, gate=None, workers=0):
+    """The state machine on *cluster*: the JAX package's
+    ``ClusterUpgradeStateManager``, or for the port the stand-in that
+    ``chip_smoke.py`` drives (the port has no ``upgrade_state`` yet), each
+    with its own event recorder, flight recorder and pre-drain *gate*, and
+    *workers* write-pipeline workers."""
+    kwargs = dict(recorder=pkg.util.EventRecorder(), pre_drain_gate=gate, write_pipeline_workers=workers,
+                  cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01,
+                  flight_recorder=pkg.timeline.FlightRecorder())
+    if pkg is JAX:
+        return jupgrade_state.ClusterUpgradeStateManager(cluster, cache=JInformerCache(cluster, lag_seconds=0.0),
+                                                         **kwargs)
+    return chip_smoke.UpgradeStateManager(cluster, **kwargs)
 
 
 class Side:
-    """One package's half of a case: its cluster, snapshot and policy."""
+    """One package's half of a case: its cluster, policy, state machine and
+    the snapshot that machine builds (its BuildState also restores every
+    node's timeline into its flight recorder)."""
 
-    def __init__(self, pkg, cluster, policy, now):
+    def __init__(self, pkg, cluster, policy, now, **manager_kwargs):
         self.pkg, self.cluster, self.policy, self.now = pkg, cluster, policy, now
-        self.state = snapshot(pkg, cluster)
-        self.recorder = timelines(pkg, self.state, now)
+        self.manager = state_manager(pkg, cluster, **manager_kwargs)
+        self.state = self.manager.build_state(NS, DRIVER_LABELS)
+        self.recorder = self.manager.flight_recorder
 
 
 @pytest.fixture()
@@ -316,10 +296,18 @@ def sides(request, pinned_clock):
     jcluster, racks = build_jax_fleet(seed, n, now)
     pcluster = InMemoryCluster.from_dict(to_port_vocab(jcluster.to_dict()))
     jpolicy = policy_for(seed, racks)
+    jside, pside = Side(JAX, jcluster, jpolicy, now), Side(PORT, pcluster, port_policy(jpolicy), now)
+    yield jside, pside
+    jside.manager.shutdown()
+    pside.manager.shutdown()
+
+
+def port_policy(jpolicy):
+    """*jpolicy*, validated, in the port's vocabulary and classes."""
     jpolicy.validate()
     ppolicy = PortUpgradePolicySpec.from_dict(to_port_vocab(jpolicy.to_dict()))
     assert to_port_vocab(jpolicy.to_dict()) == ppolicy.to_dict()
-    return Side(JAX, jcluster, jpolicy, now), Side(PORT, pcluster, ppolicy, now)
+    return ppolicy
 
 
 def _plain(obj):
@@ -442,26 +430,20 @@ def admission_pass(side):
     """One pass of the state machine's gates and admission, in its order:
     SLO evaluation, remediation, analysis, then the in-place scheduler's
     ``process_upgrade_required_nodes``.  Returns what each decided."""
-    common, provider, _ = managers(side.pkg, side.cluster)
-    try:
-        slo_engine = side.pkg.slo.SloEngine(side.recorder)
-        slo_report = slo_engine.evaluate(side.state, side.policy, now=side.now)
-        decision = side.pkg.remediation.RemediationManager(side.cluster, provider).evaluate(
-            side.state, side.policy, common, now=side.now)
-        verdict = side.pkg.analysis.AnalysisEngine(history=slo_engine.history).evaluate(
-            side.state, side.policy, slo_report, common=common, remediation=decision)
-        before = {ns.node["metadata"]["name"] for ns in side.state.nodes_in(
-            side.pkg.consts.UPGRADE_STATE_UPGRADE_REQUIRED)}
-        slice_total = side.pkg.inplace.topology.count_domains(ns.node for ns in side.state.all_node_states())
-        available = common.get_upgrades_available(
-            side.state, side.policy.max_parallel_upgrades,
-            side.policy.max_unavailable.scaled_value(slice_total, round_up=True), slice_aware=True)
-        side.pkg.inplace.InplaceNodeStateManager(common).process_upgrade_required_nodes(
-            side.state, side.policy, decision, verdict)
-    finally:
-        common.drain_manager.shutdown()
-        common.pod_manager.shutdown()
-        provider.close()
+    common = side.manager.common
+    slo_engine = side.pkg.slo.SloEngine(side.recorder)
+    slo_report = slo_engine.evaluate(side.state, side.policy, now=side.now)
+    decision = side.pkg.remediation.RemediationManager(side.cluster, side.manager.provider).evaluate(
+        side.state, side.policy, common, now=side.now)
+    verdict = side.pkg.analysis.AnalysisEngine(history=slo_engine.history).evaluate(
+        side.state, side.policy, slo_report, common=common, remediation=decision)
+    before = {ns.node["metadata"]["name"] for ns in side.state.nodes_in(
+        side.pkg.consts.UPGRADE_STATE_UPGRADE_REQUIRED)}
+    slice_total = side.pkg.inplace.topology.count_domains(ns.node for ns in side.state.all_node_states())
+    available = common.get_upgrades_available(
+        side.state, side.policy.max_parallel_upgrades,
+        side.policy.max_unavailable.scaled_value(slice_total, round_up=True), slice_aware=True)
+    side.manager.inplace.process_upgrade_required_nodes(side.state, side.policy, decision, verdict)
     key = side.pkg.util.get_upgrade_state_label_key()
     admitted = sorted(n["metadata"]["name"] for n in side.cluster.list("Node")
                       if n["metadata"]["name"] in before
@@ -507,14 +489,11 @@ def fleet_wave(pkg):
         auto_upgrade=True, max_parallel_upgrades=FLEET_RACK, max_unavailable=api.IntOrString("25%"),
         drain_spec=api.DrainSpec(enable=True), slice_aware=True,
         pre_drain_checkpoint=api.PreDrainCheckpointSpec(enable=True))
-    state = snapshot(pkg, cluster)
-    common, provider, _ = managers(pkg, cluster)
+    manager = state_manager(pkg, cluster)
     try:
-        pkg.inplace.InplaceNodeStateManager(common).process_upgrade_required_nodes(state, policy)
+        manager.inplace.process_upgrade_required_nodes(manager.build_state(NS, DRIVER_LABELS), policy)
     finally:
-        common.drain_manager.shutdown()
-        common.pod_manager.shutdown()
-        provider.close()
+        manager.shutdown()
     admitted = sorted(n["metadata"]["name"] for n in cluster.list("Node")
                       if n["metadata"]["labels"].get(key) == pkg.consts.UPGRADE_STATE_CORDON_REQUIRED)
     return admitted, _decisions(pkg)
@@ -529,3 +508,218 @@ def test_the_gpu_fleet_first_wave_is_sixteen_racks(pinned_clock):
     assert len(padmitted) == FLEET_RACK * FLEET_RACK  # 16 racks of 16
     assert padmitted == [f"node-{i:04d}" for i in range(FLEET_RACK * FLEET_RACK)]
     assert sum(d["count"] for d in pdecisions if d["type"] == "NodeDeferred") == FLEET_NODES - len(padmitted)
+
+
+# -------------------------------------------------------- pass after pass
+#
+# The JAX package's ClusterUpgradeStateManager and the port's managers,
+# as chip_smoke.py assembles them, take the same cluster through the same
+# reconcile passes: BuildState, ApplyState, the drains and pod restarts
+# in flight awaited, then the DaemonSet controller played on both sides.
+# After every pass the two clusters, decision logs and event recorders
+# must agree.  The decisions and events are compared as sorted lists:
+# the drain and pod-restart workers emit theirs from a pool, in no fixed
+# order.
+
+#: a reconcile pass every 5 minutes of the pinned clock, so soak windows,
+#: backoffs and pacing budgets run out as they would
+PASS_SECONDS = 300.0
+
+
+def _masked_stable(cluster):
+    """:func:`_masked` without the resourceVersion either: writes from
+    the worker pools land in no fixed order."""
+    objects = _masked(cluster)
+    for obj in objects:
+        obj["metadata"] = {k: v for k, v in obj["metadata"].items() if k != "resourceVersion"}
+    return objects
+
+
+def ds_controller(pkg, cluster, nodes, bad=None):
+    """The DaemonSet controller: a driver pod at the newest revision for
+    each of *nodes* that has none (named by node and a counter, so both
+    packages name them alike).  A pod at revision *bad* never becomes
+    Ready and has restarted 11 times."""
+    ds = cluster.get("DaemonSet", "driver", NS)
+    newest = max(cluster.list("ControllerRevision", namespace=NS), key=lambda c: c.get("revision", 0))
+    revision = newest["metadata"]["labels"][pkg.objects.CONTROLLER_REVISION_HASH_LABEL]
+    covered = {p["spec"]["nodeName"] for p in cluster.list("Pod", namespace=NS, label_selector=pkg.selector(DRIVER_LABELS))}
+    for node in nodes:
+        if node not in covered:
+            count = len(cluster.list("Pod", namespace=NS))
+            cluster.create(pkg.objects.make_pod(
+                f"driver-{node}-{revision}-{count}", NS, node, labels=dict(DRIVER_LABELS), owner=ds,
+                revision_hash=revision, ready=revision != bad, restart_count=11 if revision == bad else 0))
+
+
+def one_pass(side, nodes, bad=None):
+    manager = side.manager
+    manager.apply_state(manager.build_state(NS, DRIVER_LABELS), side.policy)
+    assert manager.drain_manager.wait_idle(30.0) and manager.pod_manager.wait_idle(30.0)
+    ds_controller(side.pkg, side.cluster, nodes, bad)
+
+
+def _recorded(manager):
+    return [dataclasses.astuple(e) for e in manager._recorder.events]
+
+
+def run_passes(pin, jside, pside, max_passes, bad=None, done=None):
+    """Passes on both sides until *done* (a predicate on the port's side)
+    holds, or the port's cluster is unchanged by two passes running;
+    every pass must leave both sides equal.  Returns the passes run."""
+    nodes = sorted(n["metadata"]["name"] for n in pside.cluster.list("Node"))
+    still = 0
+    before = _masked_stable(pside.cluster)
+    for n in range(max_passes):
+        pin(jside.now + n * PASS_SECONDS)
+        for side in (jside, pside):
+            one_pass(side, nodes, bad)
+        after = _masked_stable(pside.cluster)
+        assert to_port_vocab(_masked_stable(jside.cluster)) == after, f"pass {n}: the clusters differ"
+        assert sorted(to_port_vocab(_decisions(JAX)), key=json.dumps) == sorted(
+            _decisions(PORT), key=json.dumps), f"pass {n}: the decision logs differ"
+        assert sorted(to_port_vocab(_recorded(jside.manager))) == sorted(_recorded(pside.manager)), (
+            f"pass {n}: the recorded events differ")
+        if done is not None and done(pside):
+            return n + 1
+        still = still + 1 if after == before else 0
+        before = after
+        if done is None and still == 2:
+            return n + 1
+    assert done is None, f"not done after {max_passes} passes"
+    return max_passes
+
+
+def _labels(side):
+    key = side.pkg.util.get_upgrade_state_label_key()
+    return {n["metadata"]["name"]: n["metadata"]["labels"].get(key) for n in side.cluster.list("Node")}
+
+
+def test_the_state_machines_agree_pass_by_pass(sides, pinned_clock):
+    """The seeded fleets, every state and stamp among them, pass after
+    pass until they settle: admission, cordon, drain, pod restarts
+    (rev2 published), failures, retries and quarantine alike."""
+    jside, pside = sides
+    passes = run_passes(pinned_clock, jside, pside, max_passes=30)
+    assert passes < 30
+    assert set(_labels(pside).values()) - {None, "bogus-state"} <= set(consts.ALL_STATES)
+
+
+WAVE_RACKS, WAVE_RACK = 4, 16
+
+
+def clean_fleet(pkg, revisions=("rev1", "rev2")):
+    """The fleet of ``chip_smoke.py`` 10g, cut to *WAVE_RACKS* racks: every
+    node fresh, with one pod of a Job (a drain must evict it) and a driver
+    pod at the first of *revisions*, every revision published."""
+    cluster, make = pkg.cluster_cls(), pkg.objects
+    ds = cluster.create(make.make_daemonset("driver", NS, DRIVER_LABELS,
+                                            desired_number_scheduled=WAVE_RACKS * WAVE_RACK))
+    for i, revision in enumerate(revisions):
+        cluster.create(make.make_controller_revision(ds, i + 1, revision))
+    for i in range(WAVE_RACKS * WAVE_RACK):
+        node = f"node-{i:03d}"
+        cluster.create(make.make_node(node, labels={pkg.consts.SLICE_ID_LABEL_KEYS[0]: f"rack-{i // WAVE_RACK}"}))
+        cluster.create(make.make_pod(f"driver-{node}", NS, node, labels=dict(DRIVER_LABELS), owner=ds,
+                                     revision_hash=revisions[0]))
+        job = {"kind": "Job", "metadata": {"name": f"train-{i:03d}", "namespace": "ml"}}
+        cluster.create(make.make_pod(f"train-{i:03d}", "ml", node, labels={"job-name": f"train-{i:03d}"},
+                                     owner=job))
+    return cluster
+
+
+def wave_policy_for(pkg):
+    """``chip_smoke.py``'s wave policy in *pkg*'s vocabulary: slice-aware,
+    16 parallel upgrades, 25 % of the racks unavailable, drain with the
+    pre-drain checkpoint, and the wave's SLO and remediation blocks."""
+    api = pkg.api
+    spec = api.UpgradePolicySpec(
+        auto_upgrade=True, max_parallel_upgrades=WAVE_RACK, max_unavailable=api.IntOrString("25%"),
+        drain_spec=api.DrainSpec(enable=True), slice_aware=True,
+        pre_drain_checkpoint=api.PreDrainCheckpointSpec(enable=True, timeout_second=20)).to_dict()
+    return api.UpgradePolicySpec.from_dict({**spec, "slos": chip_smoke.WAVE_SLOS,
+                                            "remediation": chip_smoke.WAVE_REMEDIATION})
+
+
+@pytest.mark.parametrize("workers", [0, 16], ids=["sequential", "pipelined"])
+def test_a_wave_with_the_checkpoint_gate_agrees_pass_by_pass(workers, pinned_clock):
+    """``chip_smoke.py`` 10g's path on a cut fleet: each package's
+    ``CheckpointDrainGate`` before each drain, every node's workload
+    answering it, rack after rack through cordon, wait-for-jobs, drain with
+    eviction, pod restart, validation and uncordon to done."""
+    now = pinned_clock(EPOCH)
+    sides, workloads = [], []
+    for pkg, watcher_cls, gate_cls in ((JAX, JDrainSignalWatcher, JCheckpointDrainGate),
+                                       (PORT, DrainSignalWatcher, CheckpointDrainGate)):
+        cluster, policy = clean_fleet(pkg), wave_policy_for(pkg)
+        policy.validate()
+        gate = gate_cls(cluster, policy.pre_drain_checkpoint, poll_seconds=0.005)
+        sides.append(Side(pkg, cluster, policy, now, gate=gate, workers=workers))
+        workloads.append(chip_smoke._RackWorkloads(cluster, watcher_cls=watcher_cls))
+        workloads[-1].watch([n["metadata"]["name"] for n in cluster.list("Node")])
+    jside, pside = sides
+    assert to_port_vocab(jside.policy.to_dict()) == pside.policy.to_dict()
+
+    def done(side):
+        return set(_labels(side).values()) == {consts.UPGRADE_STATE_DONE}
+
+    try:
+        passes = run_passes(pinned_clock, jside, pside, max_passes=60, done=done)
+    finally:
+        for side, workload in zip(sides, workloads):
+            workload.close()
+            side.manager.shutdown()
+    nodes = WAVE_RACKS * WAVE_RACK
+    assert [w.acks for w in workloads] == [nodes, nodes]
+    assert not pside.cluster.list("Pod", namespace="ml")  # every Job pod evicted
+    assert {p["metadata"]["labels"]["controller-revision-hash"] for p in pside.cluster.list("Pod", namespace=NS)} == {
+        "rev2"}
+    assert not any(n["spec"].get("unschedulable") for n in pside.cluster.list("Node"))
+    admitted = [d for d in _decisions(PORT) if d["type"] == "NodeAdmitted"]
+    assert sum(d["count"] for d in admitted) == nodes
+    assert passes < 60
+
+
+def test_a_bad_revision_trips_the_breaker_and_rolls_back_alike(pinned_clock):
+    """The remediation selftest's story on the fleet: a healthy era on
+    ``good``, then ``bad`` published, whose pods never become Ready.  The
+    failures fill the budget, the breaker trips, auto-rollback restores
+    ``good``, and the retries take every node back to done on it."""
+    now = pinned_clock(EPOCH)
+    sides = []
+    for pkg in (JAX, PORT):
+        api = pkg.api
+        policy = api.UpgradePolicySpec(
+            auto_upgrade=True, max_parallel_upgrades=0, max_unavailable=api.IntOrString("100%"),
+            drain_spec=api.DrainSpec(enable=True, force=True, timeout_second=5),
+            remediation=api.RemediationSpec(failure_threshold=0.5, min_attempted=2, auto_rollback=True,
+                                            max_node_attempts=5, backoff_seconds=0.0))
+        policy.validate()
+        sides.append(Side(pkg, clean_fleet(pkg, revisions=("good",)), policy, now))
+    jside, pside = sides
+
+    def done(side):
+        return set(_labels(side).values()) == {consts.UPGRADE_STATE_DONE}
+
+    try:
+        run_passes(pinned_clock, jside, pside, max_passes=10, done=done)  # the healthy era
+        for side in sides:
+            ds = side.cluster.get("DaemonSet", "driver", NS)
+            side.cluster.create(side.pkg.objects.make_controller_revision(ds, 2, "bad"))
+        jside.now = pside.now = now + 10 * PASS_SECONDS
+
+        breaker_states = set()
+
+        def rolled_back_and_done(side):
+            breaker_states.add(((side.manager.remediation.last_status() or {}).get("breaker") or {}).get("state"))
+            return "rolled-back" in breaker_states and done(side)
+
+        run_passes(pinned_clock, jside, pside, max_passes=60, bad="bad", done=rolled_back_and_done)
+    finally:
+        for side in sides:
+            side.manager.shutdown()
+    assert "rolled-back" in breaker_states  # tripped and rolled back in one pass
+    types_ = {d["type"] for d in _decisions(PORT)}
+    assert {"BreakerTripped", "NodeUpgradeFailed"} <= types_
+    assert {p["metadata"]["labels"]["controller-revision-hash"] for p in pside.cluster.list("Pod", namespace=NS)} == {
+        "good"}
