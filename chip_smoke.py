@@ -155,11 +155,10 @@ failure (the exit code is then non-zero and no result line is printed):
    machine's BuildState and ApplyState (the SLO, remediation and
    analysis engines, done/unknown, the in-place scheduler, cordon,
    wait-for-jobs, pod deletion, drain with the ``CheckpointDrainGate``,
-   pod restart, failed, validation, uncordon) through
-   ``UpgradeStateManager``, the script's stand-in for the JAX package's
+   pod restart, failed, validation, uncordon) through the port's
    ``ClusterUpgradeStateManager`` (``tests/test_torch_rollout_parity.py``
-   holds the two equal pass by pass), the script playing the DaemonSet
-   controller, until the admitted wave is ``upgrade-done``.  The first admission takes 16 racks of 16 (slots
+   holds it to the JAX package's pass by pass), the script playing the
+   DaemonSet controller, until the admitted wave is ``upgrade-done``.  The first admission takes 16 racks of 16 (slots
    count racks under the slice-aware policy), every other node waiting
    and schedulable; every wave node passes cordon, wait-for-jobs, drain,
    pod-restart and uncordon in its flight-recorder timeline, ends done
@@ -173,13 +172,23 @@ failure (the exit code is then non-zero and no result line is printed):
    step times under the wave are logged beside the gate's.  10h, the
    next wave over HTTP: the managers, the gate and the trainer's watcher
    on a ``KubeApiClient`` to the facade, with the same gates and the HTTP
-   requests, batch POSTs and writes per batch logged beside 10g's.  10d,
-   after 10e-10h, no key or value of ``cluster.to_dict()`` names the TPU
-   fleet (``tpu.google.com``, ``gke-tpu``).  Phases 4, 6, 7 and 8 keep
+   requests, batch POSTs and writes per batch logged beside 10g's.  10i,
+   the rest of the fleet in process: ``plan_rollout`` over a dump of the
+   fleet as 10g-10h leave it must converge, its next admission 16 racks
+   of 16 that neither earlier wave took; then, under ``runtime.tuned_gc``,
+   the two remaining waves as 10g's (trainer, gate, rack workloads and
+   every gate) through ``ClusterUpgradeStateManager(...,
+   use_state_index=True)``, the first admission the plan's, each pass's
+   indexed snapshot holding the same buckets as a full one built beside
+   it (both BuildState ms logged); at the end ``RolloutStatus`` counts all
+   1,024 nodes ``upgrade-done``, every node schedulable, every driver pod
+   at ``rev2``, and the remediation breaker closed.  10d, after 10e-10i,
+   no key or value of ``cluster.to_dict()`` names the TPU fleet
+   (``tpu.google.com``, ``gke-tpu``): the whole rollout wrote none.  Phases 4, 6, 7 and 8 keep
    their drain nodes in an ``InMemoryCluster`` served by the same facade
    class;
 11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's,
-   10f's, 10g's and 10h's launches beside its other paths'), the card
+   10f's, 10g's, 10h's and 10i's launches beside its other paths'), the card
    line, and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
@@ -2155,219 +2164,6 @@ def prepare_upgrade(cluster) -> dict:
     return {"prepare_ms": (time.perf_counter() - t0) * 1e3}
 
 
-class UpgradeStateManager:
-    """The state machine's two passes, BuildState and ApplyState, over the
-    port's managers in in-place mode: the stand-in for
-    ``k8s_operator_libs_tpu/upgrade/upgrade_state.py``'s
-    ``ClusterUpgradeStateManager`` until the port has that module.  It
-    takes that class's arguments of the same names, assembles the managers
-    as it does (one worker pool for drains and pod restarts, the SLO,
-    analysis and remediation engines, the flight recorder), and runs the
-    same steps in the same order; ``tests/test_torch_rollout_parity.py``
-    holds it to that class pass by pass.  Left out: requestor mode, the
-    cascade, the state index, reads through the cache, the pod-deletion
-    and validation builders (a policy with a ``validation`` block is
-    refused), the decision-event sink and the reconcile histograms."""
-
-    def __init__(self, cluster, recorder=None, pre_drain_gate=None, write_pipeline_workers: int = 0,
-                 cache_sync_timeout_seconds: float = 10.0, cache_sync_poll_seconds: float = 1.0,
-                 flight_recorder=None):
-        from concurrent.futures import ThreadPoolExecutor
-
-        from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
-        from k8s_operator_libs_tpu_torch.obs.slo import SloEngine
-        from k8s_operator_libs_tpu_torch.upgrade.analysis import AnalysisEngine
-        from k8s_operator_libs_tpu_torch.upgrade.common_manager import CommonUpgradeManager
-        from k8s_operator_libs_tpu_torch.upgrade.cordon_manager import CordonManager
-        from k8s_operator_libs_tpu_torch.upgrade.drain_manager import DrainManager, default_worker_pool_size
-        from k8s_operator_libs_tpu_torch.upgrade.node_upgrade_state_provider import NodeUpgradeStateProvider
-        from k8s_operator_libs_tpu_torch.upgrade.pod_manager import PodManager
-        from k8s_operator_libs_tpu_torch.upgrade.remediation import RemediationManager
-        from k8s_operator_libs_tpu_torch.upgrade.safe_driver_load_manager import SafeDriverLoadManager
-        from k8s_operator_libs_tpu_torch.upgrade.upgrade_inplace import InplaceNodeStateManager
-        from k8s_operator_libs_tpu_torch.upgrade.validation_manager import ValidationManager
-
-        self._cluster, self._recorder = cluster, recorder
-        self.cache = InformerCache(cluster, lag_seconds=0.0)
-        self._flight = flight_recorder
-        self.slo = SloEngine(flight_recorder)
-        self.analysis = AnalysisEngine(history=self.slo.history)
-        self.provider = NodeUpgradeStateProvider(
-            cluster, self.cache, recorder, cache_sync_timeout_seconds=cache_sync_timeout_seconds,
-            cache_sync_poll_seconds=cache_sync_poll_seconds, flight_recorder=flight_recorder,
-            async_visibility=write_pipeline_workers > 0)
-        cordon = CordonManager(cluster, recorder, provider=self.provider)
-        self._pool = ThreadPoolExecutor(max_workers=default_worker_pool_size(),
-                                        thread_name_prefix="upgrade-worker")
-        self.drain_manager = DrainManager(cluster, self.provider, recorder, pre_drain_gate=pre_drain_gate,
-                                          pool=self._pool)
-        self.pod_manager = PodManager(cluster, self.provider, recorder, pool=self._pool)
-        self.common = CommonUpgradeManager(
-            cluster, self.provider, cordon, self.drain_manager, self.pod_manager,
-            ValidationManager(cluster, self.provider, recorder), SafeDriverLoadManager(self.provider), recorder)
-        self.inplace = InplaceNodeStateManager(self.common)
-        self.remediation = RemediationManager(cluster, self.provider, recorder)
-        self._workers = write_pipeline_workers
-        self.last_apply_transitions = 0
-
-    @property
-    def flight_recorder(self):
-        """The injected flight recorder, else the process default."""
-        from k8s_operator_libs_tpu_torch.upgrade import timeline
-
-        return self._flight if self._flight is not None else timeline.default_recorder()
-
-    def build_state(self, namespace: str, driver_labels: dict):
-        """BuildState, full rebuild: a node state a driver pod (its node,
-        pod and DaemonSet), bucketed by the node's state label; every
-        DaemonSet must have its desired number of pods."""
-        from k8s_operator_libs_tpu_torch.cluster.selectors import labels_to_selector
-        from k8s_operator_libs_tpu_torch.obs import tracing
-        from k8s_operator_libs_tpu_torch.upgrade import consts, util
-        from k8s_operator_libs_tpu_torch.upgrade.common_manager import ClusterUpgradeState, NodeUpgradeState
-
-        self.provider.flush_async_visibility()
-        with tracing.start_span("BuildState", attributes={"namespace": namespace, "mode": "full"}):
-            common = self.common
-            self.pod_manager.reset_revision_memo()
-            state = ClusterUpgradeState()
-            daemon_sets = common.get_driver_daemon_sets(namespace, driver_labels)
-            pods = self._cluster.list("Pod", namespace=namespace, label_selector=labels_to_selector(driver_labels))
-            filtered = []
-            for ds in daemon_sets.values():
-                ds_pods = common.get_pods_owned_by_ds(ds, pods)
-                desired = (ds.get("status") or {}).get("desiredNumberScheduled", 0)
-                if int(desired) != len(ds_pods):
-                    raise RuntimeError(f"driver DaemonSet {ds['metadata']['name']} should not have unscheduled "
-                                       f"pods (desired {desired}, found {len(ds_pods)})")
-                filtered.extend(ds_pods)
-            filtered.extend(common.get_orphaned_pods(pods))
-            key = util.get_upgrade_state_label_key()
-            nodes = {(n.get("metadata") or {}).get("name", ""): n for n in self.cache.list("Node")}
-            for pod in filtered:
-                owner = None
-                if not common.is_orphaned_pod(pod):
-                    owner = daemon_sets.get(pod["metadata"]["ownerReferences"][0].get("uid"))
-                node_name = (pod.get("spec") or {}).get("nodeName", "")
-                if not node_name and (pod.get("status") or {}).get("phase") == "Pending":
-                    continue
-                node = nodes.get(node_name) or self.provider.get_node(node_name)
-                bucket = ((node.get("metadata") or {}).get("labels") or {}).get(key, consts.UPGRADE_STATE_UNKNOWN)
-                state.node_states.setdefault(bucket, []).append(
-                    NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=owner))
-            self.flight_recorder.observe(state)
-            return state
-
-    def _publish_gauges(self, state):
-        from k8s_operator_libs_tpu_torch import metrics
-
-        common = self.common
-        in_progress, pending = common.get_upgrades_in_progress(state), common.get_upgrades_pending(state)
-        failed = common.get_upgrades_failed(state)
-        metrics.publish_rollout_gauges({k: len(v) for k, v in state.node_states.items()},
-                                       common.get_total_managed_nodes(state), in_progress, pending, failed,
-                                       common.get_upgrades_done(state))
-        return in_progress, pending, failed
-
-    def apply_state(self, state, policy) -> None:
-        """ApplyState: the SLO, remediation and analysis engines, then the
-        processors in the state machine's order (done/unknown,
-        remediation recovery, upgrade-required through the in-place
-        scheduler, cordon, wait-for-jobs, pod deletion, drain, pod
-        restart, failed, remediation retries, validation, uncordon),
-        under one deferred-visibility barrier and, with
-        *write_pipeline_workers*, the provider's write pipeline."""
-        from contextlib import nullcontext
-
-        from k8s_operator_libs_tpu_torch.obs import tracing
-        from k8s_operator_libs_tpu_torch.tpu import topology
-        from k8s_operator_libs_tpu_torch.upgrade import consts, util
-
-        self.last_apply_transitions = 0
-        if state is None:
-            raise RuntimeError("currentState should not be empty")
-        if policy is not None and policy.validation is not None:
-            raise ValueError("the stand-in state manager does not configure validation")
-        if policy is None or policy.remediation is None:
-            self.remediation.disable()
-        if policy is None or (policy.slos is None and policy.analysis is None):
-            self.slo.disable()
-        else:
-            self.slo.evaluate(state, policy)
-        if policy is None or policy.analysis is None:
-            self.analysis.disable()
-            self.provider.set_write_concurrency_scale(1.0)
-        if policy is not None:
-            topology.set_label_keys(policy.slice_label_keys, policy.multislice_label_keys)
-            self.provider.set_cache_sync_timeout(policy.cache_sync_timeout_second)
-        else:
-            topology.set_label_keys()
-            self.provider.set_cache_sync_timeout(0)
-        common = self.common
-        if policy is None or not policy.auto_upgrade:
-            self._publish_gauges(state)
-            if policy is not None and policy.analysis is not None:
-                decision = self.analysis.evaluate(state, policy, self.slo.last_report(), common=common)
-                self.provider.set_write_concurrency_scale(decision.wave_scale)
-            return
-        with tracing.start_span("ApplyState", attributes={"nodes": sum(len(v) for v in state.node_states.values())}):
-            in_progress, pending, failed = self._publish_gauges(state)
-            if in_progress or pending or failed:
-                util.log_event(self._recorder, util.get_component_name(), "Normal", util.get_event_reason(),
-                               "Upgrade progress: done {}/{} inProgress {} pending {} failed {}".format(
-                                   common.get_upgrades_done(state), common.get_total_managed_nodes(state),
-                                   in_progress, pending, failed))
-            remediation = None
-            if policy.remediation is not None:
-                remediation = self.remediation.evaluate(state, policy, common)
-            analysis = None
-            if policy.analysis is not None:
-                analysis = self.analysis.evaluate(state, policy, self.slo.last_report(), common=common,
-                                                  remediation=remediation)
-                if (analysis.aborted and policy.remediation is not None
-                        and not (remediation is not None and remediation.paused)):
-                    updated = self.remediation.trip_for_slo(state, policy, common, analysis.abort_reason)
-                    if updated is not None:
-                        remediation = updated
-                self.provider.set_write_concurrency_scale(analysis.wave_scale)
-            drain_enabled = policy.drain_spec is not None and policy.drain_spec.enable
-            phases = [
-                lambda: common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_UNKNOWN),
-                lambda: common.process_done_or_unknown_nodes(state, consts.UPGRADE_STATE_DONE),
-                lambda: self.remediation.process_recovered_nodes(state, policy, common),
-                lambda: self.inplace.process_upgrade_required_nodes(state, policy, remediation=remediation,
-                                                                    analysis=analysis),
-                lambda: common.process_cordon_required_nodes(state),
-                lambda: common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion),
-                lambda: common.process_pod_deletion_required_nodes(state, policy.pod_deletion, drain_enabled),
-                lambda: common.process_drain_nodes(state, policy.drain_spec),
-                lambda: common.process_pod_restart_nodes(state),
-                lambda: common.process_upgrade_failed_nodes(state),
-                lambda: self.remediation.process_failed_nodes(state, policy, common),
-                lambda: common.process_validation_required_nodes(state),
-                lambda: self.inplace.process_uncordon_required_nodes(state),
-            ]
-            transitions = {"n": 0}
-
-            def count(node, new_state):
-                transitions["n"] += 1
-
-            pipeline = self.provider.pipelined_writes(self._workers) if self._workers > 0 else nullcontext()
-            with self.provider.deferred_visibility(), pipeline, self.provider.transition_listener(count):
-                for phase in phases:
-                    phase()
-            self.last_apply_transitions = transitions["n"]
-
-    def wait_idle(self, what: str, timeout: float = 120.0) -> None:
-        """Waits for the drains and pod restarts in flight."""
-        if not (self.drain_manager.wait_idle(timeout) and self.pod_manager.wait_idle(timeout)):
-            raise RuntimeError(f"{what}: drains or pod restarts still in flight after {timeout:g} s")
-
-    def shutdown(self) -> None:
-        self._pool.shutdown(wait=True)
-        self.provider.close()
-
-
 def play_daemonset(store) -> int:
     """The DaemonSet controller: recreate each deleted driver pod at the
     newest revision, Ready.  Returns how many it created."""
@@ -2433,22 +2229,36 @@ def _step_ms(polls) -> dict:
             "last": (polls[-1] - polls[-2]) * 1e3}
 
 
-def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
-    """10g (and 10h over HTTP, *facade* serving *store* to *client*): the
-    port's managers on *client* take the next wave of the fleet (*store*
-    is the cluster behind it) through a whole upgrade, pass by pass, with
-    the smoke-config trainer on the card on one node of the wave; see the
-    module docstring for the gates.  Returns the host-clock figures."""
+def _buckets(state) -> dict:
+    """A snapshot's buckets: state -> sorted node names."""
+    return {bucket: sorted(ns.node["metadata"]["name"] for ns in entries)
+            for bucket, entries in state.node_states.items() if entries}
+
+
+def upgrade_wave(client, store, config, what: str = "10g", facade=None, use_state_index: bool = False,
+                 expect_wave=None) -> dict:
+    """10g (and 10h over HTTP, *facade* serving *store* to *client*; 10i's
+    waves through the state index): the port's ``ClusterUpgradeStateManager``
+    on *client* takes the next wave of the fleet (*store* is the cluster
+    behind it) through a whole upgrade, pass by pass, with the
+    smoke-config trainer on the card on one node of the wave; see the
+    module docstring for the gates.  With *use_state_index*, each pass
+    also builds a full snapshot, whose buckets must equal the indexed
+    one's; *expect_wave*, a set of node names, must be the first
+    admission.  Returns the host-clock figures."""
     from concurrent.futures import ThreadPoolExecutor
 
     from k8s_operator_libs_tpu_torch import metrics
+    from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
     from k8s_operator_libs_tpu_torch.obs import events, tracing
+    from k8s_operator_libs_tpu_torch.obs.slo import SloEngine
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
     from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate, DrainSignalWatcher
     from k8s_operator_libs_tpu_torch.upgrade import consts, timeline, util
     from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
     from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+    from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
     class TokenWatcher(DrainSignalWatcher):
         """The trainer's watcher, keeping the request it answered and the
@@ -2476,10 +2286,15 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     previous = (metrics.set_default_registry(registry), tracing.set_default_tracer(tracer),
                 events.set_default_log(log_))
     served0 = None if facade is None else facade.requests_served
-    managers = UpgradeStateManager(
-        client, recorder=util.EventRecorder(),
+    manager = ClusterUpgradeStateManager(
+        client, cache=InformerCache(client, lag_seconds=0.0), recorder=util.EventRecorder(),
         pre_drain_gate=CheckpointDrainGate(client, policy.pre_drain_checkpoint), write_pipeline_workers=16,
-        cache_sync_timeout_seconds=30.0, cache_sync_poll_seconds=0.01, flight_recorder=flight)
+        cache_sync_timeout_seconds=30.0, cache_sync_poll_seconds=0.01, flight_recorder=flight,
+        use_state_index=use_state_index)
+    # the full snapshot the indexed one is held to, from a manager that
+    # only builds
+    full = ClusterUpgradeStateManager(client, cache=InformerCache(client, lag_seconds=0.0),
+                                      flight_recorder=timeline.FlightRecorder()) if use_state_index else None
     workloads = _RackWorkloads(store)
     passes, wave, trainer, run, host = [], [], None, None, None
     t_admit = t_done = None
@@ -2487,7 +2302,18 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
         with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{what}-") as ckpt, ThreadPoolExecutor(1) as pool:
             for n in range(WAVE_MAX_PASSES):
                 t0 = time.perf_counter()
-                state = managers.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+                state = manager.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+                built = {"build_ms": (time.perf_counter() - t0) * 1e3}
+                if full is not None:
+                    if not state.built_from_index:
+                        raise RuntimeError(f"{what}: pass {n}'s snapshot was not built from the state index")
+                    t1 = time.perf_counter()
+                    full_state = full.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+                    built["full_build_ms"] = (time.perf_counter() - t1) * 1e3
+                    if _buckets(full_state) != _buckets(state):
+                        raise RuntimeError(f"{what}: pass {n}'s indexed snapshot differs from the full one: "
+                                           f"{ {k: len(v) for k, v in _buckets(state).items()} } against "
+                                           f"{ {k: len(v) for k, v in _buckets(full_state).items()} }")
                 status = RolloutStatus.from_cluster_state(state, policy)
                 if (status.total_nodes != FLEET_NODES
                         or status.done + status.in_progress + status.pending + status.unknown != FLEET_NODES):
@@ -2495,11 +2321,15 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
                                        f"{status.by_state}")
                 pending_before = {ns.node["metadata"]["name"] for ns in state.nodes_in(
                     consts.UPGRADE_STATE_UPGRADE_REQUIRED)}
-                managers.apply_state(state, policy)
-                managers.wait_idle(what)
+                manager.apply_state(state, policy)
+                if not (manager.drain_manager.wait_idle(120.0) and manager.pod_manager.wait_idle(120.0)):
+                    raise RuntimeError(f"{what}: drains or pod restarts still in flight after 120 s")
                 if not wave:
                     admitted = sorted(n_ for n_ in pending_before if store.get("Node", n_)["metadata"]["labels"].get(
                         state_key) == consts.UPGRADE_STATE_CORDON_REQUIRED)
+                    if admitted and expect_wave is not None and set(admitted) != set(expect_wave):
+                        raise RuntimeError(f"{what}: the first admission ({len(admitted)} nodes) is not the plan's "
+                                           f"({len(expect_wave)}): {sorted(set(admitted) ^ set(expect_wave))[:5]}")
                     if admitted:
                         t_admit, wave = t0, admitted
                         host = wave[len(wave) // 2]
@@ -2511,7 +2341,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
                         trainer.watcher.polls.clear()  # time the steps under the wave only
                         run = pool.submit(trainer.run, 3000)  # a thread: it drains on its node's request
                 made = play_daemonset(store)
-                passes.append({"ms": (time.perf_counter() - t0) * 1e3, "driver_pods_recreated": made})
+                passes.append({"ms": (time.perf_counter() - t0) * 1e3, "driver_pods_recreated": made, **built})
                 if wave and all(store.get("Node", n_)["metadata"]["labels"].get(state_key)
                                 == consts.UPGRADE_STATE_DONE for n_ in wave):
                     t_done = time.perf_counter()
@@ -2525,19 +2355,21 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
                 raise RuntimeError(f"{what}: the checkpoint does not restore at step {step}")
             answered = trainer.watcher.answered or ""
             polls = trainer.watcher.polls
-        final = managers.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+        final = manager.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
         status = RolloutStatus.from_cluster_state(final, policy)
         if (status.total_nodes != FLEET_NODES or status.in_progress
                 or status.done + status.pending + status.unknown != FLEET_NODES):
             raise RuntimeError(f"{what}: the status after the wave does not account for the fleet: "
                                f"{status.by_state}")
-        final_slo = managers.slo.evaluate(final, policy)
+        final_slo = SloEngine(flight).evaluate(final, policy)
         remediation = remediation_report(final, policy)
         batches, writes = metrics.write_batch_size_histogram().count(), metrics.write_batch_size_histogram().sum()
         requests = None if facade is None else facade.requests_served - served0
     finally:
         workloads.close()
-        managers.shutdown()
+        manager.shutdown()
+        if full is not None:
+            full.shutdown()
         metrics.set_default_registry(previous[0])
         tracing.set_default_tracer(previous[1])
         events.set_default_log(previous[2])
@@ -2611,6 +2443,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     rec = {
         "nodes": len(wave), "racks": len(racks), "rack_ids": sorted(racks), "passes": len(passes),
         "wave_ms": (t_done - t_admit) * 1e3, "pass_ms": [round(p["ms"], 1) for p in passes],
+        "build_ms": [round(p["build_ms"], 1) for p in passes],
         "driver_pods_recreated": sum(p["driver_pods_recreated"] for p in passes),
         "admitted": admitted_events, "deferred_nodes": len(deferred),
         "phase_seconds": {p: {"p50": s["p50"], "p95": s["p95"], "count": s["count"]}
@@ -2625,14 +2458,78 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None) -> dict:
     }
     if requests is not None:
         rec["http_requests"] = requests
+    if full is not None:
+        rec["full_build_ms"] = [round(p["full_build_ms"], 1) for p in passes]
+    return rec
+
+
+def fleet_rest(store, config, taken) -> dict:
+    """10i: the rest of the fleet after 10g and 10h, in process.
+    ``plan_rollout`` projects the rollout over a dump of the fleet as it
+    stands; then the remaining waves go through the port's
+    ``ClusterUpgradeStateManager`` with the state index, each as 10g's
+    (trainer, gate and rack workloads), under ``runtime.tuned_gc``, the
+    first admission the plan's.  *taken* holds the racks of the earlier
+    waves.  Returns the host-clock figures."""
+    from k8s_operator_libs_tpu_torch import runtime
+    from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+    from k8s_operator_libs_tpu_torch.upgrade.plan import plan_rollout
+    from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
+    from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+    from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
+
+    policy, taken = wave_policy(store), set(taken)
+    slice_key = consts.SLICE_ID_LABEL_KEYS[0]
+    t0 = time.perf_counter()
+    plan = plan_rollout(store.to_dict(), FLEET_NAMESPACE, FLEET_DRIVER_LABELS, policy)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    first = set(plan.next_admissions)
+    racks = {store.get("Node", n)["metadata"]["labels"][slice_key] for n in first}
+    if not plan.converged or len(first) != FLEET_RACK * FLEET_RACK or len(racks) != FLEET_RACK or racks & taken:
+        raise RuntimeError(f"10i: the plan converged {plan.converged}; its next admissions are {len(first)} nodes "
+                           f"in {len(racks)} racks, {len(racks & taken)} of them taken by 10g-10h")
+    rec = {"plan_cycles": plan.cycles_simulated, "plan_ms": plan_ms,
+           "plan_projected_states": plan.projected_states, "waves": []}
+    remaining = FLEET_NODES // (FLEET_RACK * FLEET_RACK) - len(taken) // FLEET_RACK
+    with runtime.tuned_gc():
+        for k in range(remaining):
+            wave = upgrade_wave(store, store, config, f"10i wave {k + 1}", use_state_index=True,
+                                expect_wave=first if k == 0 else None)
+            if set(wave["rack_ids"]) & taken:
+                raise RuntimeError(f"10i wave {k + 1}: took racks of an earlier wave: {wave['rack_ids']}")
+            taken |= set(wave["rack_ids"])
+            rec["waves"].append(wave)
+    manager = ClusterUpgradeStateManager(store, cache=InformerCache(store, lag_seconds=0.0))
+    try:
+        final = manager.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+    finally:
+        manager.shutdown()
+    status = RolloutStatus.from_cluster_state(final, policy)
+    remediation = remediation_report(final, policy)
+    state_key = util.get_upgrade_state_label_key()
+    nodes = store.list("Node")
+    revisions = {p["metadata"]["labels"].get("controller-revision-hash")
+                 for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+    labels = {n["metadata"]["labels"].get(state_key) for n in nodes}
+    if (status.total_nodes != FLEET_NODES or status.done != FLEET_NODES or labels != {consts.UPGRADE_STATE_DONE}
+            or any(n["spec"].get("unschedulable") for n in nodes) or revisions != {"rev2"} or len(taken)
+            != FLEET_NODES // FLEET_RACK):
+        raise RuntimeError(f"10i: the fleet ends {status.by_state}, labels {labels}, driver revisions {revisions}, "
+                           f"{len(taken)} racks upgraded")
+    if (remediation["breaker"] or {}).get("state") == "open" or remediation["blocking"]:
+        raise RuntimeError(f"10i: remediation {remediation}")
+    rec["status"] = {"done": status.done, "total": status.total_nodes,
+                     "breaker": (remediation["breaker"] or {}).get("state", "closed")}
     return rec
 
 
 def fleet_phase(config, card: str) -> dict:
     """Phase 10: the drain through the full in-memory cluster, at the size
-    of a large fleet, then through its HTTP facade, then two upgrade waves
-    through the node managers, in process and over HTTP (10a-10h; see
-    the module docstring)."""
+    of a large fleet, then through its HTTP facade, then the whole fleet
+    upgraded by the port's state machine: a wave in process, a wave over
+    HTTP, and the rest through the state index (10a-10i; see the module
+    docstring)."""
     from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
     from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
     from k8s_operator_libs_tpu_torch.obs import tracing
@@ -2665,14 +2562,18 @@ def fleet_phase(config, card: str) -> dict:
             "http": {**http_wave, "phase_s": time.perf_counter() - t0}, "in_process": wave}), "|", card)
     if set(wave["rack_ids"]) & set(http_wave["rack_ids"]):
         raise RuntimeError(f"10h: the second wave took racks of the first: {http_wave['rack_ids']}")
+    t0 = time.perf_counter()
+    rest = fleet_rest(cluster, config, set(wave["rack_ids"]) | set(http_wave["rack_ids"]))
+    log("phase 10i the rest of the fleet through the state index (host clock):",
+        json.dumps({**rest, "phase_s": time.perf_counter() - t0}), "|", card)
     dump = json.dumps(cluster.to_dict())
     found = [m for m in TPU_MARKERS if m in dump]
     if found:
         raise RuntimeError(f"10d: the cluster holds {found}")
     log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}"
-        " (after 10e-10h)")
+        f" (after 10e-10i, all {FLEET_NODES} nodes upgraded)")
     return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain, "http_fan_out": http_fan,
-            "http_drain": http_drain, "wave": wave, "http_wave": http_wave}
+            "http_drain": http_drain, "wave": wave, "http_wave": http_wave, "rest": rest}
 
 
 def compiled_report():
@@ -3079,6 +2980,8 @@ def main(argv=None) -> int:
                     fleet["wave"]["flash_launches"][name],
                 f"10h rack wave over HTTP ({fleet['http_wave']['drained_at_step']} steps)":
                     fleet["http_wave"]["flash_launches"][name],
+                **{f"10i wave {k + 1} ({w['drained_at_step']} steps)": w["flash_launches"][name]
+                   for k, w in enumerate(fleet["rest"]["waves"])},
             },
         })
     step = int8_timing["per_decode_step"]

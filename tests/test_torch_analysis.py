@@ -2,14 +2,13 @@
 (k8s_operator_libs_tpu_torch/upgrade/analysis.py), its metrics-history
 ring (obs/history.py) and the AnalysisSpec API.
 
-The tests of ``tests/test_analysis.py``'s ``TestConditionGrammar``,
-``TestAnalysisSpecValidation``, ``TestMetricsHistory``,
-``TestPacingController``, ``TestAnalysisLifetime`` and
-``TestWriteConcurrencyScale`` that run no rollout, as cases of the same
-names, run on the port.  The tests that reconcile through
-``ClusterUpgradeStateManager`` wait for its port; ``analysis_report`` and
-``gate_from_report`` over a rollout's snapshot are held to the JAX
-package's in ``tests/test_torch_rollout_parity.py``.
+The classes of ``tests/test_analysis.py``, as cases of the same names,
+run on the port, the rollouts through the port's
+``ClusterUpgradeStateManager``; ``analysis_report`` and
+``gate_from_report`` over a rollout's snapshot are also held to the JAX
+package's in ``tests/test_torch_rollout_parity.py``.  Left in the JAX
+file: ``TestGateSloThreePlanes`` (an ``OpsServer`` and the CLI) and the
+two CLI tests of ``TestRolloutStatusAnalysis``.
 """
 
 import random
@@ -34,7 +33,10 @@ from k8s_operator_libs_tpu_torch.obs import events as events_mod
 from k8s_operator_libs_tpu_torch.obs import history as history_mod
 from k8s_operator_libs_tpu_torch.upgrade import analysis as analysis_mod
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -72,6 +74,34 @@ def rollout_policy(**kwargs):
         max_unavailable=IntOrString("100%"),
         drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
         **kwargs,
+    )
+
+
+def reconcile(manager, fleet, policy):
+    state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+    manager.apply_state(state, policy)
+    manager.drain_manager.wait_idle(10.0)
+    manager.pod_manager.wait_idle(10.0)
+    fleet.reconcile_daemonset()
+    return state
+
+
+# ------------------------------------------------------- engine behavior
+@pytest.fixture()
+def gated_fleet():
+    cluster = InMemoryCluster()
+    fleet = Fleet(cluster, revision_hash="rev1")
+    for i in range(6):
+        fleet.add_node(f"node-{i}")
+    manager = ClusterUpgradeStateManager(cluster)
+    yield cluster, fleet, manager
+    manager.shutdown()
+
+
+def analysis_policy(**analysis_kw):
+    return rollout_policy(
+        slos=SloSpec(fleet_completion_deadline_seconds=86400.0),
+        analysis=AnalysisSpec(**analysis_kw),
     )
 
 
@@ -535,6 +565,117 @@ class TestAnalysisLifetime:
         decision = engine.evaluate(state, policy, None, common=None)
         assert not decision.aborted
 
+    def test_new_rollout_restarts_the_steps(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        """A passed analysis is passed for ONE revision: the next
+        rollout under the same long-lived manager must re-enter step
+        one and re-apply its exposure cap, not wave straight through."""
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(2),
+                    advance_on=("breaches == 0",),
+                ),
+            )
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(60):
+            reconcile(manager, fleet, policy)
+            if fleet.all_done():
+                break
+        assert fleet.all_done()
+        assert (manager.analysis_status() or {}).get("passed") is True
+        # rollout 2: the cursor must reset and the cap re-gate
+        events_mod.default_log().clear()
+        fleet.publish_new_revision("rev3")
+        # never-advancing now, so the re-applied cap is observable
+        policy.analysis.steps[0].advance_on = ("breaches == 0 for 3600s",)
+        for _ in range(4):
+            reconcile(manager, fleet, policy)
+        report = manager.analysis_status() or {}
+        assert report.get("passed") is False, report
+        assert report.get("activeStep") == "soak", report
+        exposed = [
+            n for n, s in fleet.states().items()
+            if s != consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        ]
+        assert len(exposed) == 2, fleet.states()
+        assert any(
+            e["type"] == events_mod.EVENT_NODE_DEFERRED
+            and e["reason"] == events_mod.REASON_SLO_GATE
+            for e in events_mod.default_log().events()
+        )
+
+    def test_midrollout_revision_publish_restarts_the_steps(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        """A rev3 published while the rev2 rollout is still in flight
+        never re-stamps the rollout start — the TARGET change must
+        restart the analysis (and its observation windows) anyway."""
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(2),
+                    advance_on=("breaches == 0",),  # instant
+                ),
+            )
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(4):
+            reconcile(manager, fleet, policy)
+        assert (manager.analysis_status() or {}).get("passed") is True
+        assert not fleet.all_done()
+        # rev3 lands mid-flight: the cursor must re-enter step one
+        fleet.publish_new_revision("rev3")
+        policy.analysis.steps[0].advance_on = ("breaches == 0 for 3600s",)
+        for _ in range(3):
+            reconcile(manager, fleet, policy)
+        report = manager.analysis_status() or {}
+        assert report.get("passed") is False, report
+        assert report.get("activeStep") == "soak", report
+
+    def test_pacing_recovers_while_rollout_is_paused(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        """auto_upgrade=False must not freeze the analysis plane: the
+        AIMD scale keeps recovering during the pause (no stale
+        UpgradePacingThrottled page, no stuck write-concurrency cap)."""
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="watch", advance_on=("stragglers == 0",)
+                ),
+            ),
+            pacing=AdaptivePacingSpec(
+                adjust_interval_seconds=0.0, min_scale=0.25
+            ),
+        )
+        fleet.publish_new_revision("rev2")
+        reconcile(manager, fleet, policy)
+        policy.slos.fleet_completion_deadline_seconds = 1e-6
+        for _ in range(3):
+            reconcile(manager, fleet, policy)
+        assert (
+            (manager.analysis_status() or {}).get("pacing") or {}
+        ).get("scale", 1.0) < 1.0
+        # pause + clear the pressure: the scale must climb back to 1.0
+        policy.auto_upgrade = False
+        policy.slos.fleet_completion_deadline_seconds = 86400.0
+        for _ in range(8):
+            reconcile(manager, fleet, policy)
+        assert (
+            (manager.analysis_status() or {}).get("pacing") or {}
+        ).get("scale") == 1.0
+
 
 class TestWriteConcurrencyScale:
     def test_dispatcher_claim_cap_scales_and_restores(self):
@@ -615,3 +756,301 @@ class TestWriteConcurrencyScale:
             node = store.get("Node", f"n{i}")
             assert node["metadata"]["labels"]["x"] == str(i)
 
+
+class TestAnalysisEngine:
+    def test_exposure_cap_defers_with_gate_slo(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(2),
+                    advance_on=("breaches == 0 for 3600s",),  # never
+                ),
+            )
+        )
+        policy.validate()
+        fleet.publish_new_revision("rev2")
+        for _ in range(3):
+            reconcile(manager, fleet, policy)
+        # exactly 2 units exposed, the rest deferred with gate:slo
+        exposed = [
+            n for n, s in fleet.states().items()
+            if s != consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        ]
+        assert len(exposed) == 2, fleet.states()
+        deferred = [
+            e
+            for e in events_mod.default_log().events()
+            if e["type"] == events_mod.EVENT_NODE_DEFERRED
+            and e["reason"] == events_mod.REASON_SLO_GATE
+        ]
+        assert len(deferred) == 4, deferred
+        report = manager.analysis_status()
+        assert report["activeStep"] == "soak"
+        assert report["exposure"]["cap"] == 2
+        out = fresh_registry.render()
+        assert 'analysis_gate_state{step="soak"} 1' in out
+        assert 'reason="gate:slo"' in out
+
+    def test_advance_opens_fleet_and_emits_event(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(2),
+                    advance_on=("breaches == 0",),  # instant
+                ),
+            )
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(60):
+            reconcile(manager, fleet, policy)
+            if fleet.all_done():
+                break
+        assert fleet.all_done(), fleet.states()
+        events = events_mod.default_log().events()
+        assert any(
+            e["type"] == events_mod.EVENT_ANALYSIS_STEP_ADVANCED
+            and e["reason"] == events_mod.REASON_SLO_GATE
+            for e in events
+        )
+        report = manager.analysis_status()
+        assert report["passed"] is True
+        out = fresh_registry.render()
+        assert 'analysis_gate_state{step="soak"} 2' in out
+
+    def test_abort_trips_breaker_and_rolls_back_to_lkg(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        from k8s_operator_libs_tpu_torch.api import RemediationSpec
+        from k8s_operator_libs_tpu_torch.cluster.objects import (
+            CONTROLLER_REVISION_HASH_LABEL,
+        )
+
+        cluster, fleet, manager = gated_fleet
+        policy = rollout_policy(
+            slos=SloSpec(fleet_completion_deadline_seconds=86400.0),
+            remediation=RemediationSpec(
+                failure_threshold=1.0,
+                min_attempted=999,
+                auto_rollback=True,
+                backoff_seconds=0.0,
+            ),
+            analysis=AnalysisSpec(
+                steps=(
+                    AnalysisStepSpec(
+                        name="watch",
+                        abort_on=(
+                            "burn:fleetCompletionDeadlineSeconds >= 5",
+                        ),
+                    ),
+                ),
+            ),
+        )
+        # healthy era records the LKG
+        for _ in range(2):
+            reconcile(manager, fleet, policy)
+        fleet.publish_new_revision("rev2")
+        reconcile(manager, fleet, policy)
+        assert not fleet.all_done()
+        # inject: burn explodes, the abort condition holds instantly
+        policy.slos.fleet_completion_deadline_seconds = 1e-6
+        for _ in range(5):
+            reconcile(manager, fleet, policy)
+            if (manager.analysis_status() or {}).get("aborted"):
+                break
+        assert (manager.analysis_status() or {}).get("aborted"), (
+            manager.analysis_status()
+        )
+        breaker = (manager.remediation_status() or {}).get("breaker") or {}
+        assert breaker.get("reason", "").startswith("analysis step")
+        types = {e["type"] for e in events_mod.default_log().events()}
+        assert events_mod.EVENT_ANALYSIS_ABORTED in types
+        assert events_mod.EVENT_BREAKER_TRIPPED in types
+        assert events_mod.EVENT_ROLLBACK_STARTED in types
+        # fix the SLO; the rollback converges the fleet on the LKG
+        policy.slos.fleet_completion_deadline_seconds = 86400.0
+        for _ in range(80):
+            reconcile(manager, fleet, policy)
+            if fleet.all_done():
+                break
+        assert fleet.all_done(), fleet.states()
+        for pod in cluster.list("Pod", namespace=NAMESPACE):
+            assert (
+                pod["metadata"]["labels"][CONTROLLER_REVISION_HASH_LABEL]
+                == "rev1"
+            )
+        # the abort latch released once the target moved off rev2
+        assert not (manager.analysis_status() or {}).get("aborted")
+
+    def test_abort_without_remediation_blocks_with_gate_slo(
+        self, gated_fleet, fresh_decision_log, fresh_flight_recorder,
+    ):
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="watch",
+                    abort_on=("burn:fleetCompletionDeadlineSeconds >= 5",),
+                ),
+            )
+        )
+        fleet.publish_new_revision("rev2")
+        reconcile(manager, fleet, policy)
+        policy.slos.fleet_completion_deadline_seconds = 1e-6
+        before = dict(fleet.states())
+        for _ in range(4):
+            reconcile(manager, fleet, policy)
+        assert (manager.analysis_status() or {}).get("aborted")
+        # no remediation block: nothing rolls back, but nothing fresh
+        # is admitted either — pending nodes freeze with gate:slo
+        pending = [
+            n for n, s in fleet.states().items()
+            if s == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        ]
+        assert pending
+        deferred = [
+            e
+            for e in events_mod.default_log().events()
+            if e["type"] == events_mod.EVENT_NODE_DEFERRED
+            and e["reason"] == events_mod.REASON_SLO_GATE
+        ]
+        assert deferred
+        assert before  # silence unused warning; states captured above
+
+    def test_removed_analysis_block_retires_cleanly_mid_rollout(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        """The satellite bugfix regression: a removed analysis block
+        must retire its gauges, drop the abort latch, restore the wave
+        scale, and release the exposure gate — mid-rollout."""
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(1),
+                    advance_on=("breaches == 0 for 3600s",),  # never
+                ),
+            ),
+            pacing=AdaptivePacingSpec(adjust_interval_seconds=0.0),
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(3):
+            reconcile(manager, fleet, policy)
+        assert "analysis_gate_state" in fresh_registry.render()
+        assert manager.analysis_status() is not None
+        # the operator edits the CR: block removed mid-rollout
+        policy.analysis = None
+        reconcile(manager, fleet, policy)
+        assert manager.analysis_status() is None
+        out = fresh_registry.render()
+        assert 'analysis_gate_state{step=' not in out
+        # the scale SERIES is retired (the family header alone remains)
+        assert "\nk8s_operator_libs_tpu_pacing_wave_scale " not in out
+        # the exposure gate is gone: the fleet converges
+        for _ in range(60):
+            reconcile(manager, fleet, policy)
+            if fleet.all_done():
+                break
+        assert fleet.all_done(), fleet.states()
+
+    def test_removed_slos_block_retires_gauges_while_analysis_runs(
+        self, gated_fleet, fresh_decision_log, fresh_registry,
+        fresh_flight_recorder,
+    ):
+        """Removing only the slos block mid-rollout retires the SLO
+        gauge families and the breach edge-set while the analysis block
+        keeps evaluating over the analytics series."""
+        cluster, fleet, manager = gated_fleet
+        policy = rollout_policy(
+            slos=SloSpec(
+                # microscopic: breaches immediately, so the breach
+                # gauges exist before the block is removed
+                max_node_phase_seconds=1e-6,
+                fleet_completion_deadline_seconds=86400.0,
+            ),
+            analysis=AnalysisSpec(
+                steps=(
+                    AnalysisStepSpec(
+                        name="soak", advance_on=("stragglers == 0",)
+                    ),
+                ),
+            ),
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(4):
+            reconcile(manager, fleet, policy)
+        out = fresh_registry.render()
+        assert "slo_burn_rate" in out
+        policy.slos = None
+        policy.analysis.steps[0].advance_on = ("stragglers == 0",)
+        reconcile(manager, fleet, policy)
+        out = fresh_registry.render()
+        assert "slo_burn_rate{" not in out
+        assert "slo_breached{" not in out
+        # the analytics-driven analysis keeps running
+        assert manager.analysis_status() is not None
+        # /debug/slo report still served (analytics-only)
+        assert manager.slo_status() is not None
+        assert manager.slo_status().get("slos") is None
+
+
+class TestRolloutStatusAnalysis:
+    def test_status_carries_analysis_gate_and_pacing(
+        self, gated_fleet, fresh_decision_log, fresh_flight_recorder,
+    ):
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak",
+                    max_exposure=IntOrString(2),
+                    advance_on=("breaches == 0 for 3600s",),
+                ),
+            ),
+            pacing=AdaptivePacingSpec(),
+        )
+        fleet.publish_new_revision("rev2")
+        for _ in range(3):
+            state = reconcile(manager, fleet, policy)
+        status = RolloutStatus.from_cluster_state(
+            state,
+            policy=policy,
+            analysis=manager.analysis_status(),
+        )
+        gates = {g.gate: g for g in status.gates}
+        assert "analysis" in gates
+        assert gates["analysis"].blocking
+        assert "exposure cap" in gates["analysis"].reason
+        rendered = status.render()
+        assert "analysis" in rendered
+        payload = status.to_dict()
+        assert payload["analysis"]["activeStep"] == "soak"
+
+    def test_offline_status_computes_analysis_approximation(
+        self, gated_fleet, fresh_decision_log, fresh_flight_recorder,
+    ):
+        cluster, fleet, manager = gated_fleet
+        policy = analysis_policy(
+            steps=(
+                AnalysisStepSpec(
+                    name="soak", advance_on=("stragglers == 0",)
+                ),
+            ),
+        )
+        fleet.publish_new_revision("rev2")
+        state = reconcile(manager, fleet, policy)
+        status = RolloutStatus.from_cluster_state(state, policy=policy)
+        assert status.analysis is not None
+        assert status.analysis["offline"] is True

@@ -1,8 +1,11 @@
 """The port's decision-event log (k8s_operator_libs_tpu_torch/obs/
 events.py) against the JAX package's obs/events.py.
 
-* ``TestDecisionEventLog`` and ``TestClusterSink`` of
-  ``tests/test_events.py``, as cases of the same names, run on the port;
+* the classes of ``tests/test_events.py``, as cases of the same names,
+  run on the port, the scheduler's and drain's emissions, ``explain``
+  and the status integration through its ``ClusterUpgradeStateManager``
+  (``TestOpsServerSurfaces`` and ``TestCli`` wait for the controller and
+  the CLI);
 * a differential test: one seeded stream of decisions goes to a log of
   each package and, pump by pump, through each package's
   :class:`ClusterDecisionEventSink` into its in-memory cluster.  The logs'
@@ -19,11 +22,16 @@ import pytest
 from k8s_operator_libs_tpu.cluster import InMemoryCluster as JaxInMemoryCluster
 from k8s_operator_libs_tpu.obs import events as jevents
 from k8s_operator_libs_tpu_torch import metrics
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, MaintenanceWindowSpec, UpgradePolicySpec
 from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
 from k8s_operator_libs_tpu_torch.obs import events as events_mod
 from k8s_operator_libs_tpu_torch.obs import tracing
+from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
 from test_torch_cluster import mask
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals, to_port_vocab  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -32,6 +40,35 @@ pytestmark = pytest.mark.usefixtures("port_globals")
 @pytest.fixture()
 def cluster():
     return InMemoryCluster()
+
+
+def reconcile_once(manager, policy):
+    state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+    manager.apply_state(state, policy)
+    manager.drain_manager.wait_idle(10.0)
+    manager.pod_manager.wait_idle(10.0)
+    return state
+
+
+def throttled_policy(**kwargs):
+    return UpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=1,
+        max_unavailable=IntOrString("100%"),
+        drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+        **kwargs,
+    )
+
+
+def closed_window() -> MaintenanceWindowSpec:
+    """A 1-hour window opening 6 hours from now — closed regardless of
+    when the test runs."""
+    from datetime import datetime, timedelta, timezone
+
+    opens = datetime.now(timezone.utc) + timedelta(hours=6)
+    return MaintenanceWindowSpec(
+        start=f"{opens.hour:02d}:{opens.minute:02d}", duration_minutes=60
+    )
 
 
 class TestDecisionEventLog:
@@ -523,3 +560,266 @@ def test_the_log_and_the_sink_act_as_the_jax_ones(seed, capacity):
 def test_the_annotations_are_the_jax_ones_rewritten():
     assert events_mod.SEQ_ANNOTATION == to_port_vocab(jevents.SEQ_ANNOTATION) == "nvidia.com/decision-seq"
     assert events_mod.SRC_ANNOTATION == to_port_vocab(jevents.SRC_ANNOTATION) == "nvidia.com/decision-src"
+
+
+# ------------------------------------------------------------ emission sites
+class TestSchedulerEmissions:
+    def make_fleet(self, cluster, n=3):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        for i in range(n):
+            fleet.add_node(f"n{i}")
+        fleet.publish_new_revision("rev2")
+        return fleet
+
+    def test_admission_and_budget_deferral_and_wave(self, cluster):
+        self.make_fleet(cluster)
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy()
+            reconcile_once(manager, policy)  # classify
+            reconcile_once(manager, policy)  # admit 1, defer 2
+        finally:
+            manager.shutdown()
+        log = events_mod.default_log()
+        admitted = log.events(type_="NodeAdmitted")
+        assert len(admitted) == 1 and admitted[0]["reason"] == "fresh"
+        deferred = log.events(type_="NodeDeferred")
+        assert {e["reason"] for e in deferred} == {"budget"}
+        assert len(deferred) == 2
+        waves = log.events(type_="WavePlanned")
+        assert waves and waves[0]["target"] == "fleet"
+
+    def test_window_closed_defers_with_window_reason(self, cluster):
+        self.make_fleet(cluster)
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy(maintenance_window=closed_window())
+            reconcile_once(manager, policy)
+            reconcile_once(manager, policy)
+        finally:
+            manager.shutdown()
+        deferred = events_mod.default_log().events(type_="NodeDeferred")
+        assert deferred and {e["reason"] for e in deferred} == {"window"}
+
+    def test_canary_hold_defers_with_canary_reason(self, cluster):
+        self.make_fleet(cluster)
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy(canary_domains=1)
+            policy.max_parallel_upgrades = 0
+            reconcile_once(manager, policy)
+            reconcile_once(manager, policy)
+        finally:
+            manager.shutdown()
+        reasons = {
+            e["reason"]
+            for e in events_mod.default_log().events(type_="NodeDeferred")
+        }
+        assert "canary" in reasons
+
+
+class TestDrainEmissions:
+    def test_drain_success_and_failure_emit(self, cluster):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        fleet.add_node("n0")
+        fleet.publish_new_revision("rev2")
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy()
+            for _ in range(6):
+                reconcile_once(manager, policy)
+                fleet.reconcile_daemonset()
+                if fleet.all_done():
+                    break
+        finally:
+            manager.shutdown()
+        drained = events_mod.default_log().events(type_="NodeDrained")
+        assert [e["target"] for e in drained] == ["n0"]
+        assert drained[0]["reason"] == "ok"
+
+
+# ------------------------------------------------------------------ explain
+class TestExplain:
+    def deferred_fleet(self, cluster, policy=None):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        for i in range(3):
+            fleet.add_node(f"n{i}")
+        fleet.publish_new_revision("rev2")
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = policy or throttled_policy()
+            reconcile_once(manager, policy)
+            state = reconcile_once(manager, policy)
+        finally:
+            manager.shutdown()
+        return fleet, state, policy
+
+    def test_deferred_node_names_its_reason(self, cluster):
+        _fleet, state, policy = self.deferred_fleet(cluster)
+        decisions = events_mod.default_log().events()
+        deferred = [
+            d["target"]
+            for d in decisions
+            if d["type"] == "NodeDeferred" and d["reason"] == "budget"
+        ]
+        answer = events_mod.explain_node(
+            deferred[0], state, policy=policy, decisions=decisions
+        )
+        assert answer["verdict"] == "blocked"
+        assert answer["reasonCode"] == "budget"
+        assert answer["phase"] == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+
+    def test_pending_without_stream_falls_back_to_gates(self, cluster):
+        _fleet, state, policy = self.deferred_fleet(
+            cluster, throttled_policy(maintenance_window=closed_window())
+        )
+        pending = [
+            ns.node["metadata"]["name"]
+            for ns in state.nodes_in(consts.UPGRADE_STATE_UPGRADE_REQUIRED)
+        ]
+        answer = events_mod.explain_node(
+            pending[0], state, policy=policy, decisions=None
+        )
+        assert answer["reasonCode"] == "window"
+        assert answer["blockingGate"]["gate"] == "maintenanceWindow"
+
+    def test_unknown_node_returns_none(self, cluster):
+        _fleet, state, policy = self.deferred_fleet(cluster)
+        assert (
+            events_mod.explain_node("ghost", state, policy=policy) is None
+        )
+
+    def test_done_and_quarantined_and_failed_codes(self, cluster):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        fleet.add_node("done-0")
+        fleet.add_node("quar-0")
+        fleet.add_node("fail-0")
+        state_key = util.get_upgrade_state_label_key()
+        q_key = util.get_quarantine_annotation_key()
+        for name, bucket in (
+            ("done-0", consts.UPGRADE_STATE_DONE),
+            ("quar-0", consts.UPGRADE_STATE_UPGRADE_REQUIRED),
+            ("fail-0", consts.UPGRADE_STATE_FAILED),
+        ):
+            cluster.patch(
+                "Node", name, {"metadata": {"labels": {state_key: bucket}}}
+            )
+        cluster.patch(
+            "Node",
+            "quar-0",
+            {
+                "metadata": {
+                    "annotations": {
+                        q_key: consts.REMEDIATION_QUARANTINE_PREFIX
+                        + "node:quar-0"
+                    }
+                }
+            },
+        )
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+        finally:
+            manager.shutdown()
+        done = events_mod.explain_node("done-0", state)
+        assert (done["verdict"], done["reasonCode"]) == ("complete", "done")
+        quar = events_mod.explain_node("quar-0", state)
+        assert quar["reasonCode"] == "quarantine"
+        assert quar["quarantine"]["remediationOwned"] is True
+        failed = events_mod.explain_node("fail-0", state)
+        assert failed["verdict"] == "failed"
+
+
+# -------------------------------------------------------- rollout_status
+class TestRolloutStatusIntegration:
+    def test_gate_cites_deferred_nodes_and_last_decisions_render(
+        self, cluster
+    ):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        for i in range(3):
+            fleet.add_node(f"n{i}")
+        fleet.publish_new_revision("rev2")
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy(maintenance_window=closed_window())
+            reconcile_once(manager, policy)
+            state = reconcile_once(manager, policy)
+        finally:
+            manager.shutdown()
+        decisions = events_mod.default_log().events()
+        status = RolloutStatus.from_cluster_state(
+            state, policy=policy, decisions=decisions
+        )
+        summary = status.summary()
+        assert "GATED [maintenanceWindow]" in summary
+        assert "defers 3 node(s), e.g. n0" in summary
+        # the citation is scoped to STILL-pending nodes: a deferral
+        # retained for a node that has since been admitted must not
+        # inflate the count past the pending counter on the same line
+        stale = decisions + [
+            {
+                "type": "NodeDeferred",
+                "reason": "window",
+                "target": "long-gone-node",
+                "count": 9,
+            }
+        ]
+        rescored = RolloutStatus.from_cluster_state(
+            state, policy=policy, decisions=stale
+        )
+        assert "defers 3 node(s)" in rescored.summary()
+        rendered = status.render()
+        assert "defers 3 node(s)" in rendered
+        assert "last decisions:" in rendered
+        assert "NodeDeferred[window]" in rendered
+        payload = status.to_dict()
+        assert payload["decisions"]
+
+    def test_without_stream_render_degrades_cleanly(self, cluster):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        fleet.add_node("n0")
+        fleet.publish_new_revision("rev2")
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy(maintenance_window=closed_window())
+            reconcile_once(manager, policy)
+            state = reconcile_once(manager, policy)
+        finally:
+            manager.shutdown()
+        status = RolloutStatus.from_cluster_state(state, policy=policy)
+        assert "defers" not in status.summary()
+        assert "last decisions:" not in status.render()
+        assert "decisions" not in status.to_dict()
+
+
+# ----------------------------------------------------- manager explain plane
+class TestManagerSurface:
+    def test_manager_explain_before_first_apply_is_none(self, cluster):
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            assert manager.explain_node("n0") is None
+            assert manager.events_status()["events"] == []
+        finally:
+            manager.shutdown()
+
+    def test_manager_explain_answers_after_apply(self, cluster):
+        fleet = Fleet(cluster, revision_hash="rev1")
+        for i in range(2):
+            fleet.add_node(f"n{i}")
+        fleet.publish_new_revision("rev2")
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            policy = throttled_policy()
+            reconcile_once(manager, policy)
+            reconcile_once(manager, policy)
+            deferred = [
+                d["target"]
+                for d in events_mod.default_log().events(
+                    type_="NodeDeferred"
+                )
+            ]
+            answer = manager.explain_node(deferred[0])
+            assert answer is not None
+            assert answer["reasonCode"] == "budget"
+        finally:
+            manager.shutdown()

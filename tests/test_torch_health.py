@@ -1,10 +1,11 @@
 """The port's GPU health (k8s_operator_libs_tpu_torch/tpu/health.py)
 against the JAX package's tpu/health.py.
 
-* ``TestDegradedDetection`` and ``TestSliceHealthManager`` of
-  ``tests/test_health.py``, as cases of the same names, run on the port
-  in its vocabulary (conditions ``GpuDegraded`` / ``NVLinkDown``, labels
-  ``nvidia.com/degraded`` / ``nvidia.com/gpu.degraded``);
+* every class of ``tests/test_health.py``, as cases of the same names,
+  runs on the port in its vocabulary (conditions ``GpuDegraded`` /
+  ``NVLinkDown``, labels ``nvidia.com/degraded`` /
+  ``nvidia.com/gpu.degraded``), the quarantine's admission and status
+  through its ``ClusterUpgradeStateManager``;
 * a differential test: one seeded fleet, its hosts falling sick and
   recovering round by round, goes to a :class:`SliceHealthManager` over
   each package's in-memory cluster; the degraded domains, the cluster
@@ -21,6 +22,7 @@ from k8s_operator_libs_tpu.tpu import health as jhealth
 from k8s_operator_libs_tpu.upgrade import consts as jconsts
 from k8s_operator_libs_tpu.upgrade import util as jutil
 from k8s_operator_libs_tpu_torch import metrics
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, UpgradePolicySpec
 from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
 from k8s_operator_libs_tpu_torch.cluster.objects import (
     get_annotation,
@@ -29,8 +31,11 @@ from k8s_operator_libs_tpu_torch.cluster.objects import (
 )
 from k8s_operator_libs_tpu_torch.tpu import SliceHealthManager, health
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
 from test_torch_cluster import mask
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals, to_port_vocab  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -174,3 +179,187 @@ def test_the_health_manager_acts_as_the_jax_one(seed):
             [tuple(vars(e).values()) for e in jrec.events]
         )
     assert seen and rec.events  # the rounds degrade and quarantine
+
+
+class TestQuarantineAdmission:
+    def _fleet(self, cluster):
+        fleet = Fleet(cluster)
+        for s in range(2):
+            for h in range(2):
+                fleet.add_node(
+                    f"s{s}-h{h}", pod_hash="rev1", labels={SLICE_KEY: f"s{s}"}
+                )
+        fleet.publish_new_revision("rev2")
+        return fleet
+
+    def _policy(self, **kw):
+        return UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=0,
+            max_unavailable=IntOrString("100%"),
+            slice_aware=True,
+            quarantine_degraded=True,
+            drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+            **kw,
+        )
+
+    def test_degraded_domain_not_admitted(self, cluster, fleet_unused=None):
+        fleet = self._fleet(cluster)
+        sick = cluster.get("Node", "s1-h0")
+        set_condition(sick, "GpuDegraded", "True")
+        cluster.update(sick)
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = self._policy()
+        for _ in range(3):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+        states = fleet.states()
+        # healthy s0 progressed; quarantined s1 never started
+        assert states["s1-h0"] == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        assert states["s1-h1"] == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        assert states["s0-h0"] != consts.UPGRADE_STATE_UPGRADE_REQUIRED
+
+    def test_recovered_domain_gets_admitted_and_converges(self, cluster):
+        fleet = self._fleet(cluster)
+        sick = cluster.get("Node", "s1-h0")
+        set_condition(sick, "GpuDegraded", "True")
+        cluster.update(sick)
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = self._policy()
+        for _ in range(2):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+        # repair the TPU → next reconciles admit s1 and finish
+        sick = cluster.get("Node", "s1-h0")
+        set_condition(sick, "GpuDegraded", "False")
+        cluster.update(sick)
+        for _ in range(30):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+            if set(fleet.states().values()) == {consts.UPGRADE_STATE_DONE}:
+                break
+        assert set(fleet.states().values()) == {consts.UPGRADE_STATE_DONE}
+
+    def test_mid_upgrade_domain_finishes_despite_degradation(self, cluster):
+        """Quarantine bars STARTS only: a domain already mid-upgrade must
+        run to completion (half-upgraded + stranded is the worse state)."""
+        fleet = self._fleet(cluster)
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        # admit everything first (no degradation yet): cycle 1 classifies
+        # into upgrade-required, cycle 2 admits (buckets fix at BuildState)
+        policy = self._policy()
+        for _ in range(2):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+        assert all(
+            s != consts.UPGRADE_STATE_UPGRADE_REQUIRED
+            for s in fleet.states().values()
+        )
+        # now a host degrades mid-flight
+        sick = cluster.get("Node", "s0-h0")
+        set_condition(sick, "GpuDegraded", "True")
+        cluster.update(sick)
+        for _ in range(30):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+            if set(fleet.states().values()) == {consts.UPGRADE_STATE_DONE}:
+                break
+        assert set(fleet.states().values()) == {consts.UPGRADE_STATE_DONE}
+
+    def test_node_mode_quarantine(self, cluster):
+        fleet = Fleet(cluster)
+        fleet.add_node("bad", pod_hash="rev1")
+        fleet.add_node("good", pod_hash="rev1")
+        fleet.publish_new_revision("rev2")
+        sick = cluster.get("Node", "bad")
+        set_condition(sick, "GpuDegraded", "True")
+        cluster.update(sick)
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=0,
+            max_unavailable=IntOrString("100%"),
+            quarantine_degraded=True,
+            drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+        )
+        for _ in range(10):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10)
+            manager.pod_manager.wait_idle(10)
+            fleet.reconcile_daemonset()
+            if fleet.states()["good"] == consts.UPGRADE_STATE_DONE:
+                break
+        states = fleet.states()
+        assert states["bad"] == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        assert states["good"] == consts.UPGRADE_STATE_DONE
+
+
+class TestStatusShowsDegraded:
+    def test_domain_degraded_flag(self, cluster):
+        fleet = Fleet(cluster)
+        fleet.add_node("s0-h0", labels={SLICE_KEY: "s0"})
+        sick = cluster.get("Node", "s0-h0")
+        set_condition(sick, "GpuDegraded", "True")
+        cluster.update(sick)
+        manager = ClusterUpgradeStateManager(cluster)
+        state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+        status = RolloutStatus.from_cluster_state(state)
+        assert status.domains[0].degraded
+        assert status.to_dict()["domains"][0]["degraded"] is True
+
+
+class TestAnnotationQuarantineHonored:
+    def test_manual_annotation_bars_admission_without_live_signal(
+        self, cluster
+    ):
+        """The scheduler honors a stamped quarantine annotation even when
+        no live degradation condition is present (manual quarantine /
+        single-source-of-truth with SliceHealthManager)."""
+        fleet = Fleet(cluster)
+        fleet.add_node("s0-h0", pod_hash="rev1", labels={SLICE_KEY: "s0"})
+        fleet.publish_new_revision("rev2")
+        cluster.patch(
+            "Node",
+            "s0-h0",
+            {"metadata": {"annotations": {QKEY(): "s0"}}},
+        )
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=0,
+            max_unavailable=IntOrString("100%"),
+            slice_aware=True,
+            quarantine_degraded=True,
+        )
+        for _ in range(3):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+        assert (
+            fleet.states()["s0-h0"] == consts.UPGRADE_STATE_UPGRADE_REQUIRED
+        )

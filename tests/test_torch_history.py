@@ -3,11 +3,12 @@ seeded inputs: ``obs/history.py`` (:class:`MetricsHistory`),
 ``upgrade/history.py`` (the node upgrade history read from Events) and
 ``upgrade/timeline.py``'s :class:`FlightRecorder`.
 
-The JAX suites drive these through the upgrade state machine, which the
-port does not have yet; here each module's functions take seeded inputs
-directly, with every clock passed in (``now=``), and must return the same
-values, the same errors and the same JSON after
-:func:`test_torch_vocab.to_port_vocab`.
+Each module's functions take seeded inputs directly, with every clock
+passed in (``now=``), and must return the same values, the same errors
+and the same JSON after :func:`test_torch_vocab.to_port_vocab`.  Then
+``tests/test_history.py::TestNodeEventHistory``, as cases of the same
+name, reads the history of a rollout through the port's
+``ClusterUpgradeStateManager``.
 """
 
 import numpy as np
@@ -20,13 +21,17 @@ from k8s_operator_libs_tpu.upgrade import consts as jconsts
 from k8s_operator_libs_tpu.upgrade import history as jupgrade_history
 from k8s_operator_libs_tpu.upgrade import timeline as jtimeline
 from k8s_operator_libs_tpu.upgrade import util as jutil
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, UpgradePolicySpec
 from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster, NotFoundError
 from k8s_operator_libs_tpu_torch.cluster.objects import make_node
 from k8s_operator_libs_tpu_torch.obs import history
-from k8s_operator_libs_tpu_torch.upgrade import history as upgrade_history
+from k8s_operator_libs_tpu_torch.upgrade import consts, history as upgrade_history
 from k8s_operator_libs_tpu_torch.upgrade import timeline, util
+from k8s_operator_libs_tpu_torch.upgrade.history import node_event_history, render_history
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
 from test_torch_cluster import mask
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals, to_port_vocab  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -35,6 +40,40 @@ T0 = 1_780_000_000.0
 
 
 # ------------------------------------------------------------ obs/history
+
+
+def _rolled_cluster():
+    """A fleet rolled to done through a recorder, leaving real Events."""
+    cluster = InMemoryCluster()
+    fleet = Fleet(cluster, revision_hash="v1")
+    for i in range(2):
+        fleet.add_node(f"n{i}")
+    fleet.publish_new_revision("v2")
+    recorder = util.ClusterEventRecorder(cluster, namespace=NAMESPACE)
+    manager = ClusterUpgradeStateManager(
+        cluster,
+        recorder=recorder,
+        cache_sync_timeout_seconds=2.0,
+        cache_sync_poll_seconds=0.01,
+    )
+    policy = UpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=0,
+        max_unavailable=IntOrString("100%"),
+        drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+    )
+    for _ in range(40):
+        state = manager.build_state(NAMESPACE, dict(DRIVER_LABELS))
+        manager.apply_state(state, policy)
+        manager.drain_manager.wait_idle(10.0)
+        manager.pod_manager.wait_idle(10.0)
+        fleet.reconcile_daemonset()
+        if set(fleet.states().values()) == {consts.UPGRADE_STATE_DONE}:
+            break
+    else:
+        raise AssertionError(f"rollout did not converge: {fleet.states()}")
+    manager.shutdown()
+    return cluster
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -206,3 +245,41 @@ def test_the_flight_recorder_records_as_the_jax_one(seed, capacity):
         jfresh.observe_node(jnodes[name], now=now + 1)
     assert mask(fresh.timelines()) == mask(to_port_vocab(jfresh.timelines()))
     assert [timeline.phase_name(s) for s in STATES] == [jtimeline.phase_name(s) for s in STATES]
+
+
+class TestNodeEventHistory:
+    def test_full_rollout_leaves_a_timeline(self):
+        cluster = _rolled_cluster()
+        entries = node_event_history(cluster)
+        assert entries
+        nodes_seen = {e.node for e in entries}
+        # per-node milestones plus the aggregate-progress event (keyed by
+        # the component name)
+        assert {"n0", "n1"} <= nodes_seen
+        reasons = {e.reason for e in entries}
+        # at least admission and completion milestones appear
+        assert any("one" in r.lower() or "done" in r.lower() for r in reasons) or any(
+            consts.UPGRADE_STATE_DONE in e.message for e in entries
+        )
+        # ordered oldest -> newest by lastTimestamp
+        stamps = [e.last_timestamp for e in entries]
+        assert stamps == sorted(stamps)
+
+    def test_node_filter(self):
+        cluster = _rolled_cluster()
+        only = node_event_history(cluster, node="n1")
+        assert only and all(e.node == "n1" for e in only)
+
+    def test_namespace_scoping(self):
+        cluster = _rolled_cluster()
+        in_ns = node_event_history(cluster, namespaces=[NAMESPACE])
+        assert in_ns
+        empty = node_event_history(cluster, namespaces=["elsewhere"])
+        assert empty == []
+
+    def test_render_table(self):
+        cluster = _rolled_cluster()
+        text = render_history(node_event_history(cluster))
+        assert "LAST SEEN" in text and "REASON" in text
+        assert "n0" in text and "n1" in text
+        assert render_history([]) == "No node upgrade events found."

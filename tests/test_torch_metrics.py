@@ -2,10 +2,11 @@
 series.
 
 The classes ``TestCounter``, ``TestGauge``, ``TestHistogram``,
-``TestRegistry`` and ``TestWritePipelineMetrics`` of
-``tests/test_metrics.py``, as cases of the same names, run on the port's
-``metrics`` module (the state-machine, watch, leader and analysis wiring
-comes with those modules).  Then the parity half: the same seeded
+``TestRegistry``, ``TestWritePipelineMetrics`` and
+``TestStateMachineWiring`` of ``tests/test_metrics.py``, as cases of the
+same names, run on the port's ``metrics`` module, the last through the
+port's ``ClusterUpgradeStateManager`` (the watch, leader and analysis
+wiring comes with those modules).  Then the parity half: the same seeded
 sequence of counter, gauge and histogram calls, and every recording
 helper of the module, give the same exposition text (Prometheus and
 OpenMetrics) from the port as from the JAX package.  The metric names
@@ -15,21 +16,31 @@ dashboards and alert rules read the same series.
 
 from __future__ import annotations
 
-import threading
-
 import inspect
+import threading
 
 import numpy as np
 import pytest
 
 from k8s_operator_libs_tpu import metrics as jmetrics
 from k8s_operator_libs_tpu_torch import metrics
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, UpgradePolicySpec
+from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
 from k8s_operator_libs_tpu_torch.metrics import (
     Counter,
     Gauge,
     Histogram,
     MetricsRegistry,
 )
+from k8s_operator_libs_tpu_torch.upgrade import consts
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
+
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
+
+
+@pytest.fixture()
+def cluster():
+    return InMemoryCluster()
 
 
 @pytest.fixture(autouse=True)
@@ -308,3 +319,135 @@ def test_each_recording_helper_renders_as_the_jax_one(helper, both_registries):
     getattr(metrics, helper)(*args)
     getattr(jmetrics, helper)(*args)
     _render_both(ours, theirs)
+
+
+class TestStateMachineWiring:
+    """Run a real rollout and assert the metrics land."""
+
+    def test_rollout_records_everything(self, cluster, fresh_registry):
+        fleet = Fleet(cluster, revision_hash="v1")
+        for h in range(3):
+            fleet.add_node(f"host{h}")
+        fleet.publish_new_revision("v2")
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=0,
+            max_unavailable=IntOrString("100%"),
+            drain_spec=DrainSpec(enable=True, force=True, timeout_second=30),
+        )
+        for _ in range(25):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10.0)
+            manager.pod_manager.wait_idle(10.0)
+            fleet.reconcile_daemonset()
+            if all(
+                s == consts.UPGRADE_STATE_DONE for s in fleet.states().values()
+            ):
+                break
+        else:
+            pytest.fail("rollout did not converge")
+        # one settling reconcile so the gauges reflect the converged fleet
+        manager.apply_state(manager.build_state(NAMESPACE, DRIVER_LABELS), policy)
+
+        reg = fresh_registry
+        transitions = reg.counter(
+            "upgrade_state_transitions_total", "", ("to_state",)
+        )
+        assert transitions.value(consts.UPGRADE_STATE_DONE) == 3
+        assert transitions.value(consts.UPGRADE_STATE_CORDON_REQUIRED) == 3
+        drains = reg.counter("drains_total", "", ("result",))
+        assert drains.value("ok") == 3
+        assert reg.histogram("reconcile_seconds", "", ("phase",)).count("build") > 0
+        assert reg.histogram("reconcile_seconds", "", ("phase",)).count("apply") > 0
+        assert reg.gauge("upgrades_done", "").value() == 3
+        assert reg.gauge("managed_nodes", "").value() == 3
+        # steady state: the in-progress gauge has settled back to zero
+        assert reg.gauge("upgrades_in_progress", "").value() == 0
+        text = reg.render()
+        assert "k8s_operator_libs_tpu_nodes_in_state" in text
+
+    def test_paused_rollout_refreshes_gauges(self, cluster, fresh_registry):
+        """auto_upgrade=false must not leave stale in-progress gauges
+        frozen at their last active values (alerting would never clear)."""
+        fleet = Fleet(cluster, revision_hash="v1")
+        fleet.add_node("host0")
+        fleet.publish_new_revision("v2")
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        active = UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=1,
+            drain_spec=DrainSpec(enable=True, force=True, timeout_second=30),
+        )
+        # two reconciles: classify (unknown → upgrade-required), then admit
+        for _ in range(2):
+            manager.apply_state(
+                manager.build_state(NAMESPACE, DRIVER_LABELS), active
+            )
+        reg = fresh_registry
+        assert (
+            reg.gauge("upgrades_in_progress", "").value()
+            + reg.gauge("upgrades_pending", "").value()
+            > 0
+        )
+        # ...then the operator pauses the rollout mid-flight.  Swap in a
+        # brand-new registry first: any gauge present afterwards can only
+        # have been published by the paused apply_state itself.
+        paused = UpgradePolicySpec(auto_upgrade=False)
+        paused_reg = MetricsRegistry()
+        metrics.set_default_registry(paused_reg)
+        try:
+            manager.apply_state(
+                manager.build_state(NAMESPACE, DRIVER_LABELS), paused
+            )
+        finally:
+            metrics.set_default_registry(reg)
+        # the paused branch re-published the whole gauge family from the
+        # live snapshot — the node is still mid-upgrade and says so
+        assert paused_reg.gauge("managed_nodes", "").value() == 1
+        text = paused_reg.render()
+        assert "nodes_in_state" in text
+        assert (
+            paused_reg.gauge("upgrades_in_progress", "").value()
+            + paused_reg.gauge("upgrades_pending", "").value()
+            > 0
+        )
+
+    def test_drain_failure_counted(self, cluster, fresh_registry):
+        fleet = Fleet(cluster, revision_hash="v1")
+        fleet.add_node("host0")
+        fleet.publish_new_revision("v2")
+        # a bare pod (no controller) makes the drain plan error without force
+        cluster.create(
+            {
+                "kind": "Pod",
+                "metadata": {"name": "naked", "namespace": NAMESPACE},
+                "spec": {"nodeName": "host0"},
+                "status": {"phase": "Running"},
+            }
+        )
+        manager = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=1,
+            drain_spec=DrainSpec(enable=True, force=False, timeout_second=5),
+        )
+        for _ in range(10):
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            manager.apply_state(state, policy)
+            manager.drain_manager.wait_idle(10.0)
+            if fleet.states().get("host0") == consts.UPGRADE_STATE_FAILED:
+                break
+        else:
+            pytest.fail("drain never failed")
+        assert (
+            fresh_registry.counter("drains_total", "", ("result",)).value("failed")
+            >= 1
+        )

@@ -2,11 +2,11 @@
 node_upgrade_state_provider, cordon_manager, drain_manager, pod_manager,
 validation_manager, safe_driver_load_manager) on its in-memory cluster.
 
-The classes of ``tests/test_node_managers.py``, as cases of the same
-names, run on the port in its vocabulary.  Two tests of
-``TestPodManagerBoundedPool`` and ``TestValidationPolicyKnobs`` build the
-state machine's ``ClusterUpgradeStateManager`` and wait for its port; the
-rest of those classes run here.
+Every class of ``tests/test_node_managers.py``, as cases of the same
+names, runs on the port in its vocabulary, the tests that build the
+state machine's ``ClusterUpgradeStateManager`` (in
+``TestPodManagerBoundedPool`` and ``TestValidationPolicyKnobs``) on the
+port's.
 """
 
 import time
@@ -625,6 +625,14 @@ class TestPodManagerBoundedPool:
             )
         assert 0 < len(recording.threads) <= DEFAULT_WORKER_POOL_SIZE
 
+    def test_state_manager_shares_one_pool(self, cluster):
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+
+        mgr = ClusterUpgradeStateManager(cluster)
+        assert mgr.drain_manager._pool is mgr.pod_manager._pool
+
 
 
 class TestPodRestart:
@@ -764,6 +772,196 @@ class TestValidationPolicyKnobs:
         assert key not in (
             cluster.get("Node", "n1")["metadata"].get("annotations") or {}
         )
+
+    def test_apply_state_pushes_validation_policy(self, cluster):
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec, ValidationSpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+            )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            validation=ValidationSpec(
+                pod_selector="app=validator",
+                timeout_second=42,
+                on_missing_pods="skip",
+            ),
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy)
+        vm = mgr._validation_manager
+        assert vm.pod_selector == "app=validator"
+        assert vm.timeout_seconds == 42
+        assert vm.on_missing_pods == "skip"
+        assert mgr._validation_enabled is True
+        # live CR edit: emptying the selector disables the phase again
+        policy2 = UpgradePolicySpec(
+            auto_upgrade=True, validation=ValidationSpec(pod_selector="")
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy2)
+        assert mgr._validation_enabled is False
+
+    def test_timeout_only_validation_block_keeps_builder_selector(
+        self, cluster
+    ):
+        """Review regression: a CR validation block that only tunes the
+        timeout (podSelector absent) must not disable builder-enabled
+        validation."""
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec, ValidationSpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(cluster).with_validation_enabled(
+            "app=validator"
+        )
+        policy = UpgradePolicySpec(
+            auto_upgrade=True, validation=ValidationSpec(timeout_second=300)
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy)
+        assert mgr._validation_enabled is True
+        assert mgr._validation_manager.pod_selector == "app=validator"
+        assert mgr._validation_manager.timeout_seconds == 300
+
+    def test_disable_clears_selector_so_inflight_nodes_validate(
+        self, cluster
+    ):
+        """Review regression: disabling validation via podSelector:\"\"
+        must clear the manager's selector, or in-flight
+        validation-required nodes run the stale selector's timeout clock
+        to upgrade-failed."""
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec, ValidationSpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(cluster).with_validation_enabled(
+            "app=validator"
+        )
+        mgr.apply_state(
+            ClusterUpgradeState(),
+            UpgradePolicySpec(
+                auto_upgrade=True, validation=ValidationSpec(pod_selector="")
+            ),
+        )
+        assert mgr._validation_manager.pod_selector == ""
+        node = cluster.create(make_node("n1"))
+        assert mgr._validation_manager.validate(node) is True
+
+    def test_removed_validation_block_restores_builder_baseline(
+        self, cluster
+    ):
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec, ValidationSpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(cluster).with_validation_enabled(
+            "app=validator"
+        )
+        # CR explicitly disables validation...
+        mgr.apply_state(
+            ClusterUpgradeState(),
+            UpgradePolicySpec(
+                auto_upgrade=True, validation=ValidationSpec(pod_selector="")
+            ),
+        )
+        assert mgr._validation_enabled is False
+        # ...then the validation block is deleted: builder config returns.
+        mgr.apply_state(
+            ClusterUpgradeState(), UpgradePolicySpec(auto_upgrade=True)
+        )
+        assert mgr._validation_enabled is True
+        assert mgr._validation_manager.pod_selector == "app=validator"
+
+    def test_apply_state_pushes_cache_sync_timeout(self, cluster):
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(cluster, cache_sync_timeout_seconds=9.0)
+        policy = UpgradePolicySpec(
+            auto_upgrade=True, cache_sync_timeout_second=0.5
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy)
+        assert mgr.provider._timeout == 0.5
+        # 0 restores the constructor value
+        mgr.apply_state(
+            ClusterUpgradeState(), UpgradePolicySpec(auto_upgrade=True)
+        )
+        assert mgr.provider._timeout == 9.0
+
+    def test_policy_deletion_restores_all_overrides(self, cluster):
+        """Review regression: apply_state(state, None) must undo EVERY
+        policy-pushed override — cache-sync timeout and validation
+        config, not just topology keys."""
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec, ValidationSpec
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        mgr = ClusterUpgradeStateManager(
+            cluster, cache_sync_timeout_seconds=9.0
+        ).with_validation_enabled("app=validator")
+        policy = UpgradePolicySpec(
+            auto_upgrade=True,
+            cache_sync_timeout_second=0.5,
+            validation=ValidationSpec(pod_selector="", timeout_second=7),
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy)
+        assert mgr.provider._timeout == 0.5
+        assert mgr._validation_enabled is False
+        # CR deleted mid-rollout
+        mgr.apply_state(ClusterUpgradeState(), None)
+        assert mgr.provider._timeout == 9.0
+        assert mgr._validation_enabled is True
+        assert mgr._validation_manager.pod_selector == "app=validator"
+
+    def test_apply_state_pushes_topology_label_keys(self, cluster):
+        from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec
+        from k8s_operator_libs_tpu_torch.tpu import topology
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
+            ClusterUpgradeStateManager,
+        )
+        from k8s_operator_libs_tpu_torch.upgrade.common_manager import (
+            ClusterUpgradeState,
+        )
+
+        node = make_node("n1")
+        node["metadata"]["labels"]["example.com/rack"] = "rack-7"
+        assert topology.domain_of(node) == "node:n1"  # default keys: none match
+        mgr = ClusterUpgradeStateManager(cluster)
+        policy = UpgradePolicySpec(
+            auto_upgrade=True, slice_label_keys=("example.com/rack",)
+        )
+        mgr.apply_state(ClusterUpgradeState(), policy)
+        assert topology.domain_of(node) == "rack-7"
+        # a policy without overrides restores the built-in GKE defaults
+        mgr.apply_state(
+            ClusterUpgradeState(), UpgradePolicySpec(auto_upgrade=True)
+        )
+        assert topology.domain_of(node) == "node:n1"
 
 
 

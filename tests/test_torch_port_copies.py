@@ -7,7 +7,10 @@ docstring dropped from both, the two parse to the same syntax tree.  So
 every branch of the JAX module, tested or not, is in the port, and an
 edit to either package that the other lacks fails here.
 :class:`CheckpointDrainGate` is held the same way, as a class of its
-module (the port's module also holds its own ``DrainSignalWatcher``).
+module (the port's module also holds its own ``DrainSignalWatcher``), and
+the port's test harness, ``tests/test_torch_harness.py``, as
+``tests/harness.py`` with its absolute imports of the JAX package mapped
+onto the port.
 """
 
 import ast
@@ -33,13 +36,19 @@ COPIED_MODULES = (
     "upgrade/analysis.py",
     "upgrade/remediation.py",
     "upgrade/rollout_status.py",
+    "runtime.py",
+    "upgrade/state_index.py",
+    "upgrade/upgrade_requestor.py",
+    "upgrade/upgrade_state.py",
+    "upgrade/plan.py",
 )
 COPIED_CLASSES = (("tpu/drain_handshake.py", "CheckpointDrainGate"),)
 
 
 class _Normalise(ast.NodeTransformer):
     """Drops docstrings; with *rewrite*, maps string constants into the
-    port's vocabulary."""
+    port's vocabulary and absolute imports of the JAX package onto the
+    port's."""
 
     def __init__(self, rewrite: bool):
         self.rewrite = rewrite
@@ -59,6 +68,13 @@ class _Normalise(ast.NodeTransformer):
             node.value = to_port_vocab(node.value)
         return node
 
+    def visit_ImportFrom(self, node):
+        if self.rewrite and node.level == 0 and node.module:
+            head, dot, rest = node.module.partition(".")
+            if head == JAX_PACKAGE.name:
+                node.module = PORT_PACKAGE.name + dot + rest
+        return node
+
 
 def _tree(path: Path, rewrite: bool, class_name: str = "") -> str:
     tree = ast.parse(path.read_text())
@@ -75,6 +91,19 @@ def test_the_ported_module_is_the_jax_module(module):
 @pytest.mark.parametrize("module,class_name", COPIED_CLASSES)
 def test_the_ported_class_is_the_jax_class(module, class_name):
     assert _tree(JAX_PACKAGE / module, True, class_name) == _tree(PORT_PACKAGE / module, False, class_name)
+
+
+def test_the_port_harness_is_the_jax_harness():
+    """tests/test_torch_harness.py is tests/harness.py on the port."""
+    tests = ROOT / "tests"
+    assert _tree(tests / "harness.py", rewrite=True) == _tree(tests / "test_torch_harness.py", rewrite=False)
+
+
+def test_the_import_mapping_takes_only_the_package_name():
+    mapped = ast.dump(_Normalise(True).visit(ast.parse("from k8s_operator_libs_tpu.upgrade import plan")))
+    assert mapped == ast.dump(ast.parse("from k8s_operator_libs_tpu_torch.upgrade import plan"))
+    for other in ("from k8s_operator_libs_tpux import plan", "from .upgrade import plan"):
+        assert ast.dump(_Normalise(True).visit(ast.parse(other))) == ast.dump(ast.parse(other))
 
 
 def test_the_normalisation_sees_a_one_token_edit():

@@ -17,11 +17,21 @@ a maintenance window, an ``slos`` block, an ``analysis`` block and a
 ``remediation`` block, at one pinned clock, and every result must be
 equal after :func:`test_torch_vocab.to_port_vocab`.
 
-The last test pins the first admission of the GPU fleet that
+One test pins the first admission of the GPU fleet that
 ``chip_smoke.py`` 10g takes through a wave: 1,024 nodes in racks of 16,
 every driver pod out of sync, under the fleet's policy (slice-aware, 16
 parallel upgrades, 25 % unavailable).  Slots count racks there, so the
 wave is 16 racks, 256 nodes, in both packages.
+
+Then both packages' ``ClusterUpgradeStateManager`` take the same fleets
+through the same reconcile passes, and the clusters, decision logs and
+recorded events must agree after every pass: the seeded fleets in each
+of the manager's modes (in place, through the state index, reading
+through the informer cache, with the cascade, and in requestor mode
+beside each package's ``SimMaintenanceOperator``), a wave with the
+checkpoint gate, and a bad revision that trips the breaker.  Last,
+``plan_rollout`` over each package's dump of the seeded fleets, in place
+and in requestor mode, must give the same plan.
 """
 
 import dataclasses
@@ -61,6 +71,7 @@ from k8s_operator_libs_tpu.upgrade import consts as jconsts
 from k8s_operator_libs_tpu.upgrade import cordon_manager as jcordon
 from k8s_operator_libs_tpu.upgrade import drain_manager as jdrain
 from k8s_operator_libs_tpu.upgrade import node_upgrade_state_provider as jprovider
+from k8s_operator_libs_tpu.upgrade import plan as jplan
 from k8s_operator_libs_tpu.upgrade import pod_manager as jpod
 from k8s_operator_libs_tpu.upgrade import remediation as jremediation
 from k8s_operator_libs_tpu.upgrade import rollout_status as jrollout
@@ -68,6 +79,7 @@ from k8s_operator_libs_tpu.upgrade import safe_driver_load_manager as jsafe
 from k8s_operator_libs_tpu.upgrade import schedule as jschedule
 from k8s_operator_libs_tpu.upgrade import timeline as jtimeline
 from k8s_operator_libs_tpu.upgrade import upgrade_inplace as jinplace
+from k8s_operator_libs_tpu.upgrade import upgrade_requestor as jrequestor
 from k8s_operator_libs_tpu.upgrade import upgrade_state as jupgrade_state
 from k8s_operator_libs_tpu.upgrade import util as jutil
 from k8s_operator_libs_tpu.upgrade import validation_manager as jvalidation
@@ -84,6 +96,7 @@ from k8s_operator_libs_tpu_torch.upgrade import consts
 from k8s_operator_libs_tpu_torch.upgrade import cordon_manager
 from k8s_operator_libs_tpu_torch.upgrade import drain_manager
 from k8s_operator_libs_tpu_torch.upgrade import node_upgrade_state_provider
+from k8s_operator_libs_tpu_torch.upgrade import plan
 from k8s_operator_libs_tpu_torch.upgrade import pod_manager
 from k8s_operator_libs_tpu_torch.upgrade import remediation
 from k8s_operator_libs_tpu_torch.upgrade import rollout_status
@@ -91,6 +104,8 @@ from k8s_operator_libs_tpu_torch.upgrade import safe_driver_load_manager
 from k8s_operator_libs_tpu_torch.upgrade import schedule
 from k8s_operator_libs_tpu_torch.upgrade import timeline
 from k8s_operator_libs_tpu_torch.upgrade import upgrade_inplace
+from k8s_operator_libs_tpu_torch.upgrade import upgrade_requestor
+from k8s_operator_libs_tpu_torch.upgrade import upgrade_state
 from k8s_operator_libs_tpu_torch.upgrade import util
 from k8s_operator_libs_tpu_torch.upgrade import validation_manager
 
@@ -104,7 +119,7 @@ JAX = types.SimpleNamespace(
     util=jutil, consts=jconsts, common=jcommon, provider=jprovider, cordon=jcordon, drain=jdrain,
     pod=jpod, validation=jvalidation, safe=jsafe, inplace=jinplace, rollout=jrollout, slo=jslo,
     analysis=janalysis, remediation=jremediation, timeline=jtimeline, events=jevents,
-    metrics=jmetrics, schedule=jschedule,
+    metrics=jmetrics, schedule=jschedule, state=jupgrade_state, requestor=jrequestor, plan=jplan,
 )
 PORT = types.SimpleNamespace(
     api=api, objects=objects, cluster_cls=InMemoryCluster, cache_cls=InformerCache, selector=labels_to_selector,
@@ -112,7 +127,7 @@ PORT = types.SimpleNamespace(
     cordon=cordon_manager, drain=drain_manager, pod=pod_manager, validation=validation_manager,
     safe=safe_driver_load_manager, inplace=upgrade_inplace, rollout=rollout_status, slo=slo,
     analysis=analysis, remediation=remediation, timeline=timeline, events=events,
-    metrics=metrics, schedule=schedule,
+    metrics=metrics, schedule=schedule, state=upgrade_state, requestor=upgrade_requestor, plan=plan,
 )
 
 NS = "ops"
@@ -240,29 +255,40 @@ def build_jax_fleet(seed: int, n: int, now: float):
     return cluster, racks
 
 
-def state_manager(pkg, cluster, gate=None, workers=0):
-    """The state machine on *cluster*: the JAX package's
-    ``ClusterUpgradeStateManager``, or for the port the stand-in that
-    ``chip_smoke.py`` drives (the port has no ``upgrade_state`` yet), each
-    with its own event recorder, flight recorder and pre-drain *gate*, and
-    *workers* write-pipeline workers."""
-    kwargs = dict(recorder=pkg.util.EventRecorder(), pre_drain_gate=gate, write_pipeline_workers=workers,
-                  cache_sync_timeout_seconds=2.0, cache_sync_poll_seconds=0.01,
-                  flight_recorder=pkg.timeline.FlightRecorder())
-    if pkg is JAX:
-        return jupgrade_state.ClusterUpgradeStateManager(cluster, cache=JInformerCache(cluster, lag_seconds=0.0),
-                                                         **kwargs)
-    return chip_smoke.UpgradeStateManager(cluster, **kwargs)
+def state_manager(pkg, cluster, gate=None, workers=0, **modes):
+    """*pkg*'s ``ClusterUpgradeStateManager`` on *cluster*, with its own
+    informer cache, event recorder, flight recorder and pre-drain *gate*,
+    *workers* write-pipeline workers, and the manager's own *modes*
+    (``use_state_index``, ``reads_from_cache``, ``cascade``)."""
+    return pkg.state.ClusterUpgradeStateManager(
+        cluster, cache=pkg.cache_cls(cluster, lag_seconds=0.0), recorder=pkg.util.EventRecorder(),
+        pre_drain_gate=gate, write_pipeline_workers=workers, cache_sync_timeout_seconds=2.0,
+        cache_sync_poll_seconds=0.01, flight_recorder=pkg.timeline.FlightRecorder(), **modes)
+
+
+def requestor_opts(pkg):
+    """Requestor mode's options in *pkg*: the NodeMaintenance handoff,
+    its objects in the fleet's namespace."""
+    return pkg.requestor.RequestorOptions(use_maintenance_operator=True, requestor_id="parity-operator",
+                                          requestor_namespace=NS)
 
 
 class Side:
     """One package's half of a case: its cluster, policy, state machine and
     the snapshot that machine builds (its BuildState also restores every
-    node's timeline into its flight recorder)."""
+    node's timeline into its flight recorder).  With *requestor*, the
+    machine hands nodes to its package's ``SimMaintenanceOperator``
+    through NodeMaintenance objects, as ``tests/test_upgrade_requestor.py``
+    assembles it."""
 
-    def __init__(self, pkg, cluster, policy, now, **manager_kwargs):
+    def __init__(self, pkg, cluster, policy, now, requestor=False, **manager_kwargs):
         self.pkg, self.cluster, self.policy, self.now = pkg, cluster, policy, now
         self.manager = state_manager(pkg, cluster, **manager_kwargs)
+        self.maintenance, self.handed_over = None, set()
+        if requestor:
+            self.manager.with_requestor(
+                pkg.requestor.RequestorNodeStateManager(self.manager.common, requestor_opts(pkg)), enabled=True)
+            self.maintenance = pkg.plan.SimMaintenanceOperator(cluster, namespace=NS)
         self.state = self.manager.build_state(NS, DRIVER_LABELS)
         self.recorder = self.manager.flight_recorder
 
@@ -289,14 +315,28 @@ def pinned_clock(monkeypatch):
         pkg.metrics.set_default_registry(registry)
 
 
+#: the state machine's modes the pass-by-pass test runs in, each as the
+#: keyword arguments of :class:`Side`
+MODES = {
+    "inplace": {},
+    "index": {"use_state_index": True},
+    "cache": {"reads_from_cache": True},
+    "cascade": {"cascade": True},
+    "requestor": {"requestor": True},
+}
+
+
 @pytest.fixture(params=CASES, ids=_ids)
 def sides(request, pinned_clock):
-    seed, n = request.param
+    """The seeded case's two sides; a test may parametrise it indirectly
+    with (seed, n, mode), *mode* a key of :data:`MODES`."""
+    seed, n, mode = (*request.param, "inplace")[:3]
     now = pinned_clock(EPOCH + seed * 7 * 3600.0)
     jcluster, racks = build_jax_fleet(seed, n, now)
     pcluster = InMemoryCluster.from_dict(to_port_vocab(jcluster.to_dict()))
     jpolicy = policy_for(seed, racks)
-    jside, pside = Side(JAX, jcluster, jpolicy, now), Side(PORT, pcluster, port_policy(jpolicy), now)
+    jside = Side(JAX, jcluster, jpolicy, now, **MODES[mode])
+    pside = Side(PORT, pcluster, port_policy(jpolicy), now, **MODES[mode])
     yield jside, pside
     jside.manager.shutdown()
     pside.manager.shutdown()
@@ -512,9 +552,8 @@ def test_the_gpu_fleet_first_wave_is_sixteen_racks(pinned_clock):
 
 # -------------------------------------------------------- pass after pass
 #
-# The JAX package's ClusterUpgradeStateManager and the port's managers,
-# as chip_smoke.py assembles them, take the same cluster through the same
-# reconcile passes: BuildState, ApplyState, the drains and pod restarts
+# The JAX package's ClusterUpgradeStateManager and the port's take the
+# same cluster through the same reconcile passes: BuildState, ApplyState, the drains and pod restarts
 # in flight awaited, then the DaemonSet controller played on both sides.
 # After every pass the two clusters, decision logs and event recorders
 # must agree.  The decisions and events are compared as sorted lists:
@@ -556,6 +595,9 @@ def one_pass(side, nodes, bad=None):
     manager = side.manager
     manager.apply_state(manager.build_state(NS, DRIVER_LABELS), side.policy)
     assert manager.drain_manager.wait_idle(30.0) and manager.pod_manager.wait_idle(30.0)
+    if side.maintenance is not None:
+        side.handed_over |= {nm["spec"]["nodeName"] for nm in side.cluster.list("NodeMaintenance", namespace=NS)}
+        side.maintenance.reconcile()
     ds_controller(side.pkg, side.cluster, nodes, bad)
 
 
@@ -595,14 +637,50 @@ def _labels(side):
     return {n["metadata"]["name"]: n["metadata"]["labels"].get(key) for n in side.cluster.list("Node")}
 
 
+PASS_CASES = [case + (mode,) for mode in MODES for case in CASES]
+
+
+def _pass_ids(case):
+    return _ids(case) + ("" if case[2] == "inplace" else f"-{case[2]}")
+
+
+@pytest.mark.parametrize("sides", PASS_CASES, indirect=True, ids=_pass_ids)
 def test_the_state_machines_agree_pass_by_pass(sides, pinned_clock):
     """The seeded fleets, every state and stamp among them, pass after
     pass until they settle: admission, cordon, drain, pod restarts
-    (rev2 published), failures, retries and quarantine alike."""
+    (rev2 published), failures, retries and quarantine alike; in place,
+    through the state index, reading through the informer cache, with
+    the cascade, and in requestor mode (the NodeMaintenance objects are
+    part of the compared cluster)."""
     jside, pside = sides
     passes = run_passes(pinned_clock, jside, pside, max_passes=30)
     assert passes < 30
     assert set(_labels(pside).values()) - {None, "bogus-state"} <= set(consts.ALL_STATES)
+    if pside.maintenance is not None:  # every node admitted was handed over
+        admitted = any(d["type"] == "NodeAdmitted" for d in _decisions(PORT))
+        assert bool(pside.handed_over) == admitted
+
+
+@pytest.mark.parametrize("mode", ["inplace", "requestor"])
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_the_plans_agree(case, mode, pinned_clock):
+    """``plan_rollout`` over each package's dump of the seeded fleet, in
+    place and in requestor mode: the same plan, transition by
+    transition, and the same next admissions."""
+    seed, n = case
+    now = pinned_clock(EPOCH + seed * 7 * 3600.0)
+    jcluster, racks = build_jax_fleet(seed, n, now)
+    pcluster = InMemoryCluster.from_dict(to_port_vocab(jcluster.to_dict()))
+    jpolicy = policy_for(seed, racks)
+    plans = []
+    for pkg, cluster, policy in ((JAX, jcluster, jpolicy), (PORT, pcluster, port_policy(jpolicy))):
+        opts = requestor_opts(pkg) if mode == "requestor" else None
+        plans.append(pkg.plan.plan_rollout(cluster.to_dict(), NS, DRIVER_LABELS, policy, requestor_opts=opts))
+    jplan_, pplan = plans
+    assert to_port_vocab(jplan_.to_dict()) == pplan.to_dict()
+    assert jplan_.next_admissions == pplan.next_admissions
+    assert to_port_vocab(jplan_.render()) == pplan.render()
+    assert pplan.cycles_simulated >= 1
 
 
 WAVE_RACKS, WAVE_RACK = 4, 16

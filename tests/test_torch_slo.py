@@ -1,30 +1,76 @@
 """The port's SLO engine and its flight-recorder analytics
 (k8s_operator_libs_tpu_torch/obs/slo.py).
 
-The tests of ``tests/test_slo.py``'s ``TestSloSpec``, ``TestSloEngine``,
-``TestAnalytics`` and ``TestFlightRecorder`` that run no rollout, as cases
-of the same names, run on the port.  The tests that drive a rollout
-through ``ClusterUpgradeStateManager`` wait for its port; the SLO
-analytics over a rollout's snapshot are held to the JAX package's in
-``tests/test_torch_rollout_parity.py``.
+``TestFlightRecorder``, ``TestAnalytics``, ``TestSloSpec``,
+``TestSloEngine`` and ``TestRolloutStatusSloSurface`` of
+``tests/test_slo.py``, as cases of the same names, run on the port, the
+rollouts through its ``ClusterUpgradeStateManager``; the SLO analytics
+over a rollout's snapshot are also held to the JAX package's in
+``tests/test_torch_rollout_parity.py``.  ``TestOpsServerSurfaces``,
+``TestSloCli`` and ``TestHistoryJsonParity`` wait for the controller's
+``OpsServer`` and the CLI.
 """
 
+import json
 import random
 import time
 
 import pytest
 
-from k8s_operator_libs_tpu_torch.api import SloSpec, UpgradePolicySpec, ValidationError
+from k8s_operator_libs_tpu_torch import metrics
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, SloSpec, UpgradePolicySpec, ValidationError
+from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
 from k8s_operator_libs_tpu_torch.obs import slo as slo_mod
-from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade import consts, timeline as timeline_mod, util
+from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
 from k8s_operator_libs_tpu_torch.upgrade.timeline import FlightRecorder
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
 
 
 STATE_KEY_OF = util.get_upgrade_state_label_key
+
+
+@pytest.fixture()
+def cluster():
+    return InMemoryCluster()
+
+
+def drive_rollout(cluster, fleet, policy, manager=None, max_cycles=200):
+    """Reconcile until every managed node is done; returns the manager
+    (caller shuts it down)."""
+    manager = manager or ClusterUpgradeStateManager(cluster)
+    for _ in range(max_cycles):
+        state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+        manager.apply_state(state, policy)
+        manager.drain_manager.wait_idle(10.0)
+        manager.pod_manager.wait_idle(10.0)
+        fleet.reconcile_daemonset()
+        if fleet.all_done():
+            return manager
+    raise AssertionError(f"rollout did not converge: {fleet.states()}")
+
+
+def rollout_policy(**kwargs):
+    return UpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=0,
+        max_unavailable=IntOrString("100%"),
+        drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+        **kwargs,
+    )
+
+
+def small_fleet(cluster, n=4):
+    fleet = Fleet(cluster)
+    for i in range(n):
+        fleet.add_node(f"n{i}")
+    fleet.publish_new_revision("rev2")
+    return fleet
 
 
 class TestFlightRecorder:
@@ -104,6 +150,154 @@ class TestFlightRecorder:
         tl = recorder.timeline("q0")
         assert tl["quarantines"] == [[20.0, 50.0]]
 
+    def test_rollout_produces_full_phase_timelines(self, cluster):
+        """Every lifecycle phase the machine drove appears as a closed
+        interval, in order, ending in an open done phase."""
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            recorder = manager.flight_recorder
+            tl = recorder.timeline("n0")
+            assert tl is not None
+            phases = [iv[0] for iv in tl["intervals"]]
+            for expected in (
+                consts.UPGRADE_STATE_UPGRADE_REQUIRED,
+                consts.UPGRADE_STATE_CORDON_REQUIRED,
+                consts.UPGRADE_STATE_DRAIN_REQUIRED,
+                consts.UPGRADE_STATE_POD_RESTART_REQUIRED,
+                consts.UPGRADE_STATE_UNCORDON_REQUIRED,
+            ):
+                assert expected in phases, (expected, phases)
+            # lifecycle order is preserved
+            assert phases.index(
+                consts.UPGRADE_STATE_CORDON_REQUIRED
+            ) < phases.index(consts.UPGRADE_STATE_DRAIN_REQUIRED)
+            assert tl["current"] == consts.UPGRADE_STATE_DONE
+        finally:
+            manager.shutdown()
+
+    def test_cordon_to_done_wall_clock_samples(self, cluster):
+        fleet = small_fleet(cluster, n=3)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            walls = timeline_mod.wall_clock_samples(
+                manager.flight_recorder.timelines()
+            )
+            assert len(walls) == 3
+            assert all(w >= 0 for w in walls)
+        finally:
+            manager.shutdown()
+
+    def test_checkpoint_rides_the_state_label_patch(self, cluster):
+        fleet = small_fleet(cluster, n=1)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            node = cluster.get("Node", "n0")
+            raw = node["metadata"]["annotations"][
+                util.get_timeline_annotation_key()
+            ]
+            payload = json.loads(raw)
+            assert payload["s"] == consts.UPGRADE_STATE_DONE
+            assert payload["i"], "checkpoint carries closed intervals"
+        finally:
+            manager.shutdown()
+
+    def test_crash_resume_reloads_checkpoints(self, cluster):
+        """A fresh manager (new process, empty recorder) rebuilt from
+        the cluster restores the full per-node history the previous
+        leader checkpointed into the node annotations."""
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        before = manager.flight_recorder.timeline("n1")
+        manager.shutdown()
+
+        fresh = FlightRecorder()
+        manager2 = ClusterUpgradeStateManager(
+            cluster, flight_recorder=fresh
+        )
+        try:
+            manager2.build_state(NAMESPACE, DRIVER_LABELS)
+            after = fresh.timeline("n1")
+            assert after is not None
+            assert after["current"] == consts.UPGRADE_STATE_DONE
+            restored = [tuple(iv) for iv in after["intervals"]]
+            # the checkpoint carries the tail of the history (rounded to
+            # ms); every restored phase matches the live recorder's
+            live = [
+                (p, round(s, 3), round(e, 3))
+                for p, s, e in before["intervals"]
+            ][-len(restored):]
+            assert [p for p, _, _ in restored] == [p for p, _, _ in live]
+            walls = timeline_mod.wall_clock_samples([after])
+            assert len(walls) == 1, "wall clock survives the failover"
+        finally:
+            manager2.shutdown()
+
+    def test_corrupt_checkpoint_is_ignored(self, cluster):
+        fleet = small_fleet(cluster, n=1)
+        cluster.patch(
+            "Node",
+            "n0",
+            {
+                "metadata": {
+                    "annotations": {
+                        util.get_timeline_annotation_key(): "{not json"
+                    }
+                }
+            },
+        )
+        manager = ClusterUpgradeStateManager(cluster)
+        try:
+            manager.build_state(NAMESPACE, DRIVER_LABELS)
+            tl = manager.flight_recorder.timeline("n0")
+            assert tl is not None and tl["intervals"] == []
+        finally:
+            manager.shutdown()
+
+    def test_disabled_recorder_records_nothing(self, cluster):
+        fleet = small_fleet(cluster, n=1)
+        off = FlightRecorder(enabled=False)
+        manager = drive_rollout(
+            cluster,
+            fleet,
+            rollout_policy(),
+            manager=ClusterUpgradeStateManager(cluster, flight_recorder=off),
+        )
+        try:
+            assert len(off) == 0
+            node = cluster.get("Node", "n0")
+            assert util.get_timeline_annotation_key() not in (
+                node["metadata"].get("annotations") or {}
+            )
+        finally:
+            manager.shutdown()
+
+    def test_vanished_node_pruned_from_recorder(self, cluster):
+        """A node deleted from the cluster (scale-down,
+        repair-and-replace) must leave the recorder too — its open
+        phase would otherwise grow forever into a phantom straggler
+        and a permanent maxNodePhaseSeconds breach."""
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            recorder = manager.flight_recorder
+            assert recorder.timeline("n2") is not None
+            for pod in cluster.list("Pod", namespace=NAMESPACE):
+                if (pod.get("spec") or {}).get("nodeName") == "n2":
+                    cluster.delete(
+                        "Pod", pod["metadata"]["name"], NAMESPACE
+                    )
+            cluster.delete("Node", "n2")
+            ds = cluster.get("DaemonSet", "gpu-driver", NAMESPACE)
+            ds["status"]["desiredNumberScheduled"] -= 1
+            cluster.update(ds)
+            fleet.managed_nodes.discard("n2")
+            manager.build_state(NAMESPACE, DRIVER_LABELS)
+            assert recorder.timeline("n2") is None
+            assert recorder.timeline("n0") is not None
+        finally:
+            manager.shutdown()
+
 
 class TestAnalytics:
     def _synthetic_timelines(self, n=8, base=1000.0, drain_s=5.0):
@@ -170,6 +364,31 @@ class TestAnalytics:
         stats = slo_mod.phase_stats(timelines)
         # no completed drain samples at all -> no verdict, no crash
         assert slo_mod.find_stragglers(timelines, stats, 1e9) == []
+
+    def test_straggler_detection_on_injected_slow_drain(self, cluster):
+        """A harness fleet rolls normally (millisecond drains); one
+        extra node is left sitting in drain for a simulated 500 s — the
+        k×p95 rule must flag exactly it."""
+        fleet = small_fleet(cluster, n=6)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            recorder = manager.flight_recorder
+            slow = {"metadata": {"name": "slow-drainer"}}
+            now = time.time()
+            recorder.transition(
+                slow, consts.UPGRADE_STATE_CORDON_REQUIRED, now=now - 501
+            )
+            recorder.transition(
+                slow, consts.UPGRADE_STATE_DRAIN_REQUIRED, now=now - 500
+            )
+            timelines = recorder.timelines()
+            stats = slo_mod.phase_stats(timelines)
+            found = slo_mod.find_stragglers(timelines, stats, now)
+            assert [s["node"] for s in found] == ["slow-drainer"]
+            assert found[0]["phase"] == consts.UPGRADE_STATE_DRAIN_REQUIRED
+            assert found[0]["elapsedSeconds"] >= 499
+        finally:
+            manager.shutdown()
 
 
 class TestSloSpec:
@@ -379,3 +598,117 @@ class TestSloEngine:
             "fleetCompletionDeadlineSeconds"
         ] > 1
 
+    def _engine_rollout(self, cluster, slos):
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(cluster, fleet, rollout_policy(slos=slos))
+        return fleet, manager
+
+    def test_breach_detected_and_edge_counted(self, cluster):
+        registry = metrics.MetricsRegistry()
+        prev = metrics.set_default_registry(registry)
+        try:
+            _, manager = self._engine_rollout(
+                cluster, SloSpec(max_node_phase_seconds=1e-6)
+            )
+            try:
+                report = manager.slo_status()
+                breaches = report["slos"]["breaches"]
+                assert [b["slo"] for b in breaches] == [
+                    "maxNodePhaseSeconds"
+                ]
+                assert report["slos"]["burnRates"][
+                    "maxNodePhaseSeconds"
+                ] > 1
+                counter = registry.counter(
+                    "slo_breaches_total", "", ("slo",)
+                )
+                # edge-triggered: breached on many reconciles, counted once
+                assert counter.value("maxNodePhaseSeconds") == 1
+                exposition = registry.render()
+                assert "rollout_eta_seconds" in exposition
+                assert 'slo_breached{slo="maxNodePhaseSeconds"} 1' in (
+                    exposition
+                )
+            finally:
+                manager.shutdown()
+        finally:
+            metrics.set_default_registry(prev)
+
+    def test_no_breach_within_generous_targets(self, cluster):
+        _, manager = self._engine_rollout(
+            cluster,
+            SloSpec(
+                max_node_phase_seconds=3600,
+                drain_p99_seconds=3600,
+                fleet_completion_deadline_seconds=86400,
+            ),
+        )
+        try:
+            report = manager.slo_status()
+            assert report["slos"]["breaches"] == []
+            assert report["slos"]["burnRates"]["maxNodePhaseSeconds"] < 1
+        finally:
+            manager.shutdown()
+
+    def test_removing_slos_block_retires_gauges_and_report(self, cluster):
+        registry = metrics.MetricsRegistry()
+        prev = metrics.set_default_registry(registry)
+        try:
+            fleet = small_fleet(cluster)
+            policy = rollout_policy(slos=SloSpec(max_node_phase_seconds=1))
+            manager = drive_rollout(cluster, fleet, policy)
+            try:
+                assert manager.slo_status() is not None
+                import re
+
+                sample = re.compile(
+                    r"^k8s_operator_libs_tpu_"
+                    r"(rollout_eta_seconds|rollout_stragglers|"
+                    r"slo_burn_rate|slo_breached|slo_phase_seconds)[ {]",
+                    re.M,
+                )
+                assert sample.search(registry.render())
+                # block removed: next pass retires report + REMOVES the
+                # gauge series (a retired eta stuck at -1 would keep
+                # matching the ETA-stalled alert forever)
+                state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+                manager.apply_state(state, rollout_policy())
+                assert manager.slo_status() is None
+                assert not sample.search(registry.render())
+            finally:
+                manager.shutdown()
+        finally:
+            metrics.set_default_registry(prev)
+
+
+class TestRolloutStatusSloSurface:
+    def test_summary_and_render_lead_with_slo_lines(self, cluster):
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(
+            cluster,
+            fleet,
+            rollout_policy(slos=SloSpec(max_node_phase_seconds=1e-6)),
+        )
+        try:
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            status = RolloutStatus.from_cluster_state(
+                state, slo_report=manager.slo_status()
+            )
+            rendered = status.render()
+            assert "rollout SLOs:" in rendered
+            assert "SLO BREACH [maxNodePhaseSeconds]" in rendered
+            assert "SLO BREACH" in status.summary()
+            assert status.to_dict()["slo"]["slos"]["breaches"]
+        finally:
+            manager.shutdown()
+
+    def test_no_slo_report_renders_unchanged(self, cluster):
+        fleet = small_fleet(cluster)
+        manager = drive_rollout(cluster, fleet, rollout_policy())
+        try:
+            state = manager.build_state(NAMESPACE, DRIVER_LABELS)
+            status = RolloutStatus.from_cluster_state(state)
+            assert "rollout SLOs:" not in status.render()
+            assert "slo" not in status.to_dict()
+        finally:
+            manager.shutdown()

@@ -4,9 +4,12 @@ the JAX package's obs/tracing.py.
 The traceparent carrier is what the two sides of the drain handshake
 meet on, so formatting and parsing must agree with the orchestrator's on
 every input; spans keep the orchestrator's record keys and parentage
-order.  ``TestSpanBasics``, ``TestLogInjection`` and the exporter round
-trips of ``TestExportersAndCli`` (``tests/test_tracing.py``) run on the
-port as cases of the same names; a trace exported by either package is
+order.  ``TestSpanBasics``, ``TestLogInjection``, the exporter round
+trips of ``TestExportersAndCli`` and the tests of
+``TestEndToEndUpgradeTrace`` that start no ``OpsServer`` (one traced
+rollout through the port's ``ClusterUpgradeStateManager``) from
+``tests/test_tracing.py`` run on the port as cases of the same names
+(``TestQueueWaitSpans`` waits for the controller); a trace exported by either package is
 read back by the other, and the same trace dicts export to the same
 Chrome and OTLP payloads.
 """
@@ -21,8 +24,15 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from k8s_operator_libs_tpu.obs import tracing as jtracing
+from k8s_operator_libs_tpu_torch import metrics
+from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, PreDrainCheckpointSpec, UpgradePolicySpec
+from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
 from k8s_operator_libs_tpu_torch.obs import tracing
+from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate, DrainSignalWatcher
+from k8s_operator_libs_tpu_torch.upgrade import consts
+from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
+from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
@@ -30,6 +40,70 @@ pytestmark = pytest.mark.usefixtures("port_globals")
 HEX = "0123456789abcdef"
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 SPAN_ID = "00f067aa0ba902b7"
+
+
+def _run_traced_rollout(nodes: int = 3):
+    """A full stub-cluster upgrade under ONE root span, with the
+    checkpoint-drain handshake answered by a workload-side thread.
+    Returns (tracer, registry, root_span)."""
+    tracer = tracing.Tracer()
+    prev_tracer = tracing.set_default_tracer(tracer)
+    registry = metrics.MetricsRegistry()
+    prev_registry = metrics.set_default_registry(registry)
+    cluster = InMemoryCluster()
+    fleet = Fleet(cluster, revision_hash="v1")
+    for i in range(nodes):
+        fleet.add_node(f"n{i}")
+    fleet.publish_new_revision("v2")
+    gate = CheckpointDrainGate(
+        cluster, PreDrainCheckpointSpec(enable=True, timeout_second=5)
+    )
+    manager = ClusterUpgradeStateManager(
+        cluster,
+        pre_drain_gate=gate,
+        cache_sync_timeout_seconds=2.0,
+        cache_sync_poll_seconds=0.01,
+    )
+    stop = threading.Event()
+
+    def responder():
+        watchers = [
+            DrainSignalWatcher(cluster, f"n{i}") for i in range(nodes)
+        ]
+        while not stop.is_set():
+            for watcher in watchers:
+                watcher.check_and_acknowledge(lambda: None)
+            time.sleep(0.005)
+
+    thread = threading.Thread(target=responder, daemon=True)
+    thread.start()
+    policy = UpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=0,
+        max_unavailable=IntOrString("100%"),
+        drain_spec=DrainSpec(enable=True, force=True, timeout_second=10),
+    )
+    try:
+        with tracing.start_span("Upgrade", attributes={"nodes": nodes}) as root:
+            for _ in range(40):
+                state = manager.build_state(NAMESPACE, dict(DRIVER_LABELS))
+                manager.apply_state(state, policy)
+                manager.drain_manager.wait_idle(10.0)
+                manager.pod_manager.wait_idle(10.0)
+                fleet.reconcile_daemonset()
+                if set(fleet.states().values()) == {
+                    consts.UPGRADE_STATE_DONE
+                }:
+                    break
+            else:
+                raise AssertionError(f"no convergence: {fleet.states()}")
+    finally:
+        stop.set()
+        thread.join(2.0)
+        manager.shutdown()
+        tracing.set_default_tracer(prev_tracer)
+        metrics.set_default_registry(prev_registry)
+    return tracer, registry, root
 
 
 @pytest.mark.parametrize(
@@ -411,3 +485,72 @@ def test_the_same_traces_export_to_the_same_payloads():
                 scope["scope"]["name"] = "<module>"
     assert ours == theirs
     assert tracing.render_trace_tree(traces[0]) == jtracing.render_trace_tree(traces[0])
+
+
+class TestEndToEndUpgradeTrace:
+    """The acceptance test: a ≥3-node stub-cluster upgrade produces ONE
+    trace spanning BuildState → per-node processing → drain → handshake →
+    pod restart, exportable as Chrome JSON, with the trace ID surfaced
+    as a drain_seconds exemplar."""
+
+    @pytest.fixture(scope="class")
+    def rollout(self):
+        return _run_traced_rollout(nodes=3)
+
+    def test_one_trace_spans_the_whole_pipeline(self, rollout):
+        tracer, _, root = rollout
+        trace = tracer.get_trace(root.trace_id)
+        assert trace is not None and trace["complete"]
+        names = {s["name"] for s in trace["spans"]}
+        assert {
+            "Upgrade",
+            "BuildState",
+            "ApplyState",
+            "ProcessNodeState",
+            "cordon",
+            "drain",
+            "drain-handshake",
+            "checkpoint-drain",
+            "pod-restart",
+        } <= names, f"missing spans: {names}"
+        # per-node coverage: every node got ProcessNodeState and drain spans
+        for name in ("ProcessNodeState", "drain"):
+            nodes_seen = {
+                s["attributes"].get("node")
+                for s in trace["spans"]
+                if s["name"] == name
+            }
+            assert {"n0", "n1", "n2"} <= nodes_seen
+
+    def test_handshake_child_carries_parent_trace_id(self, rollout):
+        tracer, _, root = rollout
+        trace = tracer.get_trace(root.trace_id)
+        spans = {s["span_id"]: s for s in trace["spans"]}
+        handshakes = [
+            s for s in trace["spans"] if s["name"] == "checkpoint-drain"
+        ]
+        assert handshakes
+        for span in handshakes:
+            # crossed the annotation boundary, still the same trace…
+            assert span["trace_id"] == root.trace_id
+            # …and parented under the gate's wait span inside the drain
+            parent = spans[span["parent_id"]]
+            assert parent["name"] == "drain-handshake"
+            grandparent = spans[parent["parent_id"]]
+            assert grandparent["name"] == "drain"
+
+    def test_drain_seconds_exemplar_carries_trace_id(self, rollout):
+        _, registry, root = rollout
+        exemplar = registry.histogram("drain_seconds", "x").exemplar()
+        assert exemplar is not None
+        labels, value, ts = exemplar
+        assert labels == {"trace_id": root.trace_id}
+        assert value >= 0 and ts > 0
+        # the OpenMetrics rendering exposes it; the 0.0.4 one must not
+        assert "# {trace_id=" in registry.render(openmetrics=True)
+        assert "# {trace_id=" not in registry.render()
+        reconcile_ex = registry.histogram(
+            "reconcile_seconds", "x", ("phase",)
+        ).exemplar("build")
+        assert reconcile_ex is not None
+        assert reconcile_ex[0]["trace_id"] == root.trace_id

@@ -37,6 +37,8 @@ PORT_VOCAB = (
     ("tpu-runtime", "gpu-driver"),
     ("TpuUpgradePolic", "GpuUpgradePolic"),
     ("tpuupgradepolic", "gpuupgradepolic"),
+    ("tpu-operator", "nvidia-operator"),
+    ("degraded TPU)", "degraded GPU)"),
 )
 
 #: Substrings no string of the port may hold.
@@ -122,6 +124,13 @@ def test_the_table_is_injective():
     health_labels = ("tpu.google.com/degraded", "cloud.google.com/gke-tpu-degraded")
     assert len({to_port_vocab(k) for k in health_labels}) == 2
     for key in health_labels + ("tpu.google.com/decision-seq", "TpuLinkDown"):
+        assert from_port_vocab(to_port_vocab(key)) == key
+    # the requestor's name prefix and its quarantine log line
+    assert to_port_vocab("tpu-operator") == "nvidia-operator"
+    assert to_port_vocab("domain quarantined (degraded TPU) — ") == "domain quarantined (degraded GPU) — "
+    degraded = ("(degraded TPU) —", "degraded TPU host")
+    assert len({to_port_vocab(s) for s in degraded}) == 2
+    for key in degraded + ("tpu-operator-n1", "maintenance.tpu.google.com/finalizer"):
         assert from_port_vocab(to_port_vocab(key)) == key
 
 
