@@ -182,14 +182,58 @@ failure (the exit code is then non-zero and no result line is printed):
    indexed snapshot holding the same buckets as a full one built beside
    it (both BuildState ms logged); at the end ``RolloutStatus`` counts all
    1,024 nodes ``upgrade-done``, every node schedulable, every driver pod
-   at ``rev2``, and the remediation breaker closed.  10d, after 10e-10i,
-   no key or value of ``cluster.to_dict()`` names the TPU fleet
-   (``tpu.google.com``, ``gke-tpu``): the whole rollout wrote none.  Phases 4, 6, 7 and 8 keep
+   at ``rev2``, and the remediation breaker closed.  10j, over 10e's
+   facade, the port's operator takes the whole fleet from ``rev2`` to
+   ``rev3``: the port's three CRD files (``k8s_operator_libs_tpu_torch/
+   crd``, read with ``json.load``) applied by ``crdutil.apply_crd`` and
+   served (``wait_for_crds``); a policy patch with ``maxParallelUpgrades:
+   "three"`` refused over HTTP (422); the fleet's ``GpuUpgradePolicy``
+   patched to the wave's policy; every node given a Job's pod again and
+   ``rev3`` published; ``plan_rollout`` over a dump predicting the first
+   admission (16 racks of 16), the main path's trainer on one of its
+   nodes.  Two replicas, each assembled as ``examples/operator.py``'s
+   ``run_real`` assembles the operator (its own ``KubeApiClient``, an
+   externally fed informer cache and state index on the controller's
+   watch tee, reads from the cache, a ``ClusterDecisionEventSink``, the
+   policy from the CR, the ``CheckpointDrainGate``, held watch streams)
+   as ``HaOperator``s on a 4 s Lease, each with an ``OpsServer`` and a
+   running ``SamplingProfiler``; one helper thread replays the journal
+   for every Node and Pod write, plays the DaemonSet controller at
+   ``rev3`` and the other nodes' workloads from it, and samples the
+   Lease and the reconcile wakeups.  Gates: exactly one replica leads (the Lease's
+   holder runs the only controller), and no sample shows two
+   controllers; the first admission is the plan's; once the trainer has
+   acknowledged its drain, its node is past the drain and some but not
+   all of the first wave is done, the leader crashes (its campaign
+   thread stopped and joined, its client refusing every request, its
+   controller stopped, the Lease not released, and its pool threads,
+   each ending at its next request, joined within
+   ``OPERATOR_CRASHED_JOIN_S``); the standby takes the Lease within its duration plus 2 s,
+   and the crashed replica comes back as a new standby; the new leader
+   finishes the rollout within ``OPERATOR_DEADLINE_S``: all 1,024 nodes
+   ``upgrade-done`` and schedulable, every driver pod at ``rev3``, every
+   Job pod evicted, the breaker closed, never more than 256 nodes
+   cordoned; the trainer drained with its gate's token, its checkpoint
+   restores, each flash kernel launches ``n_layers`` times a step on its
+   tensor-core kernel; ``/healthz`` answers 200 on both live replicas,
+   ``/metrics`` counts two ``acquired`` leader transitions and the
+   reconcile wakeups by trigger, ``/debug/profile`` holds samples and
+   ``/debug/traces`` the gate's ``drain-handshake`` span with the
+   trainer's ``checkpoint-drain`` as its child.  Logged (host clock): the
+   failover (crash to the first reconcile request the standby's
+   controller accepted), the crashed replica's threads, the rollout,
+   admission bursts, each replica's reconcile wakeups, the reconciles and
+   those BuildState refused (from the ``Reconcile`` spans), HTTP requests
+   and batch POSTs, the trainer's steps, the profile's top frames.  10d, after
+   10e-10j, no key or value of ``cluster.to_dict()`` (CRDs, CRs, Leases
+   and Events included) names the TPU fleet (``tpu.google.com``,
+   ``gke-tpu``): the whole rollout wrote none.  Phases 4, 6, 7 and 8 keep
    their drain nodes in an ``InMemoryCluster`` served by the same facade
    class;
 11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's,
-   10f's, 10g's, 10h's and 10i's launches beside its other paths'), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   10f's, 10g's, 10h's, 10i's and 10j's launches beside its other paths'),
+   the card line, and last ``{"ok": true, "device": {...}}``; before
+   them, no thread but the main one that is not a daemon may still run.
 
     python3 chip_smoke.py --int8-turns TREE [TREE ...]
 
@@ -216,6 +260,13 @@ times the bf16 int8 kernel at the same shapes under every launch plan
 (cluster and warps per block, each 1, 2, 4 or 8, no more slices than K
 has chunks) beside the one ``int8_plan`` chooses, one ``plans`` line per
 shape, then the card line.
+
+    python3 chip_smoke.py --operator-turns on off [on|off ...]
+
+runs 10j alone once per turn, each on a fresh fleet as 10i leaves it:
+``on`` with the replicas' profilers as the smoke runs them, ``off``
+without them (and without the ``/debug/profile`` gate), one ``operator
+turn`` line each, then the card line.
 """
 
 from __future__ import annotations
@@ -2180,6 +2231,35 @@ def play_daemonset(store) -> int:
     return made
 
 
+def _token_watcher_class():
+    """The trainer's watcher, keeping the request it answered and the
+    host clock at each poll: the trainer polls once a step, so the
+    differences are its steps' host ms (the poll's read included)."""
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+
+    class TokenWatcher(DrainSignalWatcher):
+        answered = None
+        #: set when the phase fails: the trainer's next poll raises, so its
+        #: thread ends with the phase
+        abort = False
+
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.polls = []
+
+        def check_and_acknowledge(self, on_checkpoint):
+            if self.abort:
+                raise RuntimeError("the phase failed; the trainer stops")
+            self.polls.append(time.perf_counter())
+            return super().check_and_acknowledge(on_checkpoint)
+
+        def acknowledge(self):
+            self.answered = self._read()
+            super().acknowledge()
+
+    return TokenWatcher
+
+
 class _RackWorkloads:
     """The workloads of the wave's other nodes: each answers its node's
     checkpoint request at once (its job is not on the card).  Polls the
@@ -2254,31 +2334,13 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None, use_stat
     from k8s_operator_libs_tpu_torch.obs.slo import SloEngine
     from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
     from k8s_operator_libs_tpu_torch.tpu import workload as wl
-    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate, DrainSignalWatcher
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate
     from k8s_operator_libs_tpu_torch.upgrade import consts, timeline, util
     from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
     from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
     from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
-    class TokenWatcher(DrainSignalWatcher):
-        """The trainer's watcher, keeping the request it answered and the
-        host clock at each poll: the trainer polls once a step, so the
-        differences are its steps' host ms (the poll's read included)."""
-
-        answered = None
-
-        def __init__(self, *args):
-            super().__init__(*args)
-            self.polls = []
-
-        def check_and_acknowledge(self, on_checkpoint):
-            self.polls.append(time.perf_counter())
-            return super().check_and_acknowledge(on_checkpoint)
-
-        def acknowledge(self):
-            self.answered = self._read()
-            super().acknowledge()
-
+    TokenWatcher = _token_watcher_class()
     policy = wave_policy(store)
     state_key = util.get_upgrade_state_label_key()
     registry, tracer, log_, flight = (metrics.MetricsRegistry(), tracing.Tracer(capacity=4096),
@@ -2524,12 +2586,642 @@ def fleet_rest(store, config, taken) -> dict:
     return rec
 
 
+#: 10j: the port's operator.  Two replicas lead by turns on a short Lease
+#: (seconds); the rollout's deadline (the slowest rollout measured on the
+#: card, 116.4 s, times 1.5: the turns of one call on one card ranged
+#: 1.46x, so a stall, not a slow run, misses it); the helper
+#: thread's longest wait between samples; and the kinds each replica's
+#: held watch streams carry (those of ``examples/operator.py``'s
+#: ``run_real``)
+OPERATOR_LEASE = {"lease_duration": 4.0, "renew_deadline": 3.0, "retry_period": 0.2}
+OPERATOR_DEADLINE_S = 180.0
+OPERATOR_SAMPLE_S = 0.02
+OPERATOR_PROFILE_HZ = 10.0
+OPERATOR_HELD_KINDS = ("Node", "Pod", "DaemonSet", "GpuUpgradePolicy", "ControllerRevision", "NodeMaintenance")
+#: the name prefixes of a manager's worker pools (drain, pod and upgrade
+#: workers): a crashed replica's end at their next request or cache read,
+#: and are joined within ``OPERATOR_CRASHED_JOIN_S`` of the crash
+REPLICA_POOL_THREADS = ("drain-worker", "pod-worker", "pod-check", "upgrade-worker")
+OPERATOR_CRASHED_JOIN_S = 60.0
+#: the threads the interpreter joins at its exit: those that are not
+#: daemons, and every pool worker (``concurrent.futures`` joins its
+#: workers, daemons too, spawned from a daemon thread as a controller's are)
+POOL_THREADS = REPLICA_POOL_THREADS + ("ThreadPoolExecutor",)
+#: the CRDs the port ships, one JSON file each, read with ``json.load``
+PORT_CRD_DIR = "k8s_operator_libs_tpu_torch/crd"
+
+
+def load_port_crds() -> list:
+    """The port's three CRD files; a file that does not read fails the run."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent / PORT_CRD_DIR
+    files = sorted(root.glob("*.yaml"))
+    if len(files) != 3:
+        raise RuntimeError(f"10j: {len(files)} CRD files under {root}, want 3")
+    crds = []
+    for path in files:
+        with open(path, encoding="utf-8") as fh:
+            crds.append(json.load(fh))
+    return crds
+
+
+def _wakeups(registry) -> float:
+    """The reconcile requests the controllers of this process have accepted:
+    ``reconcile_wakeups_total`` (which each replica's ``OpsServer`` serves)
+    summed over its triggers."""
+    return sum(float(line.rsplit(" ", 1)[1]) for metric in registry.collect()
+               if metric.name.endswith("reconcile_wakeups_total")
+               for line in metric.render() if not line.startswith("#"))
+
+
+class _OperatorWatch:
+    """10j's one helper thread.  Woken by each write to the store (or
+    after ``OPERATOR_SAMPLE_S``), it replays the store's watch journal for
+    Nodes and Pods and hands each event to the parts of the cluster the
+    phase plays; every ``OPERATOR_SAMPLE_S`` it samples the operator:
+
+    * every Node write is seen: each node's state, the cordoned
+      (unavailable) nodes at every write, and the order of admissions (to
+      ``cordon-required``);
+    * the workloads of *workload_nodes* answer their node's checkpoint
+      request, each through its ``DrainSignalWatcher`` (``answered`` holds
+      the nodes that answered at least once: a new leader asks again where
+      a drain was in flight);
+    * the DaemonSet controller recreates, at *revision* and Ready, every
+      fleet driver pod that was deleted, under a name of its own, as a
+      DaemonSet names each pod it creates (a delete from a replica's stale
+      view then misses it); ``play_daemonset``, which 10g-10i call between
+      passes, lists every pod, too long a hold of the interpreter lock for
+      a tick beside two replicas;
+    * the Lease's holder, which replicas run a controller, and the
+      reconcile requests accepted since the last sample (*registry*'s
+      ``reconcile_wakeups_total``), counted to the replica that runs the
+      only controller (``wakeups``, and the host clock at each replica's
+      first in ``first_wakeup``).
+
+    A failure ends the thread and is kept in ``error``."""
+
+    def __init__(self, store, replicas, lease_name: str, registry, workload_nodes, revision: str):
+        import threading
+
+        from k8s_operator_libs_tpu_torch.tpu.drain_handshake import DrainSignalWatcher
+        from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+        self._store, self._replicas, self._lease, self._registry = store, replicas, lease_name, registry
+        self._key, self._admit = util.get_upgrade_state_label_key(), consts.UPGRADE_STATE_CORDON_REQUIRED
+        self._checkpoint_key = util.get_pre_drain_checkpoint_annotation_key()
+        self._asked = f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:"
+        self._watchers = {name: DrainSignalWatcher(store, name) for name in workload_nodes}
+        self._ds, self._revision = store.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE), revision
+        self._seq = store.journal_seq()
+        nodes = store.list("Node")
+        self.states = {n["metadata"]["name"]: n["metadata"]["labels"].get(self._key) for n in nodes}
+        self.cordoned = {n["metadata"]["name"] for n in nodes if n["spec"].get("unschedulable")}
+        self.admitted, self.max_cordoned, self.samples = [], len(self.cordoned), 0
+        #: host-clock seconds at which each admission was seen
+        self.admitted_at = []
+        #: (host-clock seconds, Lease holder, identities running a controller), when either changes
+        self.leadership, self.split_brain = [], []
+        self.answered, self.acks, self.made, self.error = set(), 0, 0, None
+        self.wakeups, self.first_wakeup, self._wakeups = {}, {}, _wakeups(registry)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="operator-watch", daemon=True)
+        self._thread.start()
+
+    def _replay(self) -> None:
+        head = self._store.journal_seq()  # ExpiredError fails the run: no write may go unseen
+        events = self._store.events_since(self._seq, kind=("Node", "Pod"))
+        self._seq = max([self._seq, head] + [ev.seq for ev in events])
+        asked = set()
+        for ev in events:
+            if ev.kind == "Pod":
+                self._recreate(ev)
+            else:
+                self._see(ev, asked)
+        for name in sorted(asked):
+            watcher = self._watchers[name]
+            if watcher.checkpoint_requested():
+                watcher.acknowledge()
+                self.acks += 1
+                self.answered.add(name)
+
+    def _see(self, ev, asked) -> None:
+        node = ev.new or ev.old
+        name = node["metadata"]["name"]
+        if ev.new is None:
+            self.states.pop(name, None)
+            self.cordoned.discard(name)
+            return
+        state = (ev.new["metadata"].get("labels") or {}).get(self._key)
+        if state == self._admit and self.states.get(name) != self._admit:
+            self.admitted.append(name)
+            self.admitted_at.append(time.perf_counter())
+        self.states[name] = state
+        if (ev.new.get("spec") or {}).get("unschedulable"):
+            self.cordoned.add(name)
+        else:
+            self.cordoned.discard(name)
+        self.max_cordoned = max(self.max_cordoned, len(self.cordoned))
+        annotation = (ev.new["metadata"].get("annotations") or {}).get(self._checkpoint_key, "")
+        if name in self._watchers and annotation.startswith(self._asked):
+            asked.add(name)
+
+    def _recreate(self, ev) -> None:
+        from k8s_operator_libs_tpu_torch.cluster.objects import make_pod
+
+        old = ev.old or {}
+        if ev.type != "Deleted" or old["metadata"].get("namespace") != FLEET_NAMESPACE:
+            return
+        node = old["spec"]["nodeName"]
+        self._store.create(make_pod(
+            f"gpu-driver-{node.rsplit('-', 1)[1]}-{self._revision}-{self.made}", FLEET_NAMESPACE, node,
+            labels=dict(FLEET_DRIVER_LABELS), owner=self._ds, revision_hash=self._revision))
+        self.made += 1
+
+    def _sample(self) -> None:
+        from k8s_operator_libs_tpu_torch.cluster.errors import NotFoundError
+
+        try:
+            lease = self._store.get("Lease", self._lease, FLEET_NAMESPACE)
+            holder = (lease.get("spec") or {}).get("holderIdentity") or ""
+        except NotFoundError:
+            holder = ""
+        running = tuple(r.identity for r in self._replicas if r.ha.controller is not None)
+        if len(running) > 1:
+            self.split_brain.append(running)
+        if not self.leadership or self.leadership[-1][1:] != (holder, running):
+            self.leadership.append((time.perf_counter(), holder, running))
+        total = _wakeups(self._registry)
+        if total > self._wakeups:
+            who = running[0] if len(running) == 1 else ""
+            self.wakeups[who] = self.wakeups.get(who, 0) + total - self._wakeups
+            self.first_wakeup.setdefault(who, time.perf_counter())
+            self._wakeups = total
+        self.samples += 1
+
+    def _run(self) -> None:
+        try:
+            sample_at = 0.0
+            while not self._stop.is_set():
+                # woken by the next write: the DaemonSet recreates a deleted
+                # pod, and a workload answers, as soon as their watches
+                # would see it
+                self._store.wait_for_seq(self._seq, timeout=OPERATOR_SAMPLE_S)
+                self._replay()
+                if time.perf_counter() >= sample_at:
+                    self._sample()
+                    sample_at = time.perf_counter() + OPERATOR_SAMPLE_S
+        except BaseException as err:  # noqa: BLE001 -- kept for the main thread, which fails the run
+            self.error = err
+            raise
+
+    def alive(self) -> bool:
+        return self._thread.is_alive()
+
+    def admission_bursts(self, gap_s: float = 0.25) -> list:
+        """The sizes of the bursts of admissions: admissions seen less than
+        *gap_s* after the one before belong to its burst."""
+        bursts = []
+        for i, t in enumerate(self.admitted_at):
+            if i and t - self.admitted_at[i - 1] < gap_s:
+                bursts[-1] += 1
+            else:
+                bursts.append(1)
+        return bursts
+
+    def holder(self) -> str:
+        return self.leadership[-1][1] if self.leadership else ""
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+        if self._thread.is_alive():
+            raise RuntimeError("10j: the helper thread did not stop")
+        self._replay()
+
+
+class _Replica:
+    """One replica of the port's operator, assembled as
+    ``examples/operator.py``'s ``run_real`` assembles it: its own
+    ``KubeApiClient`` to the facade, an externally fed ``InformerCache``
+    and ``ClusterStateIndex`` riding the controller's watch tee, reads from
+    the cache, a ``ClusterDecisionEventSink``, the policy from the fleet's
+    ``GpuUpgradePolicy`` CR, the pre-drain ``CheckpointDrainGate``, held
+    watch streams that run with the controller, an ``HaOperator`` on the
+    Lease, and an ``OpsServer`` with a running ``SamplingProfiler`` (none
+    when *profile_hz* is None)."""
+
+    def __init__(self, url: str, identity: str, gate_spec, profile_hz=OPERATOR_PROFILE_HZ):
+        from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+        from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
+        from k8s_operator_libs_tpu_torch.controller import (
+            CrPolicySource, HaOperator, OpsServer, new_upgrade_controller,
+        )
+        # importing the example also puts its checkout's tests/ first on
+        # sys.path and loads the test harness there (for its in-memory demo)
+        from k8s_operator_libs_tpu_torch.examples.operator import _HeldWatchRunnable
+        from k8s_operator_libs_tpu_torch.obs import events, profiling
+        from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate
+        from k8s_operator_libs_tpu_torch.upgrade import util
+        from k8s_operator_libs_tpu_torch.upgrade.state_index import ClusterStateIndex
+        from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
+
+        self.identity, self.closed = identity, False
+        self.client = KubeApiClient(KubeConfig(server=url), timeout=30.0)
+        client = self.client
+        self.cache = cache = InformerCache(client, lag_seconds=0.05, externally_fed=True,
+                                           kinds=("Node", "Pod", "DaemonSet", "ControllerRevision"))
+        index = ClusterStateIndex(client, FLEET_NAMESPACE, FLEET_DRIVER_LABELS, externally_fed=True)
+        self.manager = ClusterUpgradeStateManager(
+            client, cache=cache, recorder=util.EventRecorder(), reads_from_cache=True, state_index=index,
+            decision_event_sink=events.ClusterDecisionEventSink(client),
+            pre_drain_gate=CheckpointDrainGate(client, gate_spec), write_pipeline_workers=16,
+            cache_sync_timeout_seconds=30.0)
+
+        def make_controller():
+            return _HeldWatchRunnable(client, OPERATOR_HELD_KINDS, new_upgrade_controller(
+                client, self.manager, FLEET_NAMESPACE, FLEET_DRIVER_LABELS,
+                policy_source=CrPolicySource(client, "fleet", FLEET_NAMESPACE),
+                resync_seconds=30.0, feed_cache=cache, feed_index=index))
+
+        self.ha = HaOperator(client, make_controller, identity=identity, lease_namespace=FLEET_NAMESPACE,
+                             **OPERATOR_LEASE)
+        # 10 Hz: at the default 67 Hz each sampler, walking the stacks of the
+        # process's ~300 threads, takes about half a core
+        self.profiler = profiling.SamplingProfiler(hz=profile_hz).start() if profile_hz else None
+        manager = self.manager
+        self.ops = OpsServer(
+            port=0, host="127.0.0.1", profiler=self.profiler, remediation_source=manager.remediation_status,
+            slo_source=manager.slo_status, timeline_source=manager.timeline_status,
+            events_source=manager.events_status, explain_source=manager.explain_node,
+            analysis_source=manager.analysis_status, slo_history_source=manager.slo_history).start()
+        self.ops.add_health_check("controller", self.ha.running)
+        self.ops.add_ready_check("replica", self.ha.running)
+
+    def get(self, path: str):
+        """(status, body) of a GET on this replica's ops endpoint."""
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.ops.url + path, timeout=30.0) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read().decode()
+
+    def crash(self) -> list:
+        """Die as a process would: the campaign thread stops without
+        demoting or releasing the Lease, no thread of the replica reaches
+        the cluster again (a drain worker still running would otherwise
+        write a node's state after the new leader had finished it) or
+        reads its informer cache (a drain worker waiting there for an
+        evicted pod's delete, which the dead watch tee would never bring,
+        would otherwise wait out the drain's 300 s timeout), and the
+        controller (with its held watch streams) and the ops endpoint die
+        with it.  Returns the threads of its manager's worker pools that
+        are still running: each ends at its next request or read, which
+        fails."""
+        import threading
+
+        self.ha.elector._stop.set()
+        self.ha.elector._thread.join(5.0)
+        if self.ha.elector._thread.is_alive():
+            raise RuntimeError(f"10j: {self.identity}'s campaign thread did not stop")
+
+        def gone(*_args, **_kwargs):
+            raise ConnectionRefusedError(f"{self.identity} crashed")
+
+        self.client._transport = gone
+        self.cache.get = self.cache.list = self.cache.wait_for_update = gone
+        self.ha._stop_controller()
+        self.close(wait=False)
+        # the only manager whose pools have run: the standby has not led
+        return [t for t in threading.enumerate() if t.name.startswith(REPLICA_POOL_THREADS)]
+
+    def close(self, wait: bool = True) -> None:
+        self.closed = True
+        self.ops.stop()
+        if self.profiler is not None:
+            self.profiler.stop()
+            self.profiler.uninstall()
+        self.manager.shutdown(wait=wait)
+        self.client.close()
+
+    def stop(self, wait: bool = True) -> None:
+        """Step down (releasing the Lease) and close; *wait* for the
+        manager's workers (False when the phase has failed)."""
+        self.ha.stop()
+        self.close(wait=wait)
+
+
+def _trainer_frames(payload, n: int = 8) -> list:
+    """The top self frames, with their shares, of the profile's stacks
+    that pass through the trainer's run loop."""
+    from k8s_operator_libs_tpu_torch.obs import profiling
+
+    stacks = {k: v for k, v in profiling.merged_stacks(payload).items() if "workload.run" in k.split(";")}
+    counts = profiling.self_frame_counts(stacks)
+    total = sum(counts.values()) or 1
+    return [(frame, c / total) for frame, c in sorted(counts.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ) -> dict:
+    """10j: the port's operator takes the whole fleet from ``rev2`` to
+    ``rev3``; see the module docstring for the gates.  *profile_hz* None
+    runs the replicas without their profilers (and without the
+    ``/debug/profile`` gate), as ``--operator-turns`` does in turns.
+    Returns the host-clock figures."""
+    import traceback
+    import urllib.parse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_operator_libs_tpu_torch import crdutil, metrics
+    from k8s_operator_libs_tpu_torch.cluster.errors import InvalidError
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_controller_revision, make_pod
+    from k8s_operator_libs_tpu_torch.controller import DEFAULT_LOCK_NAME
+    from k8s_operator_libs_tpu_torch.obs import profiling, tracing
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.upgrade import consts
+    from k8s_operator_libs_tpu_torch.upgrade.plan import plan_rollout
+    from k8s_operator_libs_tpu_torch.upgrade.remediation import remediation_report
+    from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
+    from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
+
+    registry, tracer = metrics.MetricsRegistry(), tracing.Tracer(capacity=1 << 16)
+    previous = (metrics.set_default_registry(registry), tracing.set_default_tracer(tracer))
+    served0 = facade.requests_served
+    rec, replicas, watch = {}, [], None
+    admin = KubeApiClient(KubeConfig(server=facade.url), timeout=30.0)
+    try:
+        # ---- 1. the port's CRDs, admission, and the wave's policy on the fleet's CR
+        t0 = time.perf_counter()
+        crds = load_port_crds()
+        for crd in crds:
+            crdutil.apply_crd(admin, crd)
+        crdutil.wait_for_crds(admin, crds, timeout_seconds=30.0)
+        rec["crds"] = sorted(c["metadata"]["name"] for c in crds)
+        rec["crd_apply_ms"] = (time.perf_counter() - t0) * 1e3
+        try:
+            admin.patch("GpuUpgradePolicy", "fleet", {"spec": {"maxParallelUpgrades": "three"}}, FLEET_NAMESPACE)
+            raise RuntimeError("10j: the GpuUpgradePolicy CRD admitted maxParallelUpgrades \"three\" over HTTP")
+        except InvalidError as err:
+            rec["refused"] = {"code": err.code, "reason": str(err)[:120]}
+        policy = wave_policy(store)
+        admin.patch("GpuUpgradePolicy", "fleet", {"spec": policy.to_dict()}, FLEET_NAMESPACE)
+        if wave_policy(store).to_dict() != policy.to_dict():
+            raise RuntimeError("10j: the fleet's policy does not read back as patched")
+        # ---- 2. every node's Job pod again, rev3 published, the plan
+        for i in range(FLEET_NODES):
+            job = {"kind": "Job", "metadata": {"name": f"train-{i:04d}", "namespace": FLEET_JOB_NAMESPACE}}
+            store.create(make_pod(f"train-{i:04d}", FLEET_JOB_NAMESPACE, _fleet_node(i),
+                                  labels={"job-name": f"train-{i:04d}"}, owner=job))
+        ds = store.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE)
+        store.create(make_controller_revision(ds, 3, "rev3"))
+        t0 = time.perf_counter()
+        plan = plan_rollout(store.to_dict(), FLEET_NAMESPACE, FLEET_DRIVER_LABELS, policy)
+        rec["plan_ms"] = (time.perf_counter() - t0) * 1e3
+        first = sorted(plan.next_admissions)
+        slice_key = consts.SLICE_ID_LABEL_KEYS[0]
+        racks = {store.get("Node", n)["metadata"]["labels"][slice_key] for n in first}
+        if not plan.converged or len(first) != FLEET_RACK * FLEET_RACK or len(racks) != FLEET_RACK:
+            raise RuntimeError(f"10j: the plan converged {plan.converged}; its next admissions are "
+                               f"{len(first)} nodes in {len(racks)} racks")
+        host = first[len(first) // 2]
+        # ---- 3. the trainer on a node of the first wave, the replicas, the helper thread
+
+        def pause():
+            """One helper tick; a helper thread that died fails the run."""
+            time.sleep(OPERATOR_SAMPLE_S)
+            if not watch.alive():
+                raise RuntimeError(f"10j: the helper thread stopped: {watch.error!r}")
+
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-10j-") as ckpt, ThreadPoolExecutor(1) as pool, \
+                KubeApiClient(KubeConfig(server=facade.url), timeout=30.0) as trainer_client:
+            fa.reset_launch_counts()
+            trainer = wl.CheckpointingTrainer(config, ckpt, watcher=_token_watcher_class()(trainer_client, host),
+                                              device="cuda")
+            trainer.run(2)
+            trainer.watcher.polls.clear()  # time the steps under the operator only
+            # a thread: it drains on its node's request (a failed phase stops it)
+            run = pool.submit(trainer.run, 1_000_000)
+            try:
+                t_start = time.perf_counter()
+                replicas += [_Replica(facade.url, "replica-a", policy.pre_drain_checkpoint, profile_hz),
+                             _Replica(facade.url, "replica-b", policy.pre_drain_checkpoint, profile_hz)]
+                watch = _OperatorWatch(store, replicas, DEFAULT_LOCK_NAME, registry,
+                                       [_fleet_node(i) for i in range(FLEET_NODES) if _fleet_node(i) != host], "rev3")
+                for replica in replicas:
+                    replica.ha.start()
+                deadline = time.perf_counter() + 10.0
+                while not watch.leadership or watch.leadership[-1][2] != (watch.holder(),):
+                    if time.perf_counter() > deadline:
+                        raise RuntimeError(f"10j: no single leader after 10 s: {watch.leadership}")
+                    pause()
+                [leader] = [r for r in replicas if r.identity == watch.holder()]
+                [standby] = [r for r in replicas if r is not leader]
+                if standby.profiler is not None:
+                    standby.profiler.install()  # spans attribute to the replica that will lead after the crash
+                wave = set(first)
+                deadline = time.perf_counter() + OPERATOR_DEADLINE_S
+                while True:
+                    # done again after this rollout admitted it (every node starts done at rev2)
+                    admitted = set(watch.admitted)
+                    done = sum(1 for n in wave if n in admitted and watch.states.get(n) == consts.UPGRADE_STATE_DONE)
+                    # the trainer's drain is over (a new leader would ask again, and no one would answer)
+                    past_drain = watch.states.get(host) in (
+                        consts.UPGRADE_STATE_POD_RESTART_REQUIRED, consts.UPGRADE_STATE_VALIDATION_REQUIRED,
+                        consts.UPGRADE_STATE_UNCORDON_REQUIRED)
+                    if trainer.watcher.answered and past_drain and 1 <= done < len(wave):
+                        break
+                    if done == len(wave) or (run.done() and not trainer.drained) or time.perf_counter() > deadline:
+                        raise RuntimeError(f"10j: no crash window: {done} of the first wave's {len(wave)} nodes "
+                                           f"done, trainer answered {trainer.watcher.answered!r}, its run "
+                                           f"{'ended' if run.done() else 'running'}; leadership "
+                                           f"{[(round(t - t_start, 2), h, r) for t, h, r in watch.leadership]}, "
+                                           f"{len(watch.admitted)} admitted, reconcile wakeups {watch.wakeups}")
+                    pause()
+                t_crash, t_crash_wall = time.perf_counter(), time.time()
+                rec["crash"] = {"leader": leader.identity, "wave_nodes_done": done,
+                                "admitted": len(watch.admitted), "since_start_ms": (t_crash - t_start) * 1e3}
+                orphans = leader.crash()
+                # each ends at its next request to the cluster, which fails
+                for thread in orphans:
+                    thread.join(max(0.0, t_crash + OPERATOR_CRASHED_JOIN_S - time.perf_counter()))
+                stuck = [t for t in orphans if t.is_alive()]
+                if stuck:
+                    frames = sys._current_frames()
+                    where = [traceback.format_stack(frames[t.ident])[-3:] for t in stuck if t.ident in frames]
+                    raise RuntimeError(f"10j: {len(stuck)} of {leader.identity}'s {len(orphans)} pool threads "
+                                       f"still run {OPERATOR_CRASHED_JOIN_S} s after the crash, in {where}")
+                rec["crashed_threads"] = {"n": len(orphans), "joined_ms": (time.perf_counter() - t_crash) * 1e3}
+                # the gate reads the Lease's own acquireTime (the standby's clock
+                # when it took the Lease), not when this thread got to look
+                takeover = OPERATOR_LEASE["lease_duration"] + 2.0
+                while watch.holder() != standby.identity or standby.identity not in watch.first_wakeup:
+                    if time.perf_counter() - t_crash > takeover + 30.0:
+                        raise RuntimeError(f"10j: {standby.identity} did not lead and reconcile within "
+                                           f"{takeover + 30.0} s of the crash: {watch.leadership[-3:]}")
+                    pause()
+                lease = store.get("Lease", DEFAULT_LOCK_NAME, FLEET_NAMESPACE)["spec"]
+                lease_takeover_s = float(lease["acquireTime"]) - t_crash_wall
+                if lease["holderIdentity"] != standby.identity or not 0 < lease_takeover_s <= takeover:
+                    raise RuntimeError(f"10j: the Lease went to {lease['holderIdentity']} {lease_takeover_s:.3f} s "
+                                       f"after the crash; want {standby.identity} within {takeover} s")
+                # the crashed replica comes back as a new pod: a standby
+                restarted = _Replica(facade.url, f"{leader.identity}-restarted", policy.pre_drain_checkpoint,
+                                     profile_hz)
+                replicas.append(restarted)
+                restarted.ha.start()
+                # ---- 5. the new leader finishes the rollout
+                revisions = set()
+                while True:
+                    if (len(set(watch.admitted)) == FLEET_NODES and not watch.cordoned and all(
+                            watch.states.get(_fleet_node(i)) == consts.UPGRADE_STATE_DONE for i in range(FLEET_NODES))):
+                        revisions = {p["metadata"]["labels"].get("controller-revision-hash")
+                                     for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+                        if revisions == {"rev3"} and len(store.list("Pod", namespace=FLEET_NAMESPACE)) == FLEET_NODES:
+                            break
+                    if time.perf_counter() > deadline:
+                        counts = {}
+                        for state in watch.states.values():
+                            counts[state] = counts.get(state, 0) + 1
+                        raise RuntimeError(f"10j: the rollout is not done after {OPERATOR_DEADLINE_S} s: {counts}, "
+                                           f"{len(watch.cordoned)} cordoned, driver revisions {revisions}")
+                    pause()
+                t_done = time.perf_counter()
+            except BaseException:
+                trainer.watcher.abort = True  # its thread ends with the phase
+                raise
+            step = run.result(timeout=300)
+            if not trainer.drained:
+                raise RuntimeError(f"10j: the trainer on {host} ran {step} steps and was never drained")
+            if wl.restore_checkpoint(ckpt, step)["step"] != step:
+                raise RuntimeError(f"10j: the checkpoint does not restore at step {step}")
+            answered, polls = trainer.watcher.answered or "", trainer.watcher.polls
+        launches = dict(fa.launch_counts)
+        _check_flash_launches("10j", {k: n for k, n in fa.device_launch_counts.items() if n},
+                              dict.fromkeys(launches, config.n_layers * step))
+        if not all(math.isfinite(x) for x in trainer.losses):
+            raise RuntimeError(f"10j: losses {trainer.losses}")
+        # the ops plane of both live replicas
+        live = [standby, restarted]
+        health = {r.identity: r.get("/healthz")[0] for r in live}
+        if set(health.values()) != {200}:
+            raise RuntimeError(f"10j: /healthz {health}")
+        status_code, exposition = standby.get("/metrics")
+        acquired = [line for line in exposition.splitlines()
+                    if line.startswith("k8s_operator_libs_tpu_leader_transitions_total{event=\"acquired\"}")]
+        wakeups = {line.split("{", 1)[1].split("}", 1)[0]: float(line.rsplit(" ", 1)[1])
+                   for line in exposition.splitlines()
+                   if line.startswith("k8s_operator_libs_tpu_reconcile_wakeups_total{")}
+        if status_code != 200 or [float(line.rsplit(" ", 1)[1]) for line in acquired] != [2.0] or not wakeups:
+            raise RuntimeError(f"10j: /metrics {status_code}: leader acquisitions {acquired}, wakeups {wakeups}")
+        profile = None
+        if profile_hz:
+            status_code, body = standby.get("/debug/profile")
+            payload = json.loads(body) if status_code == 200 else {}
+            sampled = sum(w.get("samples", 0) for w in payload.get("windows", []))
+            if not sampled:
+                raise RuntimeError(f"10j: /debug/profile {status_code} holds no samples")
+            profile = {"samples": sampled, "top_self_frames": profiling.top_self_frames(payload, 8),
+                       "top_span_frames": profiling.top_span_frames(payload, 8),
+                       # the trainer's thread alone: stacks through its run loop
+                       "trainer_self_frames": _trainer_frames(payload)}
+        spans = [s for t in tracer.traces(complete_only=False) for s in t["spans"]]
+        # both replicas' reconciles, and those BuildState refused (a driver
+        # pod deleted for its restart, and not yet back in the replica's cache)
+        reconciles = [s for s in spans if s["name"] == "Reconcile"]
+        rec["reconciles"] = {"n": len(reconciles), "failed": sum(s["status"] == "error" for s in reconciles)}
+        gates = [s for s in spans if s["name"] == "drain-handshake" and s["attributes"].get("node") == host]
+        if len(gates) != 1:
+            raise RuntimeError(f"10j: {len(gates)} drain-handshake spans on {host}")
+        [gate] = gates
+        status_code, body = standby.get(f"/debug/traces?fmt=chrome&trace_id={urllib.parse.quote(gate['trace_id'])}")
+        chrome = json.loads(body) if status_code == 200 else {"traceEvents": []}
+        gate_events = [e for e in chrome["traceEvents"] if e["name"] == "drain-handshake"
+                       and e["args"]["span_id"] == gate["span_id"]]
+        cds = [e for e in chrome["traceEvents"] if e["name"] == "checkpoint-drain"
+               and e["args"]["parent_id"] == gate["span_id"]]
+        if (gate["attributes"].get("result") != "acknowledged" or len(gate_events) != 1 or len(cds) != 1
+                or cds[0]["args"]["status"] != "ok"
+                or not answered.startswith(f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:")):
+            raise RuntimeError(f"10j: /debug/traces {status_code}: the gate on {host} ended {gate['attributes']}, "
+                               f"answered {answered!r}, {len(cds)} checkpoint-drain spans under it")
+        # the fleet at the end, and the leadership over the whole run
+        watch.close()
+        first_seen = watch.admitted[:len(first)]
+        if sorted(first_seen) != first:
+            raise RuntimeError(f"10j: the first admissions are not the plan's: "
+                               f"{sorted(set(first_seen) ^ set(first))[:5]}")
+        if watch.split_brain:
+            raise RuntimeError(f"10j: two replicas ran controllers at once: {watch.split_brain[:3]}")
+        holders = [h for _, h, _ in watch.leadership if h]
+        if [h for i, h in enumerate(holders) if i == 0 or h != holders[i - 1]] != [leader.identity,
+                                                                                  standby.identity]:
+            raise RuntimeError(f"10j: the Lease passed {holders}")
+        allowed = FLEET_NODES // 4  # the policy's 25 %
+        if watch.max_cordoned > allowed:
+            raise RuntimeError(f"10j: {watch.max_cordoned} nodes unavailable at once, the policy allows {allowed}")
+        checker = ClusterUpgradeStateManager(store)
+        try:
+            final = checker.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS)
+        finally:
+            checker.shutdown()
+        status = RolloutStatus.from_cluster_state(final, policy)
+        remediation = remediation_report(final, policy)
+        nodes = store.list("Node")
+        if (status.total_nodes != FLEET_NODES or status.done != FLEET_NODES
+                or any(n["spec"].get("unschedulable") for n in nodes)
+                or store.list("Pod", namespace=FLEET_JOB_NAMESPACE)
+                or (remediation["breaker"] or {}).get("state") == "open" or remediation["blocking"]):
+            raise RuntimeError(f"10j: the fleet ends {status.by_state}, remediation {remediation}")
+        if len(watch.answered) != FLEET_NODES - 1:
+            raise RuntimeError(f"10j: {len(watch.answered)} nodes' workloads answered, want {FLEET_NODES - 1}")
+        for replica in (restarted, standby):  # the standby first: the leader then steps down and releases the Lease
+            replica.stop()
+        batches = metrics.write_batch_size_histogram().count()
+        cd = cds[0]
+        rec.update({
+            "host": host, "drained_at_step": step, "flash_launches": launches,
+            "trainer_step_ms": _step_ms(polls),
+            "checkpoint_drain_ms": cd["dur"] / 1e3,
+            # to the first reconcile request the standby's controller accepted
+            "failover_ms": (watch.first_wakeup[standby.identity] - t_crash) * 1e3,
+            "lease_takeover_ms": lease_takeover_s * 1e3,
+            "rollout_ms": (t_done - t_start) * 1e3,
+            "admission_bursts": watch.admission_bursts(),
+            "reconcile_wakeups_by_replica": watch.wakeups,
+            "http_requests": facade.requests_served - served0, "batch_posts": batches,
+            "driver_pods_recreated": watch.made, "max_unavailable": watch.max_cordoned,
+            "checkpoint_requests_answered": watch.acks + 1,
+            "observer_samples": watch.samples, "leadership": [h for _, h, _ in watch.leadership],
+            "reconcile_wakeups": wakeups, "healthz": health,
+            "profile": profile,
+            "status": {"done": status.done, "total": status.total_nodes,
+                       "breaker": (remediation["breaker"] or {}).get("state", "closed")},
+        })
+    finally:
+        for replica in replicas:  # left running only when the phase failed
+            if not replica.closed:
+                replica.stop(wait=False)
+        if watch is not None and watch.alive():
+            watch.close()
+        admin.close()
+        metrics.set_default_registry(previous[0])
+        tracing.set_default_tracer(previous[1])
+    return rec
+
+
 def fleet_phase(config, card: str) -> dict:
     """Phase 10: the drain through the full in-memory cluster, at the size
     of a large fleet, then through its HTTP facade, then the whole fleet
     upgraded by the port's state machine: a wave in process, a wave over
     HTTP, and the rest through the state index (10a-10i; see the module
     docstring)."""
+    from k8s_operator_libs_tpu_torch import runtime
     from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
     from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
     from k8s_operator_libs_tpu_torch.obs import tracing
@@ -2560,20 +3252,25 @@ def fleet_phase(config, card: str) -> dict:
             http_wave = upgrade_wave(client, cluster, config, "10h", facade=facade)
         log("phase 10h rack wave over HTTP (host clock; 10g's in-process figures beside):", json.dumps({
             "http": {**http_wave, "phase_s": time.perf_counter() - t0}, "in_process": wave}), "|", card)
-    if set(wave["rack_ids"]) & set(http_wave["rack_ids"]):
-        raise RuntimeError(f"10h: the second wave took racks of the first: {http_wave['rack_ids']}")
-    t0 = time.perf_counter()
-    rest = fleet_rest(cluster, config, set(wave["rack_ids"]) | set(http_wave["rack_ids"]))
-    log("phase 10i the rest of the fleet through the state index (host clock):",
-        json.dumps({**rest, "phase_s": time.perf_counter() - t0}), "|", card)
+        if set(wave["rack_ids"]) & set(http_wave["rack_ids"]):
+            raise RuntimeError(f"10h: the second wave took racks of the first: {http_wave['rack_ids']}")
+        t0 = time.perf_counter()
+        rest = fleet_rest(cluster, config, set(wave["rack_ids"]) | set(http_wave["rack_ids"]))
+        log("phase 10i the rest of the fleet through the state index (host clock):",
+            json.dumps({**rest, "phase_s": time.perf_counter() - t0}), "|", card)
+        t0 = time.perf_counter()
+        with runtime.tuned_gc(), runtime.tuned_scheduler():  # as the operator's main applies them
+            operator = operator_rollout(facade, cluster, config)
+        log("phase 10j the port's operator, two replicas over HTTP, rev2 -> rev3 across a leader crash "
+            "(host clock):", json.dumps({**operator, "phase_s": time.perf_counter() - t0}), "|", card)
     dump = json.dumps(cluster.to_dict())
     found = [m for m in TPU_MARKERS if m in dump]
     if found:
         raise RuntimeError(f"10d: the cluster holds {found}")
     log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}"
-        f" (after 10e-10i, all {FLEET_NODES} nodes upgraded)")
+        f" (after 10e-10j, all {FLEET_NODES} nodes upgraded twice; CRDs, CRs, Leases and Events included)")
     return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain, "http_fan_out": http_fan,
-            "http_drain": http_drain, "wave": wave, "http_wave": http_wave, "rest": rest}
+            "http_drain": http_drain, "wave": wave, "http_wave": http_wave, "rest": rest, "operator": operator}
 
 
 def compiled_report():
@@ -2687,6 +3384,56 @@ def int8_turns(trees) -> None:
         log("turn", json.dumps({"turn": i, "tree": tree, **row}))
 
 
+def operator_turns(turns) -> None:
+    """10j alone, once a turn, each on a fresh fleet as 10i leaves it
+    (every node ``upgrade-done`` at ``rev2``): ``on`` runs the replicas
+    with their profilers at ``OPERATOR_PROFILE_HZ``, as the smoke does,
+    ``off`` without them.  Logs each turn's record."""
+    import dataclasses
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch import _build, runtime
+    from k8s_operator_libs_tpu_torch.cluster.apiserver import ApiServerFacade
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_controller_revision
+    from k8s_operator_libs_tpu_torch.tpu import smoke
+    from k8s_operator_libs_tpu_torch.upgrade import consts, util
+
+    _build.build_all()
+    config = dataclasses.replace(smoke.smoke_config(torch.device("cuda")), flash_attention=True)
+    key = util.get_upgrade_state_label_key()
+    for turn in turns:
+        cluster, _ = build_fleet()
+        cluster.create(make_controller_revision(cluster.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE), 2, "rev2"))
+        for pod in cluster.list("Pod", namespace=FLEET_NAMESPACE):
+            cluster.delete("Pod", pod["metadata"]["name"], FLEET_NAMESPACE)
+        play_daemonset(cluster)
+        for i in range(FLEET_NODES):
+            cluster.patch("Node", _fleet_node(i), {"metadata": {"labels": {key: consts.UPGRADE_STATE_DONE}}})
+        t0 = time.perf_counter()
+        with ApiServerFacade(cluster) as facade, runtime.tuned_gc(), runtime.tuned_scheduler():
+            rec = operator_rollout(facade, cluster, config, OPERATOR_PROFILE_HZ if turn == "on" else None)
+        log(f"operator turn, profilers {turn} (host clock):",
+            json.dumps({**rec, "phase_s": time.perf_counter() - t0}))
+
+
+def _leaked_threads(grace_s: float = 10.0) -> list:
+    """The names of the threads, other than the main one, that would hold
+    the process at its exit (see ``POOL_THREADS``), once each has had its
+    share of *grace_s* to end."""
+    import threading
+
+    deadline = time.perf_counter() + grace_s
+    leaked = []
+    for thread in threading.enumerate():
+        if thread is threading.main_thread() or (thread.daemon and not thread.name.startswith(POOL_THREADS)):
+            continue
+        thread.join(max(0.0, deadline - time.perf_counter()))
+        if thread.is_alive():
+            leaked.append(thread.name)
+    return leaked
+
+
 def nccl_ranks(n: int) -> None:
     """The multi-process path over *n* NCCL ranks, one card each: the
     data-parallel drain, held to one rank's plain step on the same global
@@ -2739,13 +3486,17 @@ def main(argv=None) -> int:
                       help="time the bf16 int8 kernel under every launch plan instead")
     args.add_argument("--ranks", type=int, metavar="N",
                       help="run the multi-process path over N NCCL ranks, a card each, instead")
+    args.add_argument("--operator-turns", nargs="+", choices=("on", "off"), metavar="PROFILERS",
+                      help="run 10j alone once per turn, its replicas' profilers on or off, instead")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    if args.int8_turns or args.int8_plans or args.ranks:
+    if args.int8_turns or args.int8_plans or args.ranks or args.operator_turns:
         if args.int8_turns:
             int8_turns(args.int8_turns)
+        elif args.operator_turns:
+            operator_turns(args.operator_turns)
         elif args.ranks:
             nccl_ranks(args.ranks)
         else:
@@ -2982,6 +3733,8 @@ def main(argv=None) -> int:
                     fleet["http_wave"]["flash_launches"][name],
                 **{f"10i wave {k + 1} ({w['drained_at_step']} steps)": w["flash_launches"][name]
                    for k, w in enumerate(fleet["rest"]["waves"])},
+                f"10j operator rollout ({fleet['operator']['drained_at_step']} steps)":
+                    fleet["operator"]["flash_launches"][name],
             },
         })
     step = int8_timing["per_decode_step"]
@@ -3018,6 +3771,10 @@ def main(argv=None) -> int:
         "moe_router_max_abs_err": moe_decode["router_err"],
     })
     log("long-context:", json.dumps(long_timing))
+    # every phase joins what it started: a thread left would hold the exit
+    leaked = _leaked_threads()
+    if leaked:
+        raise RuntimeError(f"{len(leaked)} threads still run after the last phase: {leaked}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3030,4 +3787,15 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:  # noqa: BLE001 -- printed, then the process ends non-zero
+        import os
+        import traceback
+
+        traceback.print_exc()
+        sys.stderr.flush()
+        # a failed phase may leave worker threads blocked on the cluster
+        # (drain waits, checkpoint gates); exit now rather than join them
+        os._exit(1)
+    sys.exit(code)

@@ -1,5 +1,10 @@
 """API types — the CRD-schema fragment (reference: api/upgrade/v1alpha1)."""
 
+from .federation_spec import (
+    FederationCellSpec,
+    FederationPolicySpec,
+    GlobalBreakerSpec,
+)
 from .intstr import IntOrString
 from .upgrade_spec import (
     AdaptivePacingSpec,
@@ -25,6 +30,9 @@ __all__ = [
     "AnalysisSpec",
     "AnalysisStepSpec",
     "parse_analysis_condition",
+    "FederationCellSpec",
+    "FederationPolicySpec",
+    "GlobalBreakerSpec",
     "MaintenanceWindowSpec",
     "IntOrString",
     "DrainSpec",

@@ -1,12 +1,17 @@
-"""Observability surfaces that sit next to the control plane:
-:mod:`.tracing` (in-process spans, W3C traceparent propagation, Chrome
-and OTLP exporters), :mod:`.events` (the reason-coded decision log),
-:mod:`.history` (bounded metric history) and :mod:`.slo` (the rollout's
-flight-recorder analytics and SLO engine).  Metrics live in
-:mod:`..metrics`.
+"""Observability surfaces that sit NEXT to the control plane.
+
+The reference library is logr-only (SURVEY.md §5 — even its one
+aggregate-progress event is commented out); this package holds the
+signals this reproduction grew beyond it: :mod:`.tracing` (in-process
+spans + W3C traceparent propagation + Chrome/OTLP exporters),
+:mod:`.profiling` (the continuous sampling profiler with span
+self-time attribution), and :mod:`.overhead` (the interleaved
+paired-ratio methodology the bench's overhead gates share).  Metrics
+live in :mod:`..metrics` (predating this package); the HTTP surface
+for all of them is :class:`~..controller.ops_server.OpsServer`.
 """
 
-from . import events, history, slo
+from . import events, history, overhead, profiling, racewatch, slo
 from .tracing import (
     Span,
     TraceContextFilter,
@@ -30,6 +35,8 @@ from .tracing import (
 __all__ = [
     "events",
     "history",
+    "overhead",
+    "profiling",
     "slo",
     "Span",
     "TraceContextFilter",

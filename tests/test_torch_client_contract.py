@@ -8,7 +8,8 @@ of ``TestFullRolloutOverHttp``, ``TestCacheBackedReads`` and
 ``TestOverloadedThrottledRollout`` through the port's
 ``ClusterUpgradeStateManager``, and
 ``TestFlakyApiserverChaos::test_chaos_disabled_by_default``.  The classes
-that drive the controller wait for it.  Every client a test makes is closed when it ends
+that drive the controller are in
+``tests/test_torch_client_contract_operator.py``.  Every client a test makes is closed when it ends
 (``test_torch_vocab.close_every_client``): its held watch threads are
 joined (and must have stopped) and its pooled sockets closed.  The JAX and the port's HTTP stacks are held to each other on one
 seeded operation sequence in ``tests/test_torch_http_parity.py``.

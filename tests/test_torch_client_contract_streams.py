@@ -4,9 +4,8 @@ and the client's configuration and error edges.
 
 The classes of ``tests/test_client_contract.py`` from ``TestHeldWatchStreams`` on, as cases of the
 same names, run on the port's :class:`KubeApiClient`, :class:`ApiServerFacade`
-and :class:`InMemoryCluster`, in the port's vocabulary.  The classes that
-drive the upgrade state machine, the controller or the CLI wait for those
-modules.  Every client a test makes is closed when it ends
+and :class:`InMemoryCluster`, in the port's vocabulary.  The tests that
+drive the controller are in ``tests/test_torch_client_contract_operator.py``.  Every client a test makes is closed when it ends
 (``test_torch_vocab.close_every_client``): its held watch threads are
 joined (and must have stopped) and its pooled sockets closed.  The JAX and the port's HTTP stacks are held to each other on one
 seeded operation sequence in ``tests/test_torch_http_parity.py``.

@@ -3,9 +3,8 @@ events.py) against the JAX package's obs/events.py.
 
 * the classes of ``tests/test_events.py``, as cases of the same names,
   run on the port, the scheduler's and drain's emissions, ``explain``
-  and the status integration through its ``ClusterUpgradeStateManager``
-  (``TestOpsServerSurfaces`` and ``TestCli`` wait for the controller and
-  the CLI);
+  and the status integration through its ``ClusterUpgradeStateManager``,
+  the surfaces on its ``OpsServer`` (``TestCli`` waits for the CLI);
 * a differential test: one seeded stream of decisions goes to a log of
   each package and, pump by pump, through each package's
   :class:`ClusterDecisionEventSink` into its in-memory cluster.  The logs'
@@ -14,7 +13,10 @@ events.py) against the JAX package's obs/events.py.
   sink's random instance id and the store's uid and creation time masked.
 """
 
+import json
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -24,9 +26,11 @@ from k8s_operator_libs_tpu.obs import events as jevents
 from k8s_operator_libs_tpu_torch import metrics
 from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, MaintenanceWindowSpec, UpgradePolicySpec
 from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
+from k8s_operator_libs_tpu_torch.controller import OpsServer
 from k8s_operator_libs_tpu_torch.obs import events as events_mod
 from k8s_operator_libs_tpu_torch.obs import tracing
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade import timeline as timeline_mod
 from k8s_operator_libs_tpu_torch.upgrade.rollout_status import RolloutStatus
 from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
@@ -731,6 +735,125 @@ class TestExplain:
 
 
 # -------------------------------------------------------- rollout_status
+class TestOpsServerSurfaces:
+    def _get(self, url):
+        try:
+            with urllib.request.urlopen(url, timeout=5.0) as rsp:
+                return rsp.status, rsp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def _head(self, url):
+        req = urllib.request.Request(url, method="HEAD")
+        try:
+            with urllib.request.urlopen(req, timeout=5.0) as rsp:
+                return rsp.status
+        except urllib.error.HTTPError as err:
+            return err.code
+
+    def test_debug_events_serves_and_filters(self):
+        log = events_mod.DecisionEventLog()
+        log.emit("NodeDeferred", "budget", "n0")
+        log.emit("NodeAdmitted", "fresh", "n1")
+        srv = OpsServer(
+            port=0, host="127.0.0.1", events_source=log.snapshot
+        ).start()
+        try:
+            status, body = self._get(srv.url + "/debug/events")
+            assert status == 200
+            payload = json.loads(body)
+            assert payload["configured"] is True
+            assert len(payload["events"]) == 2
+            status, body = self._get(srv.url + "/debug/events?node=n0")
+            assert [e["target"] for e in json.loads(body)["events"]] == ["n0"]
+            status, body = self._get(
+                srv.url + "/debug/events?type=NodeAdmitted"
+            )
+            assert [e["type"] for e in json.loads(body)["events"]] == [
+                "NodeAdmitted"
+            ]
+            status, body = self._get(srv.url + "/debug/events?limit=1")
+            assert len(json.loads(body)["events"]) == 1
+            # LIST convention: 0 = unlimited; negatives and junk = 400
+            status, body = self._get(srv.url + "/debug/events?limit=0")
+            assert status == 200 and len(json.loads(body)["events"]) == 2
+            status, _ = self._get(srv.url + "/debug/events?limit=-3")
+            assert status == 400
+            status, _ = self._get(srv.url + "/debug/events?limit=wat")
+            assert status == 400
+        finally:
+            srv.stop()
+
+    def test_debug_explain_contract(self):
+        answers = {"n0": {"node": "n0", "verdict": "blocked",
+                          "reasonCode": "budget"}}
+        srv = OpsServer(
+            port=0,
+            host="127.0.0.1",
+            explain_source=lambda node: answers.get(node),
+        ).start()
+        try:
+            status, _ = self._get(srv.url + "/debug/explain")
+            assert status == 400  # node is required
+            status, _ = self._get(srv.url + "/debug/explain?node=ghost")
+            assert status == 404
+            status, body = self._get(srv.url + "/debug/explain?node=n0")
+            assert status == 200
+            assert json.loads(body)["reasonCode"] == "budget"
+        finally:
+            srv.stop()
+
+    def test_unwired_sources_404(self):
+        srv = OpsServer(port=0, host="127.0.0.1").start()
+        try:
+            assert self._get(srv.url + "/debug/events")[0] == 404
+            assert self._get(srv.url + "/debug/explain?node=x")[0] == 404
+        finally:
+            srv.stop()
+
+    def test_debug_index_lists_every_registered_route_and_answers_head(
+        self,
+    ):
+        """Satellite regression: the /debug index is DERIVED from the
+        route registry — every registered /debug/* route must appear in
+        it and answer HEAD with a real status (never 404/501/500).  A
+        future endpoint added to the registry is covered automatically;
+        one added OUTSIDE the registry would vanish from the index and
+        fail here."""
+        log = events_mod.DecisionEventLog()
+        recorder = timeline_mod.FlightRecorder()
+        srv = OpsServer(
+            port=0,
+            host="127.0.0.1",
+            remediation_source=lambda: {"paused": False},
+            slo_source=lambda: {"counts": {}},
+            timeline_source=recorder.snapshot,
+            events_source=log.snapshot,
+            explain_source=lambda node: None,
+        ).start()
+        try:
+            status, body = self._get(srv.url + "/debug")
+            assert status == 200
+            endpoints = json.loads(body)["endpoints"]
+            assert endpoints == [
+                "/debug/traces",
+                "/debug/profile",
+                "/debug/remediation",
+                "/debug/slo",
+                "/debug/timeline",
+                "/debug/events",
+                "/debug/explain",
+            ]
+            # the registry IS the server's route table: every indexed
+            # endpoint answers HEAD (explain's 400-without-node is a
+            # real answer; 404/501/500 would mean index/routing drift)
+            for path in endpoints:
+                head = self._head(srv.url + path)
+                assert head in (200, 400), f"{path} answered HEAD {head}"
+        finally:
+            srv.stop()
+
+
 class TestRolloutStatusIntegration:
     def test_gate_cites_deferred_nodes_and_last_decisions_render(
         self, cluster

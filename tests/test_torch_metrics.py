@@ -2,11 +2,11 @@
 series.
 
 The classes ``TestCounter``, ``TestGauge``, ``TestHistogram``,
-``TestRegistry``, ``TestWritePipelineMetrics`` and
-``TestStateMachineWiring`` of ``tests/test_metrics.py``, as cases of the
-same names, run on the port's ``metrics`` module, the last through the
-port's ``ClusterUpgradeStateManager`` (the watch, leader and analysis
-wiring comes with those modules).  Then the parity half: the same seeded
+``TestRegistry``, ``TestWritePipelineMetrics``,
+``TestWatchAndLeaderMetrics`` and ``TestStateMachineWiring`` of
+``tests/test_metrics.py``, as cases of the same names, run on the port's
+``metrics`` module, the last two through the port's ``LeaderElector``
+and ``ClusterUpgradeStateManager``.  Then the parity half: the same seeded
 sequence of counter, gauge and histogram calls, and every recording
 helper of the module, give the same exposition text (Prometheus and
 OpenMetrics) from the port as from the JAX package.  The metric names
@@ -319,6 +319,56 @@ def test_each_recording_helper_renders_as_the_jax_one(helper, both_registries):
     getattr(metrics, helper)(*args)
     getattr(jmetrics, helper)(*args)
     _render_both(ours, theirs)
+
+
+class TestWatchAndLeaderMetrics:
+    """Round-3 observability: watch-stream and leader-election metrics."""
+
+    def test_watch_expired_counter(self, fresh_registry):
+        from k8s_operator_libs_tpu_torch import metrics
+
+        metrics.record_watch_expired("Node")
+        metrics.record_watch_expired("Node")
+        out = fresh_registry.render()
+        assert (
+            'watch_expirations_total{kind="Node"} 2' in out
+        )
+
+    def test_reconnect_counter_and_queue_gauge(self, fresh_registry):
+        from k8s_operator_libs_tpu_torch import metrics
+
+        metrics.record_watch_reconnect("Pod")
+        metrics.set_held_queue_depth(7)
+        out = fresh_registry.render()
+        assert 'watch_stream_reconnects_total{kind="Pod"} 1' in out
+        assert "held_watch_queue_depth 7" in out
+
+    def test_leader_transitions_from_elector(self, fresh_registry):
+        import time
+
+        from k8s_operator_libs_tpu_torch.cluster import InMemoryCluster
+        from k8s_operator_libs_tpu_torch.controller import LeaderElector
+
+        cluster = InMemoryCluster()
+        elector = LeaderElector(
+            cluster,
+            "bench-lock",
+            "me",
+            lease_duration=0.6,
+            renew_deadline=0.4,
+            retry_period=0.05,
+        )
+        elector.start()
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and not elector.is_leader:
+            time.sleep(0.02)
+        assert elector.is_leader
+        elector.stop()
+        out = fresh_registry.render()
+        # >=1, not ==1: a loaded CI box can deadline-demote and
+        # re-acquire mid-test; a voluntary stop records "released"
+        assert 'leader_transitions_total{event="acquired"}' in out
+        assert 'leader_transitions_total{event="released"} 1' in out
 
 
 class TestStateMachineWiring:

@@ -247,6 +247,37 @@ def test_the_scans_see_the_http_cluster_and_the_observability_leaves():
     } <= scanned
 
 
+def test_the_scans_see_the_operator_modules_and_examples():
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {
+        "controller/workqueue.py", "controller/wakeup.py", "controller/leader_election.py",
+        "controller/controller.py", "controller/ha.py", "controller/ops_server.py",
+        "controller/upgrade_reconciler.py", "obs/overhead.py", "obs/racewatch.py",
+        "obs/profiling.py", "crdutil/crdutil.py", "api/federation_spec.py",
+        "federation/coordinator.py", "examples/operator.py", "examples/apply_crds.py",
+    } <= scanned
+
+
+CRD_FILES = sorted((PORT / "crd").glob("*.yaml"))
+
+
+def test_the_port_has_its_three_crds():
+    assert [p.name for p in CRD_FILES] == [
+        "maintenance.nvidia.com_nodemaintenances.yaml",
+        "nvidia.com_gpufederationpolicies.yaml",
+        "nvidia.com_gpuupgradepolicies.yaml",
+    ]
+
+
+@pytest.mark.parametrize("path", CRD_FILES, ids=lambda p: p.name)
+def test_no_crd_file_of_the_port_names_the_tpu_fleet(path):
+    from test_torch_vocab import TPU_MARKERS
+
+    text = path.read_text()
+    assert [m for m in TPU_MARKERS if m in text] == []
+    assert "Tpu" not in text and "tpuupgrade" not in text and "tpufederation" not in text
+
+
 def test_the_whole_port_imports_without_yaml():
     """PyYAML is optional: only KubeConfig.load imports it, inside the
     function.  A fresh interpreter where ``import yaml`` fails imports

@@ -5,9 +5,11 @@ The classes of ``tests/test_remediation.py``, as cases of the same names,
 run on the port, the breaker, rollback, retry budget and surfaces
 through its ``ClusterUpgradeStateManager``; ``remediation_report`` over a
 rollout's snapshot, with retry and quarantine annotations, is also held
-to the JAX package's in ``tests/test_torch_rollout_parity.py``.  Left in
-the JAX file: ``TestReconcilerCadence`` (the controller's reconciler) and
-the CLI and ``OpsServer`` tests of ``TestSurfaces``.
+to the JAX package's in ``tests/test_torch_rollout_parity.py``.
+``TestReconcilerCadence`` runs the port's controller reconciler, and
+``TestSurfaces::test_ops_server_debug_remediation`` its ``OpsServer``.
+Left in the JAX file: the CLI test of ``TestSurfaces``, which calls the
+package's ``__main__``, not ported yet.
 """
 
 import json
@@ -556,6 +558,37 @@ class TestSurfaces:
         finally:
             manager.shutdown()
 
+    def test_ops_server_debug_remediation(self):
+        import urllib.request
+
+        from k8s_operator_libs_tpu_torch.controller import OpsServer
+
+        cluster, fleet, policy, manager = self._tripped()
+        ops = OpsServer(
+            port=0,
+            host="127.0.0.1",
+            remediation_source=manager.remediation_status,
+        ).start()
+        try:
+            with urllib.request.urlopen(
+                ops.url + "/debug/remediation"
+            ) as resp:
+                payload = json.loads(resp.read())
+            assert payload["configured"] is True
+            assert payload["decision"]["paused"] is True
+            assert payload["decision"]["breaker"]["target"] == "rev2"
+        finally:
+            ops.stop()
+            manager.shutdown()
+        # not wired -> 404
+        bare = OpsServer(port=0, host="127.0.0.1").start()
+        try:
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(bare.url + "/debug/remediation")
+            assert err.value.code == 404
+        finally:
+            bare.stop()
+
 
 class TestRetryBudget:
     def test_backoff_delays_retry(self):
@@ -790,6 +823,50 @@ class TestRetryBudget:
             key
         )
         assert value == consts.REMEDIATION_QUARANTINE_PREFIX + "node:n0"
+
+
+class TestReconcilerCadence:
+    def test_failed_only_fleet_requeues_at_failed_cadence(self):
+        """Failed nodes pin throttle slots but are not in-flight work:
+        a failed-only fleet (the remediation backoff-wait state) must
+        requeue at the failed cadence, not hot-loop at the active one.
+        The failed branch was unreachable before (failed ⊂ in_progress)."""
+        from k8s_operator_libs_tpu_torch.controller.upgrade_reconciler import (
+            UpgradeReconciler,
+        )
+
+        cluster = InMemoryCluster()
+        fleet = healthy_fleet(cluster, nodes=2)
+        policy = remediation_policy(
+            remediation=dict(min_attempted=1000, backoff_seconds=3600.0)
+        )
+        manager = make_manager(cluster)
+        reconciler = UpgradeReconciler(
+            manager=manager,
+            namespace=NAMESPACE,
+            driver_labels=DRIVER_LABELS,
+            policy=policy,
+        )
+        try:
+            cycle(manager, fleet, policy, 2)
+            fleet.bad_revisions.add("rev2")
+            fleet.publish_new_revision("rev2")
+            cycle(manager, fleet, policy, 12)
+            states = set(fleet.states().values())
+            assert states == {consts.UPGRADE_STATE_FAILED}, states
+            result = reconciler.reconcile("upgrade-cycle")
+            # settle any transitions the pass itself made
+            while result is not None and (
+                result.requeue_after == reconciler.active_requeue_seconds
+            ):
+                manager.drain_manager.wait_idle(10.0)
+                manager.pod_manager.wait_idle(10.0)
+                fleet.reconcile_daemonset()
+                result = reconciler.reconcile("upgrade-cycle")
+            assert result is not None
+            assert result.requeue_after == reconciler.failed_requeue_seconds
+        finally:
+            manager.shutdown()
 
 
 class TestStateIndexRemediationWrites:

@@ -6,8 +6,9 @@ patches.
   cases of the same names, on the port's :class:`InMemoryCluster`.  They
   read the repo's CRD files through :func:`test_torch_vocab.to_port_vocab`,
   so the policy kind is ``GpuUpgradePolicy`` in group ``nvidia.com``.
-  The admission lifecycle needs the controller's policy source and comes
-  with it.
+  ``TestAdmissionLifecycle`` of the same file, which needs the
+  controller's policy source, applies the port's own CRD files
+  (``k8s_operator_libs_tpu_torch/crd/``, JSON read with ``json.load``).
 * The hypothesis laws of ``tests/test_properties.py`` for merge patch,
   ``IntOrString``, strategic merge, copy-out and journal
   reconstruction, on the port's functions.  Each call of a law to
@@ -40,8 +41,11 @@ from k8s_operator_libs_tpu.cluster.strategicmerge import (  # noqa: E402
 )
 from k8s_operator_libs_tpu_torch.api import IntOrString as PortIntOrString  # noqa: E402
 from k8s_operator_libs_tpu_torch.cluster import (  # noqa: E402
+    ApiServerFacade,
     InMemoryCluster,
     InvalidError,
+    KubeApiClient,
+    KubeConfig,
 )
 from k8s_operator_libs_tpu_torch.cluster.inmem import (  # noqa: E402
     json_copy,
@@ -57,7 +61,7 @@ from k8s_operator_libs_tpu_torch.cluster.schema import (
 )
 
 from test_torch_cluster import mask  # noqa: E402
-from test_torch_vocab import to_port_vocab  # noqa: E402
+from test_torch_vocab import close_every_client, to_port_vocab  # noqa: E402, F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -181,6 +185,71 @@ class TestDefaulting:
             policy_cr({"maxParallelUpgrades": 7, "autoUpgrade": False})
         )
         assert out["spec"]["maxParallelUpgrades"] == 7
+
+
+PORT_CRDS = ROOT / "k8s_operator_libs_tpu_torch" / "crd"
+
+
+@pytest.fixture
+def own_store():
+    """A port cluster with the port's own policy and NodeMaintenance CRDs."""
+    cluster = InMemoryCluster()
+    for name in ("nvidia.com_gpuupgradepolicies.yaml", "maintenance.nvidia.com_nodemaintenances.yaml"):
+        cluster.create(json.loads((PORT_CRDS / name).read_text()))
+    return cluster
+
+
+@pytest.mark.usefixtures("close_every_client")
+class TestAdmissionLifecycle:
+    def test_no_crd_means_schemaless(self):
+        bare = InMemoryCluster()
+        # no CRD applied, anything goes
+        bare.create(policy_cr({"maxParallelUpgrades": "three"}))
+
+    def test_crd_delete_unregisters_schema(self, own_store):
+        own_store.delete(
+            "CustomResourceDefinition",
+            "gpuupgradepolicies.nvidia.com",
+        )
+        own_store.create(policy_cr({"maxParallelUpgrades": "three"}))
+
+    def test_schema_survives_persistence_roundtrip(self, own_store):
+        restored = InMemoryCluster.from_dict(own_store.to_dict())
+        with pytest.raises(InvalidError):
+            restored.create(policy_cr({"maxParallelUpgrades": "three"}))
+
+    def test_422_on_both_backends(self, own_store):
+        """An invalid policy CR is a 422 on the in-mem backend AND over
+        HTTP."""
+        bad = policy_cr({"maxParallelUpgrades": "three"}, name="http-bad")
+        with pytest.raises(InvalidError):
+            own_store.create(dict(bad))
+        with ApiServerFacade(own_store) as facade:
+            client = KubeApiClient(KubeConfig(server=facade.url), timeout=5.0)
+            with pytest.raises(InvalidError):
+                client.create(bad)
+
+    def test_invalid_cr_never_reaches_policy_source(self, own_store):
+        """With the CRD applied, the invalid-edit path moves from
+        CrPolicySource's last-good fallback to admission: the write
+        itself is refused, so the source only ever sees valid specs."""
+        from k8s_operator_libs_tpu_torch.controller import CrPolicySource
+
+        own_store.create(
+            policy_cr({"autoUpgrade": True, "maxParallelUpgrades": 2},
+                      name="fleet-policy")
+        )
+        source = CrPolicySource(own_store, "fleet-policy", "d")
+        good = source.current()
+        assert good.max_parallel_upgrades == 2
+        with pytest.raises(InvalidError):
+            own_store.patch(
+                "GpuUpgradePolicy",
+                "fleet-policy",
+                {"spec": {"maxParallelUpgrades": "garbage"}},
+                "d",
+            )
+        assert source.current().max_parallel_upgrades == 2
 
 
 class TestSchemaHelpers:

@@ -2,18 +2,20 @@
 (k8s_operator_libs_tpu_torch/obs/slo.py).
 
 ``TestFlightRecorder``, ``TestAnalytics``, ``TestSloSpec``,
-``TestSloEngine`` and ``TestRolloutStatusSloSurface`` of
-``tests/test_slo.py``, as cases of the same names, run on the port, the
-rollouts through its ``ClusterUpgradeStateManager``; the SLO analytics
-over a rollout's snapshot are also held to the JAX package's in
-``tests/test_torch_rollout_parity.py``.  ``TestOpsServerSurfaces``,
-``TestSloCli`` and ``TestHistoryJsonParity`` wait for the controller's
-``OpsServer`` and the CLI.
+``TestSloEngine``, ``TestRolloutStatusSloSurface`` and
+``TestOpsServerSurfaces`` of ``tests/test_slo.py``, as cases of the same
+names, run on the port, the rollouts through its
+``ClusterUpgradeStateManager``, the surfaces on its ``OpsServer``; the
+SLO analytics over a rollout's snapshot are also held to the JAX
+package's in ``tests/test_torch_rollout_parity.py``.  ``TestSloCli`` and
+``TestHistoryJsonParity`` wait for the CLI.
 """
 
 import json
 import random
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -712,3 +714,104 @@ class TestRolloutStatusSloSurface:
             assert "slo" not in status.to_dict()
         finally:
             manager.shutdown()
+
+
+class TestOpsServerSurfaces:
+    def _get(self, url):
+        try:
+            with urllib.request.urlopen(url, timeout=5.0) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read().decode()
+
+    def _head(self, url):
+        req = urllib.request.Request(url, method="HEAD")
+        try:
+            with urllib.request.urlopen(req, timeout=5.0) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def test_debug_slo_and_timeline_endpoints(self):
+        from k8s_operator_libs_tpu_torch.controller import OpsServer
+
+        recorder = FlightRecorder()
+        recorder.observe_node(
+            {"metadata": {"name": "n0"}}, bucket="upgrade-done", now=1.0
+        )
+        report = {"remaining": 0, "eta": {"seconds": 0.0}}
+        srv = OpsServer(
+            port=0,
+            slo_source=lambda: report,
+            timeline_source=recorder.snapshot,
+        ).start()
+        try:
+            status, body = self._get(srv.url + "/debug/slo")
+            assert status == 200
+            payload = json.loads(body)
+            assert payload["configured"] and payload["report"] == report
+            status, body = self._get(srv.url + "/debug/timeline")
+            assert status == 200
+            assert [
+                t["node"] for t in json.loads(body)["timelines"]
+            ] == ["n0"]
+            status, body = self._get(
+                srv.url + "/debug/timeline?node=n0"
+            )
+            assert status == 200 and json.loads(body)["nodes"] == 1
+            status, _ = self._get(srv.url + "/debug/timeline?node=ghost")
+            assert status == 404
+        finally:
+            srv.stop()
+
+    def test_debug_endpoints_404_when_unconfigured(self):
+        from k8s_operator_libs_tpu_torch.controller import OpsServer
+
+        srv = OpsServer(port=0).start()
+        try:
+            assert self._get(srv.url + "/debug/slo")[0] == 404
+            assert self._get(srv.url + "/debug/timeline")[0] == 404
+        finally:
+            srv.stop()
+
+    def test_debug_index_lists_registered_endpoints(self):
+        """Satellite: GET /debug answers a JSON endpoint index instead
+        of 404 — and only lists what is actually wired."""
+        from k8s_operator_libs_tpu_torch.controller import OpsServer
+
+        srv = OpsServer(port=0).start()
+        try:
+            status, body = self._get(srv.url + "/debug")
+            assert status == 200
+            assert json.loads(body)["endpoints"] == [
+                "/debug/traces",
+                "/debug/profile",
+            ]
+        finally:
+            srv.stop()
+        srv = OpsServer(
+            port=0,
+            remediation_source=lambda: None,
+            slo_source=lambda: None,
+            timeline_source=lambda: {},
+        ).start()
+        try:
+            for path in ("/debug", "/debug/"):
+                status, body = self._get(srv.url + path)
+                assert status == 200
+                assert json.loads(body)["endpoints"] == [
+                    "/debug/traces",
+                    "/debug/profile",
+                    "/debug/remediation",
+                    "/debug/slo",
+                    "/debug/timeline",
+                ]
+            # HEAD included, alongside the existing HEAD regression suite
+            status, body = self._head(srv.url + "/debug")
+            assert status == 200 and body == b""
+            status, body = self._head(srv.url + "/debug/slo")
+            assert status == 200 and body == b""
+            status, body = self._head(srv.url + "/debug/timeline?node=x")
+            assert status == 404 and body == b""
+        finally:
+            srv.stop()

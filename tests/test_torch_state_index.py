@@ -14,14 +14,17 @@ run on the port in its vocabulary, over the port's harness:
 * **the list-ops guard**: on a 512-node fleet the indexed BuildState
   issues strictly fewer store list operations than the full rebuild.
 
-``TestControllerWiring`` builds the controller, which the port does not
-hold yet, and stays in the JAX file.  Randomness is stdlib ``random``
-with fixed seeds.
+* **the controller wiring**: the port's assembled operator feeds the
+  index from its watch tee, and the rollout converges on the
+  incremental path.
+
+Randomness is stdlib ``random`` with fixed seeds.
 """
 
 from __future__ import annotations
 
 import random
+import time
 
 import pytest
 
@@ -29,13 +32,17 @@ from k8s_operator_libs_tpu_torch import metrics
 from k8s_operator_libs_tpu_torch.api import DrainSpec, IntOrString, UpgradePolicySpec
 from k8s_operator_libs_tpu_torch.cluster import InformerCache, InMemoryCluster
 from k8s_operator_libs_tpu_torch.cluster.objects import make_pod
+from k8s_operator_libs_tpu_torch.controller import new_upgrade_controller
 from k8s_operator_libs_tpu_torch.upgrade import consts, util
+from k8s_operator_libs_tpu_torch.upgrade.state_index import ClusterStateIndex
 from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager, UpgradeStateError
 
 from test_torch_harness import (
     DRIVER_LABELS,
     NAMESPACE,
     Fleet,
+    daemonset_loop,
+    wait_for_converged,
 )
 
 from test_torch_vocab import port_globals  # noqa: F401
@@ -567,3 +574,71 @@ class TestListOpsGuard:
             m_idx.shutdown()
 
 
+class TestControllerWiring:
+    def test_externally_fed_index_rides_the_watch_tee(self, cluster):
+        """The assembled operator: one watch stream feeds workqueue +
+        informer cache + state index; the rollout converges on the
+        incremental path without the index ever polling the journal."""
+        fleet = Fleet(cluster, revision_hash="v1")
+        for i in range(4):
+            fleet.add_node(f"host{i}")
+        fleet.publish_new_revision("v2")
+        index = ClusterStateIndex(
+            cluster, NAMESPACE, DRIVER_LABELS, externally_fed=True
+        )
+        manager = ClusterUpgradeStateManager(
+            cluster,
+            cache_sync_timeout_seconds=2.0,
+            cache_sync_poll_seconds=0.01,
+            state_index=index,
+        )
+        policy = tuned_policy()
+        ctrl = new_upgrade_controller(
+            cluster, manager, NAMESPACE, DRIVER_LABELS, policy,
+            resync_seconds=0.1, active_requeue_seconds=0.02,
+            feed_index=index,
+        )
+        registry = metrics.set_default_registry(metrics.MetricsRegistry())
+        try:
+            with daemonset_loop(fleet):
+                ctrl.start()
+                try:
+                    assert wait_for_converged(fleet), (
+                        f"rollout did not converge: {fleet.states()}"
+                    )
+                finally:
+                    ctrl.stop()
+            hist = metrics.default_registry().histogram(
+                "build_state_seconds", "", ("mode",)
+            )
+            assert hist.count("incremental") > 0
+            assert hist.count("full") == 0
+        finally:
+            metrics.set_default_registry(registry)
+            manager.shutdown()
+
+    def test_multiple_event_sinks_all_fed(self, cluster):
+        from k8s_operator_libs_tpu_torch.controller.controller import Controller
+
+        seen_a, seen_b = [], []
+
+        class Quiet:
+            def reconcile(self, request):
+                return None
+
+        ctrl = Controller(
+            cluster,
+            Quiet(),
+            event_sink=[seen_a.append, seen_b.append],
+            watch_poll_seconds=0.005,
+        )
+        ctrl.watches("Node")
+        ctrl.start()
+        try:
+            cluster.create({"kind": "Node", "metadata": {"name": "n0"}})
+            deadline = time.monotonic() + 2.0
+            while time.monotonic() < deadline and not (seen_a and seen_b):
+                time.sleep(0.01)
+            assert seen_a and seen_b
+        finally:
+            ctrl.stop()

@@ -5,11 +5,11 @@ The traceparent carrier is what the two sides of the drain handshake
 meet on, so formatting and parsing must agree with the orchestrator's on
 every input; spans keep the orchestrator's record keys and parentage
 order.  ``TestSpanBasics``, ``TestLogInjection``, the exporter round
-trips of ``TestExportersAndCli`` and the tests of
-``TestEndToEndUpgradeTrace`` that start no ``OpsServer`` (one traced
-rollout through the port's ``ClusterUpgradeStateManager``) from
+trips of ``TestExportersAndCli``, ``TestEndToEndUpgradeTrace`` (one
+traced rollout through the port's ``ClusterUpgradeStateManager``, served
+by its ``OpsServer``) and ``TestQueueWaitSpans`` (its controller) from
 ``tests/test_tracing.py`` run on the port as cases of the same names
-(``TestQueueWaitSpans`` waits for the controller); a trace exported by either package is
+(the CLI test waits for the port's ``__main__``); a trace exported by either package is
 read back by the other, and the same trace dicts export to the same
 Chrome and OTLP payloads.
 """
@@ -18,6 +18,7 @@ import json
 import logging
 import threading
 import time
+import urllib.request
 
 import pytest
 from hypothesis import given, settings
@@ -36,6 +37,12 @@ from test_torch_harness import DRIVER_LABELS, Fleet, NAMESPACE
 from test_torch_vocab import port_globals  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_globals")
+
+
+@pytest.fixture()
+def cluster():
+    return InMemoryCluster()
+
 
 HEX = "0123456789abcdef"
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
@@ -554,3 +561,77 @@ class TestEndToEndUpgradeTrace:
         ).exemplar("build")
         assert reconcile_ex is not None
         assert reconcile_ex[0]["trace_id"] == root.trace_id
+
+    def test_debug_traces_endpoint_serves_chrome_json(self, rollout):
+        from k8s_operator_libs_tpu_torch.controller import OpsServer
+
+        tracer, registry, root = rollout
+        srv = OpsServer(port=0, registry=registry, tracer=tracer).start()
+        try:
+            with urllib.request.urlopen(
+                srv.url + "/debug/traces?fmt=chrome", timeout=5.0
+            ) as resp:
+                assert resp.status == 200
+                assert resp.headers["Content-Type"] == "application/json"
+                chrome = json.loads(resp.read().decode())
+            events = chrome["traceEvents"]
+            assert events and all(
+                e["ph"] == "X" and isinstance(e["ts"], (int, float))
+                for e in events
+            )
+            assert {"BuildState", "drain", "checkpoint-drain"} <= {
+                e["name"] for e in events
+            }
+            # default (OTLP-flavoured) + trace_id filter round trips
+            with urllib.request.urlopen(
+                srv.url + f"/debug/traces?trace_id={root.trace_id}",
+                timeout=5.0,
+            ) as resp:
+                otlp = json.loads(resp.read().decode())
+            back = tracing.traces_from_payload(otlp)
+            assert len(back) == 1 and back[0]["trace_id"] == root.trace_id
+        finally:
+            srv.stop()
+
+
+class TestQueueWaitSpans:
+    def test_controller_reconcile_trace_includes_queue_wait(self, cluster):
+        from k8s_operator_libs_tpu_torch.cluster.objects import make_node
+        from k8s_operator_libs_tpu_torch.controller import Controller
+
+        tracer = tracing.Tracer()
+        prev = tracing.set_default_tracer(tracer)
+
+        class Noop:
+            def reconcile(self, request):
+                return None
+
+        cluster.create(make_node("n1"))
+        ctrl = Controller(cluster, Noop(), name="traced").watches("Node")
+        try:
+            ctrl.start()
+            assert ctrl.wait_quiet(5.0)
+        finally:
+            ctrl.stop()
+            tracing.set_default_tracer(prev)
+        reconciles = [t for t in tracer.traces() if t["name"] == "Reconcile"]
+        assert reconciles
+        names = {s["name"] for s in reconciles[0]["spans"]}
+        assert "queue-wait" in names
+        root = next(
+            s for s in reconciles[0]["spans"] if s["name"] == "Reconcile"
+        )
+        assert root["attributes"]["controller"] == "traced"
+        assert root["attributes"]["queue_wait_s"] >= 0
+
+    def test_workqueue_reports_wait(self):
+        from k8s_operator_libs_tpu_torch.controller import WorkQueue
+
+        q = WorkQueue()
+        q.add("item")
+        time.sleep(0.02)
+        assert q.get(timeout=1.0) == "item"
+        wait = q.queue_wait("item")
+        assert wait is not None and wait >= 0.02
+        q.done("item")
+        assert q.queue_wait("item") is None

@@ -39,6 +39,9 @@ PORT_VOCAB = (
     ("tpuupgradepolic", "gpuupgradepolic"),
     ("tpu-operator", "nvidia-operator"),
     ("degraded TPU)", "degraded GPU)"),
+    ("TpuFederationPolic", "GpuFederationPolic"),
+    ("tpufederationpolic", "gpufederationpolic"),
+    ("k8s_operator_libs_tpu.obs.profiling", "k8s_operator_libs_tpu_torch.obs.profiling"),
 )
 
 #: Substrings no string of the port may hold.
@@ -132,6 +135,27 @@ def test_the_table_is_injective():
     assert len({to_port_vocab(s) for s in degraded}) == 2
     for key in degraded + ("tpu-operator-n1", "maintenance.tpu.google.com/finalizer"):
         assert from_port_vocab(to_port_vocab(key)) == key
+    # the federation CRD's kind, list kind, plural and name; its short
+    # name "tfp" has no row
+    federation = (
+        "TpuFederationPolicy", "TpuFederationPolicyList", "tpufederationpolicies",
+        "tpufederationpolicies.tpu.google.com",
+    )
+    assert [to_port_vocab(s) for s in federation] == [
+        "GpuFederationPolicy", "GpuFederationPolicyList", "gpufederationpolicies",
+        "gpufederationpolicies.nvidia.com",
+    ]
+    assert to_port_vocab("tfp") == "tfp"
+    # the profiler's exporter names its own module; the bare package name
+    # (racewatch's path marker) is no row and stays
+    exporter = "k8s_operator_libs_tpu.obs.profiling"
+    assert to_port_vocab(exporter) == "k8s_operator_libs_tpu_torch.obs.profiling"
+    assert to_port_vocab("k8s_operator_libs_tpu") == "k8s_operator_libs_tpu"
+    for key in federation + (exporter, "tfp"):
+        assert from_port_vocab(to_port_vocab(key)) == key
+    # the port's strings are fixed points: a second pass changes nothing
+    for key in federation + (exporter,):
+        assert to_port_vocab(to_port_vocab(key)) == to_port_vocab(key)
 
 
 def test_the_defaults_are_the_nvidia_references():
@@ -237,10 +261,11 @@ def test_no_string_constant_of_the_port_names_the_tpu_fleet(path):
 def port_globals():
     """The port's process-global state, fresh for each test, as
     tests/conftest.py keeps the JAX package's: the component name, the
-    default tracer, flight recorder and decision log, and the topology
-    label keys.  Other files use it as ``pytestmark = pytest.mark.
-    usefixtures("port_globals")`` after importing it."""
-    from k8s_operator_libs_tpu_torch.obs import events, tracing
+    default tracer, flight recorder and decision log, the span observer
+    and default profiler, and the topology label keys.  Other files use
+    it as ``pytestmark = pytest.mark.usefixtures("port_globals")`` after
+    importing it."""
+    from k8s_operator_libs_tpu_torch.obs import events, profiling, tracing
     from k8s_operator_libs_tpu_torch.tpu import topology
     from k8s_operator_libs_tpu_torch.upgrade import timeline
 
@@ -250,7 +275,11 @@ def port_globals():
         timeline.set_default_recorder(timeline.FlightRecorder()),
         events.set_default_log(events.DecisionEventLog()),
     )
+    observer = tracing.span_observer()
+    profiler = profiling.set_default_profiler(profiling.SamplingProfiler())
     yield
+    profiling.set_default_profiler(profiler).stop()
+    tracing.set_span_observer(observer)
     tracing.set_default_tracer(previous[0])
     timeline.set_default_recorder(previous[1])
     events.set_default_log(previous[2])
