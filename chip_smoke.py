@@ -19,12 +19,15 @@ failure (the exit code is then non-zero and no result line is printed):
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
    long shapes in fp32 and bf16, at head dims the kernels are not
    compiled for (8 and 48, zero-padded to 16 and 64 by the wrappers;
-   causal and not, fp32 and bf16, and GQA at 8), and at phase 8's ring pairs (bf16, 128
+   causal and not, fp32 and bf16, and GQA at 8), at the widest compiled
+   head dim, 256, and at 192 zero-padded to it (causal and not, fp32 and
+   bf16, GQA in both), and at phase 8's ring pairs (bf16, 128
    and 64 positions, causal and unmasked, and two pairs merged forward
    and run backward with the final lse), then timed beside its plain version and
    SDPA: at the trainer's shape by replaying a CUDA graph of captured
    calls (free of each call's host work; the old back-to-back event
-   figure is logged beside it), at the long shape by events.  SDPA's
+   figure is logged beside it), at the long shape by events, and at
+   head dim 256 (b 8, s 256, h 8) on a log line of its own.  SDPA's
    backward alone (its fwd+bwd less its forward) stands beside dQ +
    dK/dV;
 3. main path: the drain-aware trainer (``run_smoke`` without its benches)
@@ -218,20 +221,51 @@ failure (the exit code is then non-zero and no result line is printed):
    tensor-core kernel; ``/healthz`` answers 200 on both live replicas,
    ``/metrics`` counts two ``acquired`` leader transitions and the
    reconcile wakeups by trigger, ``/debug/profile`` holds samples and
-   ``/debug/traces`` the gate's ``drain-handshake`` span with the
-   trainer's ``checkpoint-drain`` as its child.  Logged (host clock): the
+   ``/debug/traces`` the one ``drain-handshake`` span on the trainer's
+   node that reached the cluster (a gate the crashed leader's threads
+   open after its client was cut is refused at its first request, and
+   counted apart) with the trainer's ``checkpoint-drain`` as its child.
+   Logged (host clock): the
    failover (crash to the first reconcile request the standby's
    controller accepted), the crashed replica's threads, the rollout,
    admission bursts, each replica's reconcile wakeups, the reconciles and
    those BuildState refused (from the ``Reconcile`` spans), HTTP requests
-   and batch POSTs, the trainer's steps, the profile's top frames.  10d, after
-   10e-10j, no key or value of ``cluster.to_dict()`` (CRDs, CRs, Leases
-   and Events included) names the TPU fleet (``tpu.google.com``,
-   ``gke-tpu``): the whole rollout wrote none.  Phases 4, 6, 7 and 8 keep
-   their drain nodes in an ``InMemoryCluster`` served by the same facade
-   class;
+   and batch POSTs, the trainer's steps, the profile's top frames.  10k,
+   the port's CLI (``python -m k8s_operator_libs_tpu_torch``) on the fleet
+   10j leaves: ``status`` over a kubeconfig for the facade (written
+   under the ignored ``build/``), run as a subprocess, counts all 1,024
+   nodes ``upgrade-done`` with every driver pod at ``rev3``; ``rev4``
+   published (every node given a Job's pod again) and ``plan --policy
+   fleet``, a subprocess too, admits first the 16 racks of 16 that
+   ``plan_rollout`` predicts in process; then ``events``, ``explain``
+   (the trainer's node), ``history``, ``slo``, ``remediation``,
+   ``pacing`` (a second policy CR with an analysis block), ``traces
+   --file`` (10j's Chrome export) and ``profile --file`` (10j's profile
+   dump) through ``main(argv)`` in process on a dump of the fleet: each
+   exits 0 and prints JSON naming the fleet's nodes (the profile: a
+   non-empty report).  10l, the whole fleet ``rev3`` -> ``rev4`` by the
+   port's ``ClusterUpgradeStateManager`` on a ``KubeApiClient`` while
+   the facade drops 8 % of requests (``with_chaos``, the
+   apiserver-brownout scenario's ratio), under the fleet's policy with
+   the ``CheckpointDrainGate``, pass after pass (a refused pass is
+   retried by the next, as the chaos campaign's cells run them); an
+   ``AuditTape`` collects every pass; the main path's trainer on a node
+   of the planned first wave is drained by the gate (each flash kernel
+   ``n_layers`` times a step on its tensor-core kernel); at the end
+   ``check_rollout_invariants`` over all 1,024 nodes (target ``rev4``,
+   converged) finds no violation, and some request was dropped; the
+   fitness signals, drops, passes and host ms are logged.  10m, as
+   subprocesses, all at once: ``chaos --seed 0 --json`` passes all 43
+   cells with the port's shipped regression cell replayed, and ``chaos
+   --selftest``, ``chaos search --selftest`` and ``fedstatus
+   --selftest`` exit 0.  10d, after 10e-10l, no key or value of
+   ``cluster.to_dict()`` (CRDs, CRs, Leases and Events included) names
+   the TPU fleet (``tpu.google.com``, ``gke-tpu``): the whole rollout
+   wrote none.  Phases 4, 6, 7 and 8 keep their drain nodes in an
+   ``InMemoryCluster`` served by the same facade class;
 11. a ``{"kernels": [...]}`` line (each flash row with phases 10c's,
-   10f's, 10g's, 10h's, 10i's and 10j's launches beside its other paths'),
+   10f's, 10g's, 10h's, 10i's, 10j's and 10l's launches beside its other
+   paths'),
    the card line, and last ``{"ok": true, "device": {...}}``; before
    them, no thread but the main one that is not a daemon may still run.
 
@@ -273,6 +307,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -501,6 +536,19 @@ def check_case(name, b, s, h, hk, d, causal, dtype, block=128, seed=0):
     log(f"kernels {name}: b{b} s{s} h{h} hk{hk} d{d} causal={causal} {dtype} "
         + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items()))
     return errs
+
+
+def wide_head_cases() -> None:
+    """The widest compiled head dim, 256, and 192 zero-padded to it:
+    causal and not, fp32 and bf16, and GQA, each kernel against its plain
+    version."""
+    for d, seed in ((256, 30), (192, 31)):
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                tag = f"d{d}-{'causal' if causal else 'full'}-{dtype}"
+                check_case(tag, 2, 256, 4, 4, d, causal, dtype, seed=seed)
+        check_case(f"d{d}-gqa-bf16", 2, 256, 8, 2, d, True, "bfloat16", seed=seed + 2)
+        check_case(f"d{d}-gqa-fp32", 2, 200, 8, 2, d, True, "float32", block=40, seed=seed + 4)
 
 
 def check_lse_cotangent():
@@ -2215,9 +2263,9 @@ def prepare_upgrade(cluster) -> dict:
     return {"prepare_ms": (time.perf_counter() - t0) * 1e3}
 
 
-def play_daemonset(store) -> int:
-    """The DaemonSet controller: recreate each deleted driver pod at the
-    newest revision, Ready.  Returns how many it created."""
+def play_daemonset(store, revision: str = "rev2") -> int:
+    """The DaemonSet controller: recreate each deleted driver pod at
+    *revision*, the newest, Ready.  Returns how many it created."""
     from k8s_operator_libs_tpu_torch.cluster.objects import make_pod
 
     ds = store.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE)
@@ -2226,7 +2274,7 @@ def play_daemonset(store) -> int:
     for i in range(FLEET_NODES):
         if _fleet_node(i) not in have:
             store.create(make_pod(f"gpu-driver-{i:04d}", FLEET_NAMESPACE, _fleet_node(i),
-                                  labels=dict(FLEET_DRIVER_LABELS), owner=ds, revision_hash="rev2"))
+                                  labels=dict(FLEET_DRIVER_LABELS), owner=ds, revision_hash=revision))
             made += 1
     return made
 
@@ -2827,7 +2875,7 @@ class _Replica:
         from k8s_operator_libs_tpu_torch.upgrade.state_index import ClusterStateIndex
         from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager
 
-        self.identity, self.closed = identity, False
+        self.identity, self.closed, self.crashed_unix = identity, False, None
         self.client = KubeApiClient(KubeConfig(server=url), timeout=30.0)
         client = self.client
         self.cache = cache = InformerCache(client, lag_seconds=0.05, externally_fed=True,
@@ -2893,6 +2941,7 @@ class _Replica:
             raise ConnectionRefusedError(f"{self.identity} crashed")
 
         self.client._transport = gone
+        self.crashed_unix = time.time()
         self.cache.get = self.cache.list = self.cache.wait_for_update = gone
         self.ha._stop_controller()
         self.close(wait=False)
@@ -2926,11 +2975,14 @@ def _trainer_frames(payload, n: int = 8) -> list:
     return [(frame, c / total) for frame, c in sorted(counts.items(), key=lambda kv: -kv[1])[:n]]
 
 
-def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ) -> dict:
+def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ, artifacts=None) -> dict:
     """10j: the port's operator takes the whole fleet from ``rev2`` to
     ``rev3``; see the module docstring for the gates.  *profile_hz* None
     runs the replicas without their profilers (and without the
     ``/debug/profile`` gate), as ``--operator-turns`` does in turns.
+    Into the dict *artifacts*, when given, go the standby's Chrome
+    export of the gate's trace (``chrome``), its ``/debug/profile``
+    payload (``profile``) and the trainer's node (``host``), for 10k.
     Returns the host-clock figures."""
     import traceback
     import urllib.parse
@@ -3123,6 +3175,8 @@ def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ) -> d
         if profile_hz:
             status_code, body = standby.get("/debug/profile")
             payload = json.loads(body) if status_code == 200 else {}
+            if artifacts is not None:
+                artifacts["profile"] = payload
             sampled = sum(w.get("samples", 0) for w in payload.get("windows", []))
             if not sampled:
                 raise RuntimeError(f"10j: /debug/profile {status_code} holds no samples")
@@ -3135,12 +3189,31 @@ def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ) -> d
         # pod deleted for its restart, and not yet back in the replica's cache)
         reconciles = [s for s in spans if s["name"] == "Reconcile"]
         rec["reconciles"] = {"n": len(reconciles), "failed": sum(s["status"] == "error" for s in reconciles)}
-        gates = [s for s in spans if s["name"] == "drain-handshake" and s["attributes"].get("node") == host]
+        # the crashed leader's threads run on until each reaches the cluster
+        # and fails; from a stale snapshot they may begin the drain of a node
+        # drained long before, whose gate is refused at its first request:
+        # those never reached the node, and every other gate counts
+        refused = f"ConnectionRefusedError: {leader.identity} crashed"
+        gates, dead = [], 0
+        for s in spans:
+            if s["name"] == "drain-handshake" and s["attributes"].get("node") == host:
+                if s["start_unix"] >= leader.crashed_unix and s["status_message"] == refused:
+                    dead += 1
+                else:
+                    gates.append(s)
+        rec["gates_refused_after_crash"] = dead
         if len(gates) != 1:
-            raise RuntimeError(f"10j: {len(gates)} drain-handshake spans on {host}")
+            raise RuntimeError(f"10j: {len(gates)} drain-handshake spans on {host}: "
+                               f"{[(round(s['start_unix'] - t_crash_wall, 3), s['duration_s'], s['status'],
+                                    s['status_message'], s['thread'], s['attributes']) for s in gates]} "
+                               f"(start from the crash), "
+                               f"leadership {[(round(t - t_start, 2), h) for t, h, _ in watch.leadership]}, "
+                               f"crash {rec['crash']}")
         [gate] = gates
         status_code, body = standby.get(f"/debug/traces?fmt=chrome&trace_id={urllib.parse.quote(gate['trace_id'])}")
         chrome = json.loads(body) if status_code == 200 else {"traceEvents": []}
+        if artifacts is not None:
+            artifacts.update(chrome=chrome, host=host)
         gate_events = [e for e in chrome["traceEvents"] if e["name"] == "drain-handshake"
                        and e["args"]["span_id"] == gate["span_id"]]
         cds = [e for e in chrome["traceEvents"] if e["name"] == "checkpoint-drain"
@@ -3215,6 +3288,332 @@ def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ) -> d
     return rec
 
 
+#: 10k-10m: the port's command line, as its users run it (from the root
+#: of the checkout, where the package lies), and the files it reads,
+#: under the ignored ``build/``
+CLI = (sys.executable, "-m", "k8s_operator_libs_tpu_torch")
+CLI_TIMEOUT_S = 300
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+#: 10l: the apiserver-brownout scenario's drop ratio
+#: (``upgrade/chaos.py``'s ``_setup_brownout``) and its seed; the passes
+#: the whole fleet may take (about 40 without drops)
+BROWNOUT_DROP_RATIO = 0.08
+BROWNOUT_SEED = 15
+BROWNOUT_MAX_PASSES = 200
+#: 10l: the brownout's gates-on cells retry a failed node at once, up to
+#: 6 times (``_campaign_policy("on")``); the wave's remediation block
+#: takes the same retry budget, since a dropped eviction fails a drain
+BROWNOUT_RETRIES = {"maxNodeAttempts": 6, "backoffSeconds": 0.0}
+#: 10m: the default campaign's cells (the 42-cell matrix and the shipped
+#: regression cell) and that cell's name
+CAMPAIGN_CELLS = 43
+REGRESSION_CELL = "regress-composed-fault-clear-ecc8fc49"
+
+
+def _cli(args, what: str) -> str:
+    """``python -m k8s_operator_libs_tpu_torch ARGS`` as a subprocess;
+    its standard output, or a failure naming *what* ran."""
+    proc = subprocess.run([*CLI, *args], cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what}: `{' '.join(args)}` exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _cli_in_process(argv, what: str):
+    """The CLI's ``main(argv)`` in this process: its exit code must be 0
+    and its standard output one JSON document, which is returned with
+    the output's text."""
+    import contextlib
+    import io
+
+    from k8s_operator_libs_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    if rc != 0:
+        raise RuntimeError(f"{what}: `{' '.join(argv)}` exited {rc}")
+    return json.loads(out.getvalue()), out.getvalue()
+
+
+def cli_phase(facade, store, artifacts: dict) -> dict:
+    """10k: the CLI on the fleet 10j leaves at ``rev3``: ``status`` over
+    a kubeconfig for the facade as a subprocess; ``rev4`` published and
+    ``plan`` likewise, its first admission the 16 racks of 16 that
+    ``plan_rollout`` predicts in process; then the other read-only
+    subcommands through ``main(argv)`` on a dump of the fleet and on
+    10j's Chrome export and profile dump.  Returns the host-clock
+    figures and the plan's first admission."""
+    from k8s_operator_libs_tpu_torch.api import AnalysisSpec, AnalysisStepSpec, IntOrString
+    from k8s_operator_libs_tpu_torch.cluster.objects import make_controller_revision, make_pod
+    from k8s_operator_libs_tpu_torch.upgrade import consts
+    from k8s_operator_libs_tpu_torch.upgrade.plan import plan_rollout
+
+    workdir = CLI_DIR
+    os.makedirs(workdir, exist_ok=True)
+    kubeconfig = os.path.join(workdir, "kubeconfig")
+    with open(kubeconfig, "w", encoding="utf-8") as fh:  # JSON, which YAML reads
+        json.dump({"apiVersion": "v1", "kind": "Config", "current-context": "fleet",
+                   "clusters": [{"name": "fleet", "cluster": {"server": facade.url}}],
+                   "contexts": [{"name": "fleet", "context": {"cluster": "fleet", "user": "smoke"}}],
+                   "users": [{"name": "smoke", "user": {}}]}, fh)
+    source = ["--kubeconfig", kubeconfig, "--namespace", FLEET_NAMESPACE,
+              "--selector", ",".join(f"{k}={v}" for k, v in FLEET_DRIVER_LABELS.items())]
+    rec = {}
+    t0 = time.perf_counter()
+    status = json.loads(_cli(["status", *source, "--json"], "10k status"))
+    rec["status_ms"] = (time.perf_counter() - t0) * 1e3
+    revisions = {p["metadata"]["labels"].get("controller-revision-hash")
+                 for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+    if (status["totalNodes"] != FLEET_NODES or status["byState"] != {consts.UPGRADE_STATE_DONE: FLEET_NODES}
+            or not status["complete"] or revisions != {"rev3"}):
+        raise RuntimeError(f"10k: status counts {status['totalNodes']} nodes {status['byState']}, complete "
+                           f"{status['complete']}; driver revisions {revisions}")
+    # rev4 published, each node given a Job's pod again (10j's drains
+    # evicted them), and the plan, as a subprocess and in process
+    for i in range(FLEET_NODES):
+        job = {"kind": "Job", "metadata": {"name": f"train-{i:04d}", "namespace": FLEET_JOB_NAMESPACE}}
+        store.create(make_pod(f"train-{i:04d}", FLEET_JOB_NAMESPACE, _fleet_node(i),
+                              labels={"job-name": f"train-{i:04d}"}, owner=job))
+    store.create(make_controller_revision(store.get("DaemonSet", "gpu-driver", FLEET_NAMESPACE), 4, "rev4"))
+    t0 = time.perf_counter()
+    plan = json.loads(_cli(["plan", *source, "--policy", "fleet", "--json"], "10k plan"))
+    rec["plan_ms"] = (time.perf_counter() - t0) * 1e3
+    predicted = plan_rollout(store.to_dict(), FLEET_NAMESPACE, FLEET_DRIVER_LABELS, wave_policy(store))
+    first = sorted(plan["nextAdmissions"])
+    racks = {store.get("Node", n)["metadata"]["labels"][consts.SLICE_ID_LABEL_KEYS[0]] for n in first}
+    if (first != sorted(predicted.next_admissions) or not plan["converged"]
+            or len(first) != FLEET_RACK * FLEET_RACK or len(racks) != FLEET_RACK):
+        raise RuntimeError(f"10k: plan's first admission is {len(first)} nodes in {len(racks)} racks, converged "
+                           f"{plan['converged']}; plan_rollout predicts {len(predicted.next_admissions)} nodes")
+    rec["plan"] = {"cycles": plan["cyclesSimulated"], "first_admission": len(first), "racks": len(racks)}
+    # the read-only subcommands in process, on a dump of the fleet, with a
+    # second policy that declares an analysis block for ``pacing``
+    paced = dict(wave_policy(store).to_dict(), analysis=AnalysisSpec(steps=(AnalysisStepSpec(
+        name="soak", max_exposure=IntOrString(FLEET_RACK * FLEET_RACK),
+        advance_on=("breaches == 0 for 60s",)),)).to_dict())
+    store.create({"apiVersion": "nvidia.com/v1", "kind": "GpuUpgradePolicy",
+                  "metadata": {"name": "fleet-paced", "namespace": FLEET_NAMESPACE}, "spec": paced})
+    files = {"dump": store.to_dict(), "traces": artifacts["chrome"], "profile": artifacts["profile"]}
+    for name, payload in files.items():
+        files[name] = os.path.join(workdir, f"{name}.json")
+        with open(files[name], "w", encoding="utf-8") as fh:
+            json.dump(payload, fh)
+    offline = ["--state-file", files["dump"], *source[2:]]
+    host = artifacts["host"]
+    runs = {
+        "events": ["events", *offline, "--json"],
+        "explain": ["explain", *offline, "--node", host, "--json"],
+        "history": ["history", "--state-file", files["dump"], "--json"],
+        "slo": ["slo", *offline, "--policy", "fleet", "--json"],
+        "remediation": ["remediation", *offline, "--policy", "fleet", "--json"],
+        "pacing": ["pacing", *offline, "--policy", "fleet-paced", "--json"],
+        "traces": ["traces", "--file", files["traces"], "--json"],
+        "profile": ["profile", "--file", files["profile"], "--json"],
+    }
+    rec["in_process_ms"] = {}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        doc, text = _cli_in_process(argv, f"10k {name}")
+        rec["in_process_ms"][name] = (time.perf_counter() - t0) * 1e3
+        # what each must show: the fleet's nodes where it lists them, else
+        # its fleet-wide figures
+        ok = {
+            "slo": lambda: doc["counts"]["total"] == doc["counts"]["done"] == FLEET_NODES,
+            "remediation": lambda: doc["enabled"] and not doc["blocking"],
+            "pacing": lambda: [st["name"] for st in doc["steps"]] == ["soak"] and not doc["aborted"],
+            "profile": lambda: bool(doc),
+            "explain": lambda: host in text,
+            "traces": lambda: host in text,
+        }.get(name, lambda: "gpu-node-" in text)
+        if not ok():
+            raise RuntimeError(f"10k: {name}'s JSON does not show the fleet: {text[:300]}")
+    rec["first"] = first
+    return rec
+
+
+def chaos_rollout(facade, store, config, first) -> dict:
+    """10l: the port's ``ClusterUpgradeStateManager`` on a ``KubeApiClient``
+    takes the whole fleet from ``rev3`` to ``rev4`` through the facade
+    while it drops 8 % of requests (``with_chaos``, the apiserver-brownout
+    scenario's ratio), under the fleet's slice-aware policy with the
+    ``CheckpointDrainGate``, pass after pass as the chaos campaign's cells
+    run them (a refused pass is retried by the next).  The main path's
+    trainer on a node of *first* (10k's planned first admission) is
+    drained by the gate; the other admitted nodes' workloads answer on the
+    store.  The policy is the fleet's with the brownout cells' retry
+    budget (``BROWNOUT_RETRIES``).  An ``AuditTape`` collects every pass, and at the end
+    ``check_rollout_invariants`` over all 1,024 nodes must find no
+    violation.  Returns the host-clock figures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_operator_libs_tpu_torch import metrics
+    from k8s_operator_libs_tpu_torch.api import UpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.cluster.cache import InformerCache
+    from k8s_operator_libs_tpu_torch.cluster.errors import ApiError
+    from k8s_operator_libs_tpu_torch.cluster.kubeclient import KubeApiClient, KubeConfig
+    from k8s_operator_libs_tpu_torch.obs import events, tracing
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+    from k8s_operator_libs_tpu_torch.tpu.drain_handshake import CheckpointDrainGate
+    from k8s_operator_libs_tpu_torch.upgrade import chaos, consts, timeline, util
+    from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import ClusterUpgradeStateManager, UpgradeStateError
+
+    wave = wave_policy(store).to_dict()
+    policy = UpgradePolicySpec.from_dict({**wave, "remediation": {**wave["remediation"], **BROWNOUT_RETRIES}})
+    policy.validate()
+    # the chaos checker counts nodes where the slice-aware policy counts
+    # racks: it gets the same budget in nodes (16 racks of 16), and the
+    # racks in flight are counted here after every pass
+    checker = UpgradePolicySpec.from_dict({**policy.to_dict(), "sliceAware": False,
+                                           "maxParallelUpgrades": policy.max_parallel_upgrades * FLEET_RACK})
+    state_key = util.get_upgrade_state_label_key()
+    registry, log_ = metrics.MetricsRegistry(), events.DecisionEventLog(capacity=1 << 16)
+    previous = (metrics.set_default_registry(registry), tracing.set_default_tracer(tracing.Tracer(capacity=4096)),
+                events.set_default_log(log_), timeline.set_default_recorder(timeline.FlightRecorder()))
+    store._journal_cap = 1 << 18  # the tape replays every write of the rollout
+    tape = chaos.AuditTape(store, checker)
+    host = first[len(first) // 2]
+    drops0, served0 = facade.fault_counters["chaos_drops"], facade.requests_served
+    facade.with_chaos(BROWNOUT_DROP_RATIO, seed=BROWNOUT_SEED)
+    client = KubeApiClient(KubeConfig(server=facade.url), timeout=30.0)
+    manager = ClusterUpgradeStateManager(
+        client, cache=InformerCache(client, lag_seconds=0.0), recorder=util.EventRecorder(),
+        pre_drain_gate=CheckpointDrainGate(client, policy.pre_drain_checkpoint), write_pipeline_workers=16,
+        cache_sync_timeout_seconds=30.0, cache_sync_poll_seconds=0.01)
+    workloads = _RackWorkloads(store)
+    passes, refused, admitted, watched, most_racks = [], 0, set(), set(), 0
+    rack_of = {n_["metadata"]["name"]: n_["metadata"]["labels"][consts.SLICE_ID_LABEL_KEYS[0]]
+               for n_ in store.list("Node")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-10l-") as ckpt, ThreadPoolExecutor(1) as pool:
+            fa.reset_launch_counts()
+            trainer = wl.CheckpointingTrainer(config, ckpt, watcher=_token_watcher_class()(store, host),
+                                              device="cuda")
+            trainer.run(2)
+            trainer.watcher.polls.clear()  # time the steps under the rollout only
+            run = pool.submit(trainer.run, 1_000_000)  # a thread: it drains on its node's request
+            t_start = time.perf_counter()
+            try:
+                for n in range(BROWNOUT_MAX_PASSES):
+                    t0 = time.perf_counter()
+                    try:
+                        manager.apply_state(manager.build_state(FLEET_NAMESPACE, FLEET_DRIVER_LABELS), policy)
+                    except (ApiError, OSError, UpgradeStateError):
+                        refused += 1  # the next pass is the retry
+                    if not (manager.drain_manager.wait_idle(120.0) and manager.pod_manager.wait_idle(120.0)):
+                        raise RuntimeError("10l: drains or pod restarts still in flight after 120 s")
+                    made = play_daemonset(store, "rev4")
+                    tape.collect()
+                    labels = {n_["metadata"]["name"]: n_["metadata"]["labels"].get(state_key)
+                              for n_ in store.list("Node")}
+                    admitted |= {name for name, label in labels.items() if label not in (
+                        consts.UPGRADE_STATE_UPGRADE_REQUIRED, consts.UPGRADE_STATE_DONE, None)}
+                    # once the trainer has drained, its node's workload answers a
+                    # retried drain's request as the others do
+                    if admitted - ({host} if not trainer.drained else set()) != watched:
+                        watched = admitted - ({host} if not trainer.drained else set())
+                        workloads.watch(sorted(watched))
+                    racks = {rack_of[name] for name, label in labels.items() if label not in chaos.AuditTape.IDLE_STATES}
+                    most_racks = max(most_racks, len(racks))
+                    if len(racks) > policy.max_parallel_upgrades:
+                        raise RuntimeError(f"10l: {len(racks)} racks in flight after pass {n}, the policy allows "
+                                           f"{policy.max_parallel_upgrades}")
+                    passes.append({"ms": (time.perf_counter() - t0) * 1e3, "driver_pods_recreated": made})
+                    revisions = {p["metadata"]["labels"].get("controller-revision-hash")
+                                 for p in store.list("Pod", namespace=FLEET_NAMESPACE)}
+                    if set(labels.values()) == {consts.UPGRADE_STATE_DONE} and revisions == {"rev4"}:
+                        break
+                else:
+                    raise RuntimeError(f"10l: the fleet is not done after {BROWNOUT_MAX_PASSES} passes: "
+                                       f"{sorted(set(labels.values()))}")
+            except BaseException:
+                trainer.watcher.abort = True  # its next poll raises, so the pool's thread ends
+                raise
+            finally:
+                rollout_s = time.perf_counter() - t_start
+                facade.with_chaos(0.0)
+            step = run.result(timeout=300)
+            if not trainer.drained:
+                raise RuntimeError(f"10l: the trainer on {host} ran {step} steps and was never drained")
+            if wl.restore_checkpoint(ckpt, step)["step"] != step:
+                raise RuntimeError(f"10l: the checkpoint does not restore at step {step}")
+            answered = trainer.watcher.answered or ""
+        if not answered.startswith(f"{consts.PRE_DRAIN_CHECKPOINT_REQUESTED}:"):
+            raise RuntimeError(f"10l: the trainer answered {answered!r}")
+        decisions = log_.export_stream()
+        violations = chaos.check_rollout_invariants(
+            store, managed_nodes=[_fleet_node(i) for i in range(FLEET_NODES)], policy=checker,
+            decisions=decisions, tape=tape, ds_name="gpu-driver", ds_namespace=FLEET_NAMESPACE,
+            target_revision="rev4", converged=True)
+        if violations:
+            raise RuntimeError(f"10l: {len(violations)} invariant violations: "
+                               f"{[v.to_dict() for v in violations[:5]]}")
+        signals = chaos.fitness_signals(tape=tape, decisions=decisions, store=store, policy=checker,
+                                        ds_name="gpu-driver", ds_namespace=FLEET_NAMESPACE)
+        drops = facade.fault_counters["chaos_drops"] - drops0
+        if not drops:
+            raise RuntimeError("10l: the facade dropped no request")
+    finally:
+        facade.with_chaos(0.0)
+        workloads.close()
+        manager.shutdown()
+        client.close()
+        metrics.set_default_registry(previous[0])
+        tracing.set_default_tracer(previous[1])
+        events.set_default_log(previous[2])
+        timeline.set_default_recorder(previous[3])
+    launches = dict(fa.launch_counts)
+    _check_flash_launches("10l", {k: n for k, n in fa.device_launch_counts.items() if n},
+                          dict.fromkeys(launches, config.n_layers * step))
+    if not all(math.isfinite(x) for x in trainer.losses):
+        raise RuntimeError(f"10l: losses {trainer.losses}")
+    return {
+        "nodes": FLEET_NODES, "passes": len(passes), "refused_passes": refused, "rollout_ms": rollout_s * 1e3,
+        "pass_ms_p50": sorted(p["ms"] for p in passes)[len(passes) // 2],
+        "driver_pods_recreated": sum(p["driver_pods_recreated"] for p in passes),
+        "dropped_requests": drops, "http_requests": facade.requests_served - served0,
+        "transitions": len(tape.transitions), "decisions": len(decisions), "violations": 0,
+        "most_racks_in_flight": most_racks,
+        "fitness": signals, "host": host, "drained_at_step": step, "flash_launches": launches,
+        "trainer_step_ms": _step_ms(trainer.watcher.polls), "workload_acks": workloads.acks,
+    }
+
+
+def campaign_phase() -> dict:
+    """10m: the default chaos campaign and the three self-tests through
+    the port's CLI, each a subprocess, all four at once.  The campaign
+    must pass all 43 cells, its shipped regression cell replayed."""
+    runs = {"campaign": ["chaos", "--seed", "0", "--json"], "chaos_selftest": ["chaos", "--selftest"],
+            "search_selftest": ["chaos", "search", "--selftest"], "fedstatus_selftest": ["fedstatus", "--selftest"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([*CLI, *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True) for name, args in runs.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"10m: `{' '.join(runs[name])}` exited {proc.returncode}: {err[-2000:]}")
+            outs[name] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    card = json.loads(outs["campaign"])
+    regression = [c for c in card["cells"] if c.get("cell") == REGRESSION_CELL]
+    if (card["cells_total"] != CAMPAIGN_CELLS or card["cells_passed"] != CAMPAIGN_CELLS or card["violations"]
+            or len(regression) != 1 or not regression[0]["passed"]):
+        raise RuntimeError(f"10m: the campaign passed {card['cells_passed']} of {card['cells_total']} cells, "
+                           f"{card['violations']} violations, regression cell {regression}")
+    return {"cells_passed": card["cells_passed"], "cells_total": card["cells_total"],
+            "scenarios": card["scenarios"], "campaign_wall_s": card["wall_s"],
+            "selftests": {name: outs[name].strip().splitlines()[-1][:160] for name in runs if name != "campaign"},
+            "phase_s": time.perf_counter() - t0}
+
+
 def fleet_phase(config, card: str) -> dict:
     """Phase 10: the drain through the full in-memory cluster, at the size
     of a large fleet, then through its HTTP facade, then the whole fleet
@@ -3259,18 +3658,33 @@ def fleet_phase(config, card: str) -> dict:
         log("phase 10i the rest of the fleet through the state index (host clock):",
             json.dumps({**rest, "phase_s": time.perf_counter() - t0}), "|", card)
         t0 = time.perf_counter()
+        artifacts = {}
         with runtime.tuned_gc(), runtime.tuned_scheduler():  # as the operator's main applies them
-            operator = operator_rollout(facade, cluster, config)
+            operator = operator_rollout(facade, cluster, config, artifacts=artifacts)
         log("phase 10j the port's operator, two replicas over HTTP, rev2 -> rev3 across a leader crash "
             "(host clock):", json.dumps({**operator, "phase_s": time.perf_counter() - t0}), "|", card)
+        t0 = time.perf_counter()
+        cli = cli_phase(facade, cluster, artifacts)
+        first = cli.pop("first")
+        log("phase 10k the CLI on the fleet (host clock):",
+            json.dumps({**cli, "phase_s": time.perf_counter() - t0}), "|", card)
+        t0 = time.perf_counter()
+        brownout = chaos_rollout(facade, cluster, config, first)
+        log("phase 10l the whole fleet rev3 -> rev4 over HTTP under an 8 % brownout, checked by the chaos "
+            "checker (host clock):", json.dumps({**brownout, "phase_s": time.perf_counter() - t0}), "|", card)
+    t0 = time.perf_counter()
+    campaign = campaign_phase()
+    log("phase 10m the chaos campaign and self-tests through the CLI (host clock):",
+        json.dumps({**campaign, "phase_s": time.perf_counter() - t0}), "|", card)
     dump = json.dumps(cluster.to_dict())
     found = [m for m in TPU_MARKERS if m in dump]
     if found:
         raise RuntimeError(f"10d: the cluster holds {found}")
     log(f"phase 10d: no key or value of the cluster's {len(dump)} bytes names {list(TPU_MARKERS)}"
-        f" (after 10e-10j, all {FLEET_NODES} nodes upgraded twice; CRDs, CRs, Leases and Events included)")
+        f" (after 10e-10l, all {FLEET_NODES} nodes upgraded three times; CRDs, CRs, Leases and Events included)")
     return {"build_ms": build_s * 1e3, "fan_out": fan, "drain": drain, "http_fan_out": http_fan,
-            "http_drain": http_drain, "wave": wave, "http_wave": http_wave, "rest": rest, "operator": operator}
+            "http_drain": http_drain, "wave": wave, "http_wave": http_wave, "rest": rest, "operator": operator,
+            "cli": cli, "brownout": brownout, "campaign": campaign}
 
 
 def compiled_report():
@@ -3560,11 +3974,15 @@ def main(argv=None) -> int:
                 tag = f"pad-d{d}-{'causal' if causal else 'full'}-{dtype}"
                 check_case(tag, 2, 256, 4, 4, d, causal, dtype, seed=seed)
     check_case("pad-d8-gqa-bf16", 2, 256, 8, 2, 8, True, "bfloat16", seed=22)
+    wide_head_cases()
     check_lse_cotangent()
     log("kernels worst err / max(1, max|ref|):", json.dumps(worst_rel),
         f"(tol fp32 {FP32_TOL}, bf16 {BF16_TOL})")
     main_timing = time_shape(8, 256, 8, 64, "bfloat16", iters=100, plain_iters=20, graphs=True)
     long_timing = time_shape(4, 8192, 8, 64, "bfloat16", iters=10, plain_iters=2, graphs=False)
+    # head dim 256 at the trainer's shape: its timing line only (the
+    # kernels line keeps its main row at d 64)
+    time_shape(8, 256, 8, 256, "bfloat16", iters=50, plain_iters=10, graphs=True)
     log("phase 2 done", f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 3 and 4. main path: train, time, drain, restore, resume ----
@@ -3735,6 +4153,8 @@ def main(argv=None) -> int:
                    for k, w in enumerate(fleet["rest"]["waves"])},
                 f"10j operator rollout ({fleet['operator']['drained_at_step']} steps)":
                     fleet["operator"]["flash_launches"][name],
+                f"10l brownout rollout ({fleet['brownout']['drained_at_step']} steps)":
+                    fleet["brownout"]["flash_launches"][name],
             },
         })
     step = int8_timing["per_decode_step"]

@@ -14,6 +14,9 @@
 // relative), short of the 1e-4 the fp32 kernels are held to, so fp32
 // stays scalar.
 //
+// Head dims 16, 32, 64, 128 and 256 are compiled; the wrapper zero-pads
+// any other up to 256 to the next of them.
+//
 // Layout: q, dO, O, dQ and the dK/dV partials are [b*h, s, d]; k and v are
 // [b*hk, s, d] with h = g*hk, and query row bh reads K/V row bh / g (GQA and
 // MQA without materialised head repetition). lse and dvec are [b*h, s] fp32.
@@ -46,10 +49,11 @@
 // The fp32 kernels. This is the simple, correct first version. The TPU
 // grid's sequential axis becomes a loop inside one block, and the causal
 // `pl.when` skip becomes that loop's bound, so tiles above the diagonal
-// cost nothing. In the forward and dQ each thread owns one query row; in
-// dK/dV two threads (four at head dim 128) share a key row, each holding
-// its part of the row's K, V, dK and dV, and add their partial dot
-// products with a warp shuffle. Rows and accumulators live in registers;
+// cost nothing. In the forward and dQ each thread owns one query row (at
+// head dim 256 eight threads share it); in dK/dV two threads (four at
+// head dim 128, eight at 256) share a key row, each holding its part of
+// the row's K, V, dK and dV, and add their partial dot products with a
+// warp shuffle. Rows and accumulators live in registers;
 // the tile a block sweeps is staged in shared memory as fp32 and read at
 // one address by all threads (a broadcast, free of bank conflicts). Dot
 // products keep four partial sums, so a thread has four independent FMA
@@ -85,25 +89,59 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Tile shapes per head dim. kRows: rows a block owns (one thread each in
-// the forward and dQ, kDkvSplit threads each in dK/dV). kFwdTile, kDkvTile:
-// rows of the swept operand staged in shared memory per loop step.
+// Tile shapes per head dim. kRows: rows a block owns (kFwdSplit threads
+// each in the forward and dQ, kDkvSplit threads each in dK/dV). kFwdTile,
+// kDkvTile: rows of the swept operand staged in shared memory per loop
+// step. At head dim 256 a whole fp32 row of O (or of dQ, with Q and dO
+// beside it) would take 512+ registers a thread, so eight threads share a
+// row there, each holding 32 columns; the dK/dV tile halves to keep the
+// staged Q and dO within the 48 KB of static shared memory.
 template <int D>
 struct Tiles {
   static constexpr int kRows = D <= 64 ? 64 : 32;
   static constexpr int kFwdTile = D <= 64 ? 32 : 16;
-  static constexpr int kDkvTile = 32;
-  static constexpr int kDkvSplit = D <= 64 ? 2 : 4;
+  static constexpr int kFwdSplit = D <= 128 ? 1 : 8;
+  static constexpr int kDkvTile = D <= 128 ? 32 : 16;
+  static constexpr int kDkvSplit = D <= 64 ? 2 : D <= 128 ? 4 : 8;
 };
 
-// Stage rows [r0, r0 + R) of a [s, D] matrix into shared memory as fp32;
-// rows past s are zero.
-template <typename T, int R, int D, int NT>
+// A staged fp32 row split into P parts of kPart columns, one part a thread.
+// With P > 1 each part is padded by 4 floats, so that the parts a warp
+// reads at once fall in different banks.
+template <int D, int P>
+struct SplitRow {
+  static constexpr int kPart = D / P;
+  static constexpr int kPad = P > 1 ? 4 : 0;
+  static constexpr int kRow = P * (kPart + kPad);  // floats of a staged row
+  __device__ __forceinline__ static int at(int r, int c) {
+    return r * kRow + (c / kPart) * (kPart + kPad) + c % kPart;
+  }
+  __device__ __forceinline__ static int part(int p) { return p * (kPart + kPad); }
+};
+
+// Stage rows [r0, r0 + R) of a [s, D] matrix into shared memory as fp32,
+// split in P parts; rows past s are zero.
+template <typename T, int R, int D, int NT, int P>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src, int r0, int s) {
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
-    const int r = r0 + idx / D;
-    dst[idx] = r < s ? to_f(src[static_cast<size_t>(r) * D + idx % D]) : 0.f;
+    if constexpr (P == 1) {
+      const int r = r0 + idx / D;
+      dst[idx] = r < s ? to_f(src[static_cast<size_t>(r) * D + idx % D]) : 0.f;
+    } else {
+      const int r = idx / D, c = idx % D;
+      dst[SplitRow<D, P>::at(r, c)] =
+          r0 + r < s ? to_f(src[static_cast<size_t>(r0 + r) * D + c]) : 0.f;
+    }
   }
+}
+
+// The sum of a value over the P threads that share a row (a butterfly: each
+// thread ends with the same sum, added in the same order).
+template <int P>
+__device__ __forceinline__ float part_sum(float x) {
+#pragma unroll
+  for (int lane = 1; lane < P; lane <<= 1) x += __shfl_xor_sync(0xffffffffu, x, lane);
+  return x;
 }
 
 // Dot product of a register row with a shared-memory row (broadcast read).
@@ -136,29 +174,33 @@ __device__ __forceinline__ void axpy_row(float (&x)[D], float a, const float* y)
   }
 }
 
-// Forward: one block per (bh, q-tile), one thread per query row. Folds K/V
-// tiles into the online-softmax state (m, l, acc) and writes O and
-// lse = m + log l.
+// Forward: one block per (bh, q-tile), P = kFwdSplit threads per query
+// row, each holding its part of the row's Q and O. Folds K/V tiles into the
+// online-softmax state (m, l, acc) and writes O and lse = m + log l.
 template <typename T, int D>
-__global__ void __launch_bounds__(Tiles<D>::kRows) flash_fwd_kernel(
+__global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kFwdSplit) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int s, int g, int causal, float scale) {
   constexpr int BM = Tiles<D>::kRows;
   constexpr int BN = Tiles<D>::kFwdTile;
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
+  constexpr int P = Tiles<D>::kFwdSplit;
+  using SR = SplitRow<D, P>;
+  constexpr int H = SR::kPart;
+  __shared__ __align__(16) float ks[BN * SR::kRow];
+  __shared__ __align__(16) float vs[BN * SR::kRow];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BM;
-  const int row = q0 + threadIdx.x;
+  const int part = threadIdx.x % P;
+  const int row = q0 + threadIdx.x / P;
   const bool valid = row < s;
   const T* kb = k + static_cast<size_t>(bh / g) * s * D;
   const T* vb = v + static_cast<size_t>(bh / g) * s * D;
 
-  float qr[D], acc[D];
-  const T* qrow = q + (static_cast<size_t>(bh) * s + (valid ? row : 0)) * D;
+  float qr[H], acc[H];
+  const T* qrow = q + (static_cast<size_t>(bh) * s + (valid ? row : 0)) * D + part * H;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < H; ++d) {
     qr[d] = valid ? to_f(qrow[d]) * scale : 0.f;
     acc[d] = 0.f;
   }
@@ -168,8 +210,8 @@ __global__ void __launch_bounds__(Tiles<D>::kRows) flash_fwd_kernel(
   const int kv_end = causal ? min(s, q0 + BM) : s;
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();
-    stage_tile<T, BN, D, BM>(ks, kb, k0, s);
-    stage_tile<T, BN, D, BM>(vs, vb, k0, s);
+    stage_tile<T, BN, D, BM * P, P>(ks, kb, k0, s);
+    stage_tile<T, BN, D, BM * P, P>(vs, vb, k0, s);
     __syncthreads();
 
     float sc[BN];
@@ -178,7 +220,12 @@ __global__ void __launch_bounds__(Tiles<D>::kRows) flash_fwd_kernel(
     for (int j = 0; j < BN; ++j) {
       const int key = k0 + j;
       const bool keep = key < s && (!causal || key <= row);
-      sc[j] = keep ? dot_row<D>(qr, ks + j * D) : kNeg;
+      if constexpr (P == 1) {
+        sc[j] = keep ? dot_row<H>(qr, ks + j * D) : kNeg;
+      } else {  // every part joins the shuffle, kept or not
+        const float dot = part_sum<P>(dot_row<H>(qr, ks + j * SR::kRow + SR::part(part)));
+        sc[j] = keep ? dot : kNeg;
+      }
       mx = fmaxf(mx, sc[j]);
     }
     const float alpha = expf(m - mx);
@@ -190,46 +237,50 @@ __global__ void __launch_bounds__(Tiles<D>::kRows) flash_fwd_kernel(
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < H; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < BN; ++j) axpy_row<D>(acc, sc[j], vs + j * D);
+    for (int j = 0; j < BN; ++j) axpy_row<H>(acc, sc[j], vs + j * SR::kRow + SR::part(part));
     m = mx;
   }
 
   if (valid) {
-    T* orow = o + (static_cast<size_t>(bh) * s + row) * D;
+    T* orow = o + (static_cast<size_t>(bh) * s + row) * D + part * H;
     const float inv_l = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = from_f<T>(acc[d] * inv_l);
-    lse[static_cast<size_t>(bh) * s + row] = m + logf(l);
+    for (int d = 0; d < H; ++d) orow[d] = from_f<T>(acc[d] * inv_l);
+    if (part == 0) lse[static_cast<size_t>(bh) * s + row] = m + logf(l);
   }
 }
 
-// dQ: one block per (bh, q-tile), one thread per query row, looping over
-// k-tiles up to the causal bound. P = exp(S*scale - lse), dP = dO V^T,
-// dS = P (dP - dvec) scale, dQ += dS K.
+// dQ: one block per (bh, q-tile), P = kFwdSplit threads per query row,
+// looping over k-tiles up to the causal bound. P = exp(S*scale - lse),
+// dP = dO V^T, dS = P (dP - dvec) scale, dQ += dS K.
 template <typename T, int D>
-__global__ void __launch_bounds__(Tiles<D>::kRows) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kFwdSplit) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, T* __restrict__ dq, int s, int g, int causal,
     float scale) {
   constexpr int BM = Tiles<D>::kRows;
   constexpr int BN = Tiles<D>::kFwdTile;
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
+  constexpr int P = Tiles<D>::kFwdSplit;
+  using SR = SplitRow<D, P>;
+  constexpr int H = SR::kPart;
+  __shared__ __align__(16) float ks[BN * SR::kRow];
+  __shared__ __align__(16) float vs[BN * SR::kRow];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BM;
-  const int row = q0 + threadIdx.x;
+  const int part = threadIdx.x % P;
+  const int row = q0 + threadIdx.x / P;
   const bool valid = row < s;
   const T* kb = k + static_cast<size_t>(bh / g) * s * D;
   const T* vb = v + static_cast<size_t>(bh / g) * s * D;
 
-  const size_t off = (static_cast<size_t>(bh) * s + (valid ? row : 0)) * D;
-  float qr[D], dor[D], acc[D];
+  const size_t off = (static_cast<size_t>(bh) * s + (valid ? row : 0)) * D + part * H;
+  float qr[H], dor[H], acc[H];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < H; ++d) {
     qr[d] = valid ? to_f(q[off + d]) : 0.f;
     dor[d] = valid ? to_f(dout[off + d]) : 0.f;
     acc[d] = 0.f;
@@ -241,22 +292,30 @@ __global__ void __launch_bounds__(Tiles<D>::kRows) flash_bwd_dq_kernel(
   const int kv_end = causal ? min(s, q0 + BM) : s;
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();
-    stage_tile<T, BN, D, BM>(ks, kb, k0, s);
-    stage_tile<T, BN, D, BM>(vs, vb, k0, s);
+    stage_tile<T, BN, D, BM * P, P>(ks, kb, k0, s);
+    stage_tile<T, BN, D, BM * P, P>(vs, vb, k0, s);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < BN; ++j) {
       const int key = k0 + j;
       const bool keep = valid && key < s && (!causal || key <= row);
-      const float p = keep ? expf(dot_row<D>(qr, ks + j * D) * scale - lse_r) : 0.f;
-      const float dp = dot_row<D>(dor, vs + j * D);
-      axpy_row<D>(acc, p * (dp - dvec_r) * scale, ks + j * D);
+      const float* kj = ks + j * SR::kRow + SR::part(part);
+      float p, dp;
+      if constexpr (P == 1) {
+        p = keep ? expf(dot_row<H>(qr, kj) * scale - lse_r) : 0.f;
+        dp = dot_row<H>(dor, vs + j * D);
+      } else {  // every part joins the shuffles, kept or not
+        const float sdot = part_sum<P>(dot_row<H>(qr, kj));
+        dp = part_sum<P>(dot_row<H>(dor, vs + j * SR::kRow + SR::part(part)));
+        p = keep ? expf(sdot * scale - lse_r) : 0.f;
+      }
+      axpy_row<H>(acc, p * (dp - dvec_r) * scale, kj);
     }
   }
 
   if (valid) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) dq[off + d] = from_f<T>(acc[d]);
+    for (int d = 0; d < H; ++d) dq[off + d] = from_f<T>(acc[d]);
   }
 }
 
@@ -265,8 +324,7 @@ __global__ void __launch_bounds__(Tiles<D>::kRows) flash_bwd_dq_kernel(
 // dK += dS^T Q, per query head: the caller sums the GQA group's partials.
 // Thread (r, part) holds columns [part*H, part*H + H) of key row r's K, V,
 // dK and dV; the P partial dot products meet through warp shuffles. The
-// staged q-tile rows are split the same way, each part padded by 4 floats
-// so the P parts a warp reads at once fall in different banks.
+// staged q-tile rows are split the same way (SplitRow).
 template <typename T, int D>
 __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -277,11 +335,11 @@ __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
   constexpr int BN = Tiles<D>::kRows;
   constexpr int BM = Tiles<D>::kDkvTile;
   constexpr int P = Tiles<D>::kDkvSplit;
-  constexpr int H = D / P;
+  using SR = SplitRow<D, P>;
+  constexpr int H = SR::kPart;
   constexpr int NT = BN * P;
-  constexpr int ROW = P * (H + 4);  // a staged row: P parts of H, each + 4 pad
-  __shared__ __align__(16) float qs[BM * ROW];
-  __shared__ __align__(16) float dos[BM * ROW];
+  __shared__ __align__(16) float qs[BM * SR::kRow];
+  __shared__ __align__(16) float dos[BM * SR::kRow];
   __shared__ float ls[BM];
   __shared__ float dvs[BM];
 
@@ -311,7 +369,7 @@ __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
     __syncthreads();
     for (int idx = threadIdx.x; idx < BM * D; idx += NT) {
       const int r = idx / D, c = idx % D;
-      const int at = r * ROW + (c / H) * (H + 4) + c % H;
+      const int at = SR::at(r, c);
       const bool in = i0 + r < s;
       const size_t src = static_cast<size_t>(i0 + r) * D + c;
       qs[at] = in ? to_f(qb[src]) : 0.f;
@@ -326,8 +384,8 @@ __global__ void __launch_bounds__(Tiles<D>::kRows * Tiles<D>::kDkvSplit)
     for (int i = 0; i < BM; ++i) {
       const int row = i0 + i;
       const bool keep = valid && row < s && (!causal || col <= row);
-      const float* qi = qs + i * ROW + part * (H + 4);
-      const float* di = dos + i * ROW + part * (H + 4);
+      const float* qi = qs + i * SR::kRow + SR::part(part);
+      const float* di = dos + i * SR::kRow + SR::part(part);
       float sdot = dot_row<H>(kr, qi);
       float dp = dot_row<H>(vr, di);
 #pragma unroll
@@ -362,7 +420,8 @@ constexpr int kTcKeys = 64;      // rows of a K/V tile
 
 // An [R, D] bf16 tile in shared memory, in wgmma's canonical layout with
 // the widest swizzle its rows take: rows of W = min(2D, 128) bytes (swizzle
-// 32B, 64B or 128B), and at D 128 two 64-column blocks one after the other.
+// 32B, 64B or 128B), and at D 128 and 256 64-column blocks one after the
+// other.
 // The 16-byte chunk c of row r sits at r*W + 16c with offset bits [4, 4 +
 // log2(W/16)) XORed with bits [7, ...): the address swizzle the hardware
 // undoes, so tiles start on 1024-byte boundaries. The same tile is read
@@ -405,10 +464,31 @@ struct TcTile {
   }
 
   // Descriptor of reduction step kk (rows [16kk, 16kk + 16)), MN-major:
-  // the N = D columns span the column blocks, kBlockBytes apart.
+  // the N columns span the column blocks, kBlockBytes apart.
   __device__ __forceinline__ static uint64_t mnmajor(uint32_t base, int kk) {
     return hopper::make_desc(base + kk * 16 * kRowBytes, kBlockBytes, 8 * kRowBytes, kSwizzle);
   }
+
+  // Offset of column c0 (a multiple of a column block's width): the base
+  // of an MN-major operand whose N columns start there.
+  __device__ __forceinline__ static uint32_t columns(int c0) {
+    return (c0 / (kRowBytes / 2)) * kBlockBytes;
+  }
+};
+
+// Output columns a tc block owns. A 64-row fp32 accumulator of N columns
+// takes N / 2 registers a thread; at head dim 256 two of them (dK and dV)
+// would take all 255, and one beside S and dP leaves too few. So above 128
+// a block owns 128 columns of its output, blockIdx.z saying which, and
+// recomputes S (and dP) over the whole head dim; every tc kernel then
+// keeps the register budget it has at head dim 128, where ptxas fits it
+// without a spill. The column base comes from blockIdx, so descriptor
+// bases stay uniform.
+template <int D>
+struct TcCols {
+  static constexpr int kCols = D < 128 ? D : 128;
+  static constexpr int kSplits = D / kCols;
+  __device__ __forceinline__ static int first() { return kSplits > 1 ? blockIdx.z * kCols : 0; }
 };
 
 __device__ __forceinline__ uint32_t align_1024(uint32_t addr) {
@@ -472,6 +552,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
   const int col0 = 2 * (lane % 4);  // accumulator columns 8j + col0 + {0, 1}
   const int kv_end = causal ? min(s, q0 + kTcRows) : s;
   const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+  constexpr int DC = TcCols<D>::kCols;  // O columns [c0, c0 + DC) are this block's
+  const int c0 = TcCols<D>::first();
+  const uint32_t vcols = KT::columns(c0);
 
   QT::load(sq, q + static_cast<size_t>(bh) * s * D, q0, s);
   KT::load(sk, kb, 0, s);
@@ -479,9 +562,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
   hopper::cp_async_commit();
 
   const float c = scale * kLog2e;  // scores in the exp2 domain
-  float acc[D / 2];
+  float acc[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -532,12 +615,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
       pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     hopper::wgmma_fence();  // O += P V
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      hopper::Wgmma<D>::rs(acc, pa[kk], KT::mnmajor(vt, kk), 1);
+      hopper::Wgmma<DC>::rs(acc, pa[kk], KT::mnmajor(vt + vcols, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -555,14 +638,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
     const int row = row0 + 8 * i;
     if (row < s) {
       const float inv_l = 1.f / l[i];
-      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s + row) * D + col0;
+      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s + row) * D + c0 + col0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             hopper::pack_bf16(acc[4 * j + 2 * i] * inv_l, acc[4 * j + 2 * i + 1] * inv_l);
       }
       // natural log, as the backward kernels and flash_attention_lse read it
-      if (lane % 4 == 0) lse[static_cast<size_t>(bh) * s + row] = (m[i] + log2f(l[i])) * kLn2;
+      if (lane % 4 == 0 && c0 == 0)
+        lse[static_cast<size_t>(bh) * s + row] = (m[i] + log2f(l[i])) * kLn2;
     }
   }
 }
@@ -602,6 +686,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   KT::load(sv, vb, 0, s);
   hopper::cp_async_commit();
 
+  constexpr int DC = TcCols<D>::kCols;  // dQ columns [c0, c0 + DC) are this block's
+  const int c0 = TcCols<D>::first();
+  const uint32_t kcols = KT::columns(c0);
   const float c = scale * kLog2e;
   float lse2[2], dvr[2];  // the rows' lse (exp2 domain) and dvec
 #pragma unroll
@@ -611,9 +698,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
     lse2[i] = row < s ? lse[at] * kLog2e : 0.f;
     dvr[i] = row < s ? dvec[at] : 0.f;
   }
-  float acc[D / 2];
+  float acc[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     next_kv_tile<KT>(sk, sv, kb, vb, t, n_tiles, s);
@@ -652,7 +739,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
     hopper::wgmma_fence();  // dQ += dS K
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      hopper::Wgmma<D>::rs(acc, da[kk], KT::mnmajor(kt, kk), 1);
+      hopper::Wgmma<DC>::rs(acc, da[kk], KT::mnmajor(kt + kcols, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -664,9 +751,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row < s) {
-      __nv_bfloat16* drow = dq + qoff + static_cast<size_t>(row) * D + col0;
+      __nv_bfloat16* drow = dq + qoff + static_cast<size_t>(row) * D + c0 + col0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(drow + 8 * j) =
             hopper::pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
       }
@@ -733,10 +820,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
   load_q_tile(0);
   hopper::cp_async_commit();
 
+  constexpr int DC = TcCols<D>::kCols;  // dK, dV columns [c0, c0 + DC) are this block's
+  const int c0 = TcCols<D>::first();
+  const uint32_t qcols = QT::columns(c0);
   const float c = scale * kLog2e;  // scores in the exp2 domain
-  float dka[D / 2], dva[D / 2];
+  float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DC / 2; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
@@ -785,10 +875,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
     hopper::wgmma_fence();  // dV += P^T dO, dK += dS^T Q
 #pragma unroll
     for (int kk = 0; kk < kTcRows / 16; ++kk)
-      hopper::Wgmma<D>::rs(dva, pa[kk], QT::mnmajor(dt, kk), 1);
+      hopper::Wgmma<DC>::rs(dva, pa[kk], QT::mnmajor(dt + qcols, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < kTcRows / 16; ++kk)
-      hopper::Wgmma<D>::rs(dka, da[kk], QT::mnmajor(qt, kk), 1);
+      hopper::Wgmma<DC>::rs(dka, da[kk], QT::mnmajor(qt + qcols, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dva);
@@ -802,9 +892,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key < s) {
-      const size_t at = qoff + static_cast<size_t>(key) * D + col0;
+      const size_t at = qoff + static_cast<size_t>(key) * D + c0 + col0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
             hopper::pack_bf16(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
         *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
@@ -833,16 +923,19 @@ void allow_smem(int bytes) {
 
 // A tc kernel's grid: bh fastest, then 64-row tiles (q-tiles in the
 // forward and dQ, k-tiles in dK/dV), so that every row's heaviest tile is
-// dispatched before any lighter one.
+// dispatched before any lighter one; then the output's column splits.
 static_assert(kTcRows == kTcKeys, "q-tiles and k-tiles share the grid");
-inline dim3 tc_grid(int bh, int s) { return dim3(bh, (s + kTcRows - 1) / kTcRows); }
+template <int D>
+dim3 tc_grid(int bh, int s) {
+  return dim3(bh, (s + kTcRows - 1) / kTcRows, TcCols<D>::kSplits);
+}
 
 template <int D>
 void launch_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int s, int g, int causal, float scale, cudaStream_t st) {
   constexpr int smem = TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
   allow_smem<flash_fwd_tc_kernel<D>>(smem);
-  flash_fwd_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+  flash_fwd_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), s, g, causal, scale);
@@ -854,7 +947,7 @@ void launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                   int causal, float scale, cudaStream_t st) {
   constexpr int smem = 2 * TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
   allow_smem<flash_bwd_dq_tc_kernel<D>>(smem);
-  flash_bwd_dq_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+  flash_bwd_dq_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -869,7 +962,7 @@ void launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout
   constexpr int smem = 2 * TcTile<kTcKeys, D>::kBytes + 4 * TcTile<kTcRows, D>::kBytes +
                        2 * kTcThreads * static_cast<int>(sizeof(float)) + 1024;
   allow_smem<flash_bwd_dkv_tc_kernel<D>>(smem);
-  flash_bwd_dkv_tc_kernel<D><<<tc_grid(bh, s), kTcThreads, smem, st>>>(
+  flash_bwd_dkv_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -886,7 +979,7 @@ dim3 grid_for(int bh, int s) {
 template <typename T, int D>
 void launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                 int s, int g, int causal, float scale, cudaStream_t st) {
-  flash_fwd_kernel<T, D><<<grid_for<D>(bh, s), Tiles<D>::kRows, 0, st>>>(
+  flash_fwd_kernel<T, D><<<grid_for<D>(bh, s), Tiles<D>::kRows * Tiles<D>::kFwdSplit, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), s, g, causal, scale);
 }
@@ -895,7 +988,8 @@ template <typename T, int D>
 void launch_dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dq, int bh, int s, int g,
                int causal, float scale, cudaStream_t st) {
-  flash_bwd_dq_kernel<T, D><<<grid_for<D>(bh, s), Tiles<D>::kRows, 0, st>>>(
+  flash_bwd_dq_kernel<T, D>
+      <<<grid_for<D>(bh, s), Tiles<D>::kRows * Tiles<D>::kFwdSplit, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dq), s, g, causal, scale);
@@ -968,6 +1062,10 @@ void route_dkv(const void* q, const void* k, const void* v, const void* dout, co
       case 128:                                                       \
         bf ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                  \
            : LAUNCH<float, 128>(__VA_ARGS__);                         \
+        break;                                                        \
+      case 256:                                                       \
+        bf ? LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__)                  \
+           : LAUNCH<float, 256>(__VA_ARGS__);                         \
         break;                                                        \
       default:                                                        \
         return static_cast<int>(cudaErrorInvalidValue);               \

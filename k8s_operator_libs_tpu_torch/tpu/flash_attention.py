@@ -75,7 +75,7 @@ device_launch_counts: Dict[str, int] = {
 
 #: Head dims the CUDA kernels are compiled for.  Any head dim up to the
 #: last runs on them, padded to the next (:func:`head_padded`).
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -111,7 +111,7 @@ def test_bf16_tensor_core_kernels_match_their_plain_versions(cuda, d, s, hk, cau
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("hk", [4, 2], ids=lambda hk: f"hk{hk}")
-@pytest.mark.parametrize("d", [8, 24, 48, 100], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("d", [8, 24, 48, 100, 192], ids=lambda d: f"d{d}")
 def test_head_dims_between_the_compiled_ones_run_padded(cuda, d, hk, causal, dtype):
     """A head dim the kernels are not compiled for runs zero-padded to the
     next compiled one, at its own scale, on that width's kernels."""
@@ -126,6 +126,32 @@ def test_head_dims_between_the_compiled_ones_run_padded(cuda, d, hk, causal, dty
     dvec = (o_ref * fp32[3]).sum(-1)
     dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
     assert dq.shape == qf.shape
+    assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), tol)
+    dk, dv = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*fp32, lse_ref, dvec, g, causal)
+    assert _close(dk, dk_ref, tol) and _close(dv, dv_ref, tol)
+    launched = {
+        name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
+    }
+    assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.DEVICE_KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_the_widest_head_dim_runs_on_its_own_kernels(cuda, causal, dtype):
+    """Head dim 256, GQA, s 200: each kernel against its plain version,
+    unpadded, on the 256 instantiations."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, 256, 200, 2, seed=256)
+    qf, kf, vf, dof = (t.to(dtype) for t in (qf, kf, vf, dof))
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+    before = dict(fa.device_launch_counts)
+    o, lse = fa.flash_forward(qf, kf, vf, g, causal)
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, causal)
+    assert _close(o, o_ref, tol) and _close(lse, lse_ref)
+    dvec = (o_ref * fp32[3]).sum(-1)
+    dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
     assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), tol)
     dk, dv = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_ref, dvec, g, causal)
     dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*fp32, lse_ref, dvec, g, causal)

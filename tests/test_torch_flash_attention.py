@@ -296,14 +296,15 @@ def test_mask_value_and_group_size_match_jax():
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize(
-    "d,hk", [(8, 4), (24, 4), (48, 4), (8, 2), (48, 1)],
-    ids=["d8", "d24", "d48", "d8-gqa", "d48-mqa"],
+    "d,hk", [(8, 4), (24, 4), (48, 4), (8, 2), (48, 1), (160, 2), (256, 4)],
+    ids=["d8", "d24", "d48", "d8-gqa", "d48-mqa", "d160-gqa", "d256"],
 )
 def test_head_padded_route_matches_jax_flash(d, hk, causal):
     """A head dim the kernels are not compiled for runs zero-padded to the
     next compiled width at its own scale, and sliced back: the helper the
     CUDA route calls, here around the plain versions, against the JAX
-    kernels in interpret mode (which take any head dim)."""
+    kernels in interpret mode (which take any head dim).  The widest
+    compiled width, 256, runs unpadded through the same helper."""
     b, s, h = 2, 64, 4
     g = h // hk
     rng = np.random.default_rng(100 + d + hk)
@@ -315,7 +316,7 @@ def test_head_padded_route_matches_jax_flash(d, hk, causal):
         *jargs, out_j, lse_j, jnp.asarray(do), causal, 32, 32, True
     )
     qf, kf, vf, dof = (fa._fold(torch.from_numpy(x)) for x in (q, k, v, do))
-    assert fa.padded_head_dim(d) > d  # the route pads
+    assert fa.padded_head_dim(d) > d or d == fa.HEAD_DIMS[-1]  # the route pads
     o, lse = fa.head_padded(fa.flash_forward_plain, 3, qf, kf, vf, g, causal)
     assert o.shape == qf.shape and lse.shape == (b * h, s)
     assert _max_err(fa._unfold(o, b), out_j) < 1e-5
@@ -335,8 +336,18 @@ def test_head_dims_past_the_widest_kernel_are_refused():
     assert [fa.padded_head_dim(d) for d in (8, 16, 17, 48, 64, 100, 128)] == [
         16, 16, 32, 64, 64, 128, 128,
     ]
-    with pytest.raises(ValueError, match="head_dim up to 128"):
-        fa.padded_head_dim(129)
-    q = torch.zeros(2, 16, 160)
-    with pytest.raises(ValueError, match="head_dim up to 128"):
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        fa.padded_head_dim(257)
+    q = torch.zeros(2, 16, 320)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa.head_padded(fa.flash_forward_plain, 3, q, q, q, 1, True)
+
+
+def test_head_dims_from_129_to_256_run_at_256():
+    """Every head dim the JAX kernels take up to 256 has a compiled width:
+    129-256 run on the 256 kernels, and nothing wider is compiled."""
+    assert fa.HEAD_DIMS[-1] == 256
+    assert {fa.padded_head_dim(d) for d in range(129, 257)} == {256}
+    assert [fa.padded_head_dim(d) for d in range(1, 257)] == [
+        min(w for w in fa.HEAD_DIMS if w >= d) for d in range(1, 257)
+    ]

@@ -5,9 +5,12 @@ GPU-fleet vocabulary: after every string constant of the JAX module is
 rewritten by :func:`test_torch_vocab.to_port_vocab`, and with every
 docstring dropped from both, the two parse to the same syntax tree.  So
 every branch of the JAX module, tested or not, is in the port, and an
-edit to either package that the other lacks fails here.  One module has
-a named exception, :data:`MOVED_IMPORTS`: the port's ``crdutil`` imports
-PyYAML inside the one function that parses YAML.
+edit to either package that the other lacks fails here.  The named
+exceptions: :data:`MOVED_IMPORTS` (the port's ``crdutil`` imports PyYAML
+inside the one function that parses YAML), :data:`RENAMED_STRINGS` (the
+CLI's logger, ``prog`` and the ratchet file's help text name the port's
+package) and :data:`RATCHET_PATH` (the chaos search reads its ratchet file
+from inside the port's package, not from the repository's root).
 :class:`CheckpointDrainGate` is held the same way, as a class of its
 module (the port's module also holds its own ``DrainSignalWatcher``), and
 the port's test harness, ``tests/test_torch_harness.py``, as
@@ -61,12 +64,38 @@ COPIED_MODULES = (
     "api/federation_spec.py",
     "federation/__init__.py",
     "federation/coordinator.py",
+    "upgrade/chaos.py",
+    "upgrade/chaossearch.py",
+    "upgrade/__init__.py",
+    "federation/selftest.py",
+    "__main__.py",
 )
 #: The one named exception: the port's crdutil imports PyYAML inside
 #: ``parse_crds_from_file``, where the JAX module imports it at module
 #: level, so that the port imports without PyYAML.  Each side's import
 #: is checked where it stands, then dropped from both trees.
 MOVED_IMPORTS = {"crdutil/crdutil.py": ("yaml", "parse_crds_from_file")}
+#: Whole string constants of a JAX module that name the JAX package
+#: where the port's must name its own, with how many times each stands:
+#: the CLI's logger (a verbatim copy would name no parent of the port's
+#: loggers and silence nothing), its ``prog`` and the ratchet file's
+#: place in the ``--record`` help text.
+RENAMED_STRINGS = {
+    "__main__.py": {
+        "k8s_operator_libs_tpu": ("k8s_operator_libs_tpu_torch", 1),
+        "python -m k8s_operator_libs_tpu": ("python -m k8s_operator_libs_tpu_torch", 1),
+        "search mode: append each shrunk reproducer to the regression-cell file (implies "
+        "--shrink; default PATH: hack/chaos_regressions.json, replayed by the default campaign)": (
+            "search mode: append each shrunk reproducer to the regression-cell file (implies "
+            "--shrink; default PATH: k8s_operator_libs_tpu_torch/hack/chaos_regressions.json, "
+            "replayed by the default campaign)", 1),
+    },
+}
+#: The chaos search's ratchet file: the JAX module reads the repository
+#: root's ``hack/chaos_regressions.json`` (``parents[2]``), the port its
+#: own copy in the package (``parents[1]``).  Module, assigned name, and
+#: the ``parents`` index on each side.
+RATCHET_PATH = ("upgrade/chaossearch.py", "DEFAULT_REGRESSIONS_PATH", 2, 1)
 COPIED_CLASSES = (("tpu/drain_handshake.py", "CheckpointDrainGate"),)
 
 
@@ -122,10 +151,40 @@ def _drop_moved_import(tree: ast.Module, module: str, in_jax: bool) -> None:
     assert not any(_is_import(n, name) for n in ast.walk(tree))
 
 
-def _tree(path: Path, rewrite: bool, class_name: str = "", moved: str = "") -> str:
+def _rename_strings(tree: ast.Module, module: str) -> None:
+    """Rewrite :data:`RENAMED_STRINGS`' constants of the JAX *module* to
+    the port's, each exactly as many times as it stands there."""
+    renames = RENAMED_STRINGS[module]
+    seen = dict.fromkeys(renames, 0)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and node.value in renames:
+            seen[node.value] += 1
+            node.value = renames[node.value][0]
+    assert seen == {old: n for old, (_, n) in renames.items()}, (module, seen)
+
+
+def _ratchet_index(tree: ast.Module, in_jax: bool) -> None:
+    """Check :data:`RATCHET_PATH`'s ``parents`` index where it stands on
+    each side, and set the JAX one to the port's."""
+    _, name, jax_index, port_index = RATCHET_PATH
+    [assign] = [n for n in tree.body if isinstance(n, ast.Assign)
+                and [t.id for t in n.targets if isinstance(t, ast.Name)] == [name]]
+    [index] = [n.slice for n in ast.walk(assign)
+               if isinstance(n, ast.Subscript) and isinstance(n.value, ast.Attribute)
+               and n.value.attr == "parents"]
+    assert index.value == (jax_index if in_jax else port_index), (in_jax, index.value)
+    index.value = port_index
+
+
+def _tree(path: Path, rewrite: bool, class_name: str = "", moved: str = "",
+          module: str = "") -> str:
     tree = ast.parse(path.read_text())
     if moved:
         _drop_moved_import(tree, moved, in_jax=rewrite)
+    if rewrite and module in RENAMED_STRINGS:
+        _rename_strings(tree, module)
+    if module == RATCHET_PATH[0]:
+        _ratchet_index(tree, in_jax=rewrite)
     if class_name:
         [tree] = [n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == class_name]
     return ast.dump(_Normalise(rewrite).visit(tree))
@@ -134,7 +193,26 @@ def _tree(path: Path, rewrite: bool, class_name: str = "", moved: str = "") -> s
 @pytest.mark.parametrize("module", COPIED_MODULES)
 def test_the_ported_module_is_the_jax_module(module):
     moved = module if module in MOVED_IMPORTS else ""
-    assert _tree(JAX_PACKAGE / module, True, moved=moved) == _tree(PORT_PACKAGE / module, False, moved=moved)
+    assert _tree(JAX_PACKAGE / module, True, moved=moved, module=module) == _tree(
+        PORT_PACKAGE / module, False, moved=moved, module=module)
+
+
+@pytest.mark.parametrize("module", sorted(RENAMED_STRINGS) + [RATCHET_PATH[0]])
+def test_the_named_exceptions_are_the_differences(module):
+    """Without its exception each such module differs from the JAX one."""
+    assert _tree(JAX_PACKAGE / module, rewrite=True) != _tree(PORT_PACKAGE / module, rewrite=False)
+
+
+def test_the_ratchet_file_is_the_jax_one_in_the_port_vocabulary():
+    """The port's shipped ratchet file, where its chaos search reads it."""
+    import json
+
+    from k8s_operator_libs_tpu_torch.upgrade import chaossearch
+
+    path = chaossearch.DEFAULT_REGRESSIONS_PATH
+    assert path == PORT_PACKAGE / "hack" / "chaos_regressions.json"
+    jax_cells = json.loads((ROOT / "hack" / "chaos_regressions.json").read_text())
+    assert json.loads(path.read_text()) == to_port_vocab(jax_cells)
 
 
 def test_the_moved_import_is_the_one_difference():

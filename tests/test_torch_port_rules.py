@@ -433,3 +433,14 @@ def test_the_worker_refuses_a_card_it_lacks_and_an_unknown_mode():
     unknown = subprocess.run(base + ["serve", "--device", "cpu"], cwd=ROOT, env=env,
                              capture_output=True, text=True, timeout=120)
     assert unknown.returncode != 0 and "invalid choice" in unknown.stderr
+
+
+def test_every_module_of_the_jax_package_has_its_port():
+    """The port is whole: each module of the JAX package has a file at the
+    same relative path in the port."""
+    jax_package = ROOT / "k8s_operator_libs_tpu"
+    missing = sorted(
+        str(p.relative_to(jax_package)) for p in jax_package.rglob("*.py")
+        if not (PORT / p.relative_to(jax_package)).exists()
+    )
+    assert missing == []
