@@ -10,11 +10,14 @@ failure (the exit code is then non-zero and no result line is printed):
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``k8s_operator_libs_tpu_torch/csrc``, with each kernel's registers,
-   shared memory and spills (``ptxas -v``) and its tensor-core
-   instructions (HGMMA/HMMA in the SASS): each bf16 flash kernel must
-   have them, at every head dim, with no spill and no ptxas note that its
-   wgmma were serialized, and the bf16 int8 kernel HMMA, no spill and no
-   ptxas note;
+   shared memory and spills (``ptxas -v``), its tensor-core
+   instructions (HGMMA/HMMA in the SASS) and its Hopper design
+   instructions (``setmaxnreg``, ``griddepcontrol``, TMA in the PTX):
+   each bf16 flash kernel must have tensor-core instructions, at every
+   head dim, with no spill and no ptxas note that its wgmma were
+   serialized or its ``setmaxnreg`` ignored, dK/dV ``setmaxnreg`` and TMA
+   loads, and the bf16 int8 kernel HMMA, ``griddepcontrol.wait`` and
+   ``launch_dependents``, no spill and no ptxas note;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
    long shapes in fp32 and bf16, at head dims the kernels are not
@@ -277,6 +280,14 @@ smoke configuration's decode shapes and the long shape, in turns: each
 tree once in the order given, then once in reverse, one process per turn,
 each calling its own tree's ``time_int8``.  It prints one ``turn`` line
 per turn and the card line.
+
+    python3 chip_smoke.py --flash-turns TREE [TREE ...]
+
+times the flash kernels of each checkout TREE in turns as ``--int8-turns``
+does, each turn calling its own tree's ``time_shape`` at the trainer's
+shape and at head dim 256 (b 8, s 256, h 8, by CUDA-graph replay) and at
+s 8192 (b 4, h 8, d 64, each kernel alone and fwd+bwd, by events).  It
+prints one ``turn`` line per turn and the card line.
 
     python3 chip_smoke.py --ranks N
 
@@ -3687,14 +3698,26 @@ def fleet_phase(config, card: str) -> dict:
             "cli": cli, "brownout": brownout, "campaign": campaign}
 
 
+#: The design each redesigned tensor-core kernel must show in its PTX
+#: (``_build.PTX_MARKERS``): the int8 kernel's programmatic dependent
+#: launch, and dK/dV's TMA loads and register hand-over.
+DESIGN_MARKERS = {
+    "int8_linear_tc_kernel": ("griddepcontrol.wait", "griddepcontrol.launch_dependents"),
+    "flash_bwd_dkv_tc_kernel": ("setmaxnreg", "cp.async.bulk.tensor"),
+}
+
+
 def compiled_report():
     """Per kernel instantiation of every library, ``ptxas -v``'s
-    registers, shared memory, spills and notes and the HGMMA/HMMA count of
-    its SASS.  Raises unless each flash tensor-core kernel is built at
-    every head dim with tensor-core instructions, no spill and no ptxas
-    note that its wgmma were serialized (C7515 for a call, C7512 for want
-    of registers), and unless each int8 device kernel is built, the bf16
-    one with HMMA, no spill and no ptxas note."""
+    registers, shared memory, spills and notes, the HGMMA/HMMA count of
+    its SASS and the count of each of ``_build.PTX_MARKERS`` in its PTX.
+    Raises unless each flash tensor-core kernel is built at every head dim
+    with tensor-core instructions, no spill and no ptxas note that its
+    wgmma were serialized (C7515 for a call, C7512 for want of registers)
+    or its ``setmaxnreg`` ignored, unless each int8 device kernel is
+    built, the bf16 one with HMMA, no spill and no ptxas note, and unless
+    each kernel of ``DESIGN_MARKERS`` holds its markers (at every head
+    dim)."""
     import torch
 
     from k8s_operator_libs_tpu_torch import _build
@@ -3705,7 +3728,9 @@ def compiled_report():
     for lib in _build.SIGNATURES:
         ptxas = _build.ptxas_report(lib)
         sass = _build.sass_counts(lib)
-        report.update({name: {**ptxas.get(name, {}), **sass.get(name, {})} for name in sorted(sass)})
+        ptx = _build.ptx_counts(lib)
+        report.update({name: {**ptxas.get(name, {}), **sass.get(name, {}), **ptx.get(name, {})}
+                       for name in sorted(sass)})
     for name, row in report.items():
         log("compiled", name, json.dumps(row))
     int8 = qz.DEVICE_KERNELS["int8_linear"]
@@ -3714,6 +3739,12 @@ def compiled_report():
     tc = report[int8[torch.bfloat16]]
     if tc["HMMA"] == 0 or tc.get("spill_stores", 1) or tc.get("spill_loads", 1) or tc.get("notes"):
         raise RuntimeError(f"{int8[torch.bfloat16]}: no HMMA, a spill or a ptxas note ({tc})")
+    for kernel, markers in DESIGN_MARKERS.items():
+        rows = {name: row for name, row in report.items() if name.split("<")[0] == kernel}
+        missing = {name: [m for m in markers if not row.get(m)] for name, row in rows.items()}
+        if not rows or any(missing.values()):
+            raise RuntimeError(f"{kernel}: built without its design's PTX ({missing or 'not built'})")
+        log("design", kernel, json.dumps({name: {m: row[m] for m in markers} for name, row in rows.items()}))
     tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
                    if "_tc_" in k}
     for kernel in sorted(tensor_core):
@@ -3722,12 +3753,12 @@ def compiled_report():
             r for r in rows
             if r is None or r["HGMMA"] + r["HMMA"] == 0
             or r.get("spill_stores", 1) or r.get("spill_loads", 1)
-            or any("serialized" in n for n in r.get("notes", ()))
+            or any("serialized" in n or "setmaxnreg" in n for n in r.get("notes", ()))
         ]
         if bad:
             raise RuntimeError(
-                f"{kernel}: a head dim missing, without tensor-core instructions, spilling "
-                f"or with serialized wgmma ({rows})"
+                f"{kernel}: a head dim missing, without tensor-core instructions, spilling, "
+                f"with serialized wgmma or an ignored setmaxnreg ({rows})"
             )
     return report
 
@@ -3743,6 +3774,21 @@ row = {name: {"launches_per_step": per, **c.time_int8(8, k, n, "bfloat16", graph
        for name, k, n, per in c.int8_decode_shapes(cfg)}
 row["per_decode_step_ms"] = sum(r["ms"] * r["launches_per_step"] for r in row.values())
 row["long"] = c.time_int8(8, 8192, 8192, "bfloat16", graphs=True)
+print("TURN", json.dumps(row), flush=True)
+"""
+
+
+#: What one turn of ``--flash-turns`` runs inside a tree: its own
+#: ``time_shape`` at the trainer's shape and at head dim 256 (graph
+#: replay) and at s 8192 (each kernel alone, and fwd+bwd, by events).
+_FLASH_TURN = """
+import json
+import chip_smoke as c
+row = {
+    "main": c.time_shape(8, 256, 8, 64, "bfloat16", iters=100, plain_iters=20, graphs=True),
+    "d256": c.time_shape(8, 256, 8, 256, "bfloat16", iters=50, plain_iters=10, graphs=True),
+    "s8192": c.time_shape(4, 8192, 8, 64, "bfloat16", iters=10, plain_iters=2, graphs=False),
+}
 print("TURN", json.dumps(row), flush=True)
 """
 
@@ -3781,21 +3827,31 @@ def int8_plans() -> None:
         }))
 
 
-def int8_turns(trees) -> None:
-    """Time each tree's int8 kernel in turns (the trees in order, then in
-    reverse), one process per turn; print a ``turn`` line for each."""
-    import os
-
+def turns(trees, script: str, what: str, timeout: int = 600) -> None:
+    """Run *script* in each tree in turns (the trees in order, then in
+    reverse), one process per turn; print a ``turn`` line for each, the
+    ``TURN`` record the script printed."""
     order = list(trees) + list(reversed(trees))
     for i, tree in enumerate(order):
         proc = subprocess.run(
-            [sys.executable, "-c", _TURN], cwd=os.path.abspath(tree),
-            capture_output=True, text=True, timeout=600,
+            [sys.executable, "-c", script], cwd=os.path.abspath(tree),
+            capture_output=True, text=True, timeout=timeout,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"turn {i} in {tree} failed:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"{what} turn {i} in {tree} failed:\n{proc.stderr[-4000:]}")
         row = json.loads(proc.stdout.split("TURN ", 1)[1].splitlines()[0])
-        log("turn", json.dumps({"turn": i, "tree": tree, **row}))
+        log("turn", json.dumps({"turn": i, "what": what, "tree": tree, **row}))
+
+
+def int8_turns(trees) -> None:
+    """Time each tree's int8 kernel in turns (:func:`turns`)."""
+    turns(trees, _TURN, "int8")
+
+
+def flash_turns(trees) -> None:
+    """Time each tree's flash kernels in turns (:func:`turns`) at the
+    shapes of ``_FLASH_TURN``."""
+    turns(trees, _FLASH_TURN, "flash", timeout=900)
 
 
 def operator_turns(turns) -> None:
@@ -3896,6 +3952,8 @@ def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--int8-turns", nargs="+", metavar="TREE",
                       help="time each checkout's int8 kernel in turns instead")
+    args.add_argument("--flash-turns", nargs="+", metavar="TREE",
+                      help="time each checkout's flash kernels in turns instead")
     args.add_argument("--int8-plans", action="store_true",
                       help="time the bf16 int8 kernel under every launch plan instead")
     args.add_argument("--ranks", type=int, metavar="N",
@@ -3906,9 +3964,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    if args.int8_turns or args.int8_plans or args.ranks or args.operator_turns:
+    if args.int8_turns or args.flash_turns or args.int8_plans or args.ranks or args.operator_turns:
         if args.int8_turns:
             int8_turns(args.int8_turns)
+        elif args.flash_turns:
+            flash_turns(args.flash_turns)
         elif args.operator_turns:
             operator_turns(args.operator_turns)
         elif args.ranks:

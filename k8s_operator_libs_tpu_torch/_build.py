@@ -10,8 +10,11 @@ there.  A missing ``nvcc`` or a failed build raises: there is no
 fallback.  :func:`build_all` compiles the sources side by side.
 
 The build keeps what ``ptxas -v`` reports (registers, shared memory,
-spills per kernel; :func:`ptxas_report`), and :func:`sass_counts` counts
-the tensor-core instructions in a built library's SASS.
+spills per kernel; :func:`ptxas_report`), :func:`sass_counts` counts
+the tensor-core instructions in a built library's SASS, and
+:func:`ptx_counts` the Hopper instructions of the kernels' designs
+(``setmaxnreg``, ``griddepcontrol``, TMA) in the PTX the library carries
+beside it.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    # SASS for the card, and the PTX beside it for ptx_counts to read
+    "-gencode", "arch=compute_90a,code=[sm_90a,compute_90a]",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
 )
@@ -277,3 +281,45 @@ def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
         capture_output=True, text=True, check=True,
     )
     return parse_sass(proc.stdout)
+
+
+#: The PTX instructions that show a kernel's Hopper design was built:
+#: register hand-over between warpgroups, programmatic dependent launch
+#: (its wait and its trigger) and TMA tensor loads.
+PTX_MARKERS = (
+    "setmaxnreg",
+    "griddepcontrol.wait",
+    "griddepcontrol.launch_dependents",
+    "cp.async.bulk.tensor",
+)
+
+
+def parse_ptx(text: str) -> Dict[str, Dict[str, int]]:
+    """Per entry function (demangled) of a ``cuobjdump --dump-ptx``
+    listing, how many instructions begin with each of
+    :data:`PTX_MARKERS` (a guard predicate before one is allowed)."""
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    patterns = {m: re.compile(rf"^\s*(?:@!?%\w+\s+)?{re.escape(m)}\b") for m in PTX_MARKERS}
+    for line in text.splitlines():
+        if (m := re.search(r"\.entry\s+([\w$]+)", line)) is not None:
+            current = demangle(m.group(1))
+            counts[current] = dict.fromkeys(PTX_MARKERS, 0)
+        elif re.search(r"\.func\s", line):
+            current = None  # a device function: not an entry's own body
+        elif current is not None:
+            for marker, pattern in patterns.items():
+                if pattern.search(line):
+                    counts[current][marker] += 1
+    return counts
+
+
+def ptx_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptx` of the PTX the built library *name* carries,
+    through the ``cuobjdump`` beside ``nvcc``."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run(
+        [str(cuobjdump), "--dump-ptx", str(build(name))],
+        capture_output=True, text=True, check=True,
+    )
+    return parse_ptx(proc.stdout)

@@ -30,21 +30,48 @@
 //
 // The bf16 kernels (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
 // flash_bwd_dkv_tc_kernel). Scalar FMAs reach ~13 TFLOP/s, 1/75 of the
-// operations bound, so the products move to wgmma: one warpgroup owns a
-// 64-row tile (one wgmma M), a q-tile in the forward and dQ, a k-tile in
-// dK/dV. That tile is copied once into shared memory; the other side's
-// 64-row tiles (K/V, or Q/dO with their lse and dvec) stream through a
-// 2-stage ring of cp.async copies, the next tile's copy in flight while
-// the current one computes. Every tile is written in wgmma's swizzled
-// K-major layout (TcTile), which the descriptors read K-major for Q K^T
-// and dO V^T (K Q^T and V dO^T in dK/dV) and MN-major (the transpose bit)
-// for P V and dS K (P^T dO and dS^T Q). Scores stay in fp32 registers; the
-// online softmax runs there in the exp2 domain with quad shuffles, and P
-// or dS (P^T, dS^T) goes to bf16 in registers as the A operand of the next
-// wgmma, so no score leaves the SM. Causal: the loop stops at (dK/dV:
-// starts from) the diagonal tile, only the diagonal and ragged last tiles
-// are masked, and the heaviest tiles launch first. Each kernel accumulates
-// in registers and writes its output once: no atomics, deterministic.
+// operations bound, so the products move to wgmma. Every tile is written
+// in wgmma's swizzled K-major layout (TcTile), which the descriptors read
+// K-major for Q K^T and dO V^T (K Q^T and V dO^T in dK/dV) and MN-major
+// (the transpose bit) for P V and dS K (P^T dO and dS^T Q). Scores stay in
+// fp32 registers; the online softmax runs there in the exp2 domain with
+// quad shuffles, and P or dS (P^T, dS^T) goes to bf16 in registers as the
+// A operand of the next wgmma, so no score leaves the SM. Causal: the loop
+// stops at (dK/dV: starts from) the diagonal tile, only the diagonal and
+// ragged last tiles are masked, and the heaviest tiles launch first. Each
+// kernel accumulates in registers and writes its output once: no atomics,
+// deterministic.
+//
+// The forward and dQ: one warpgroup owns a 64-row q-tile (one wgmma M),
+// copied once into shared memory; the K/V tiles stream through a 2-stage
+// ring of cp.async copies, the next tile's copy in flight while the
+// current one computes.
+//
+// dK/dV is warp-specialised. What held its first design back: one
+// warpgroup owned 64 keys and did everything in series for each q-tile --
+// wait for its own cp.async copies, S^T and dP^T on wgmma, the exponentials,
+// dV and dK on wgmma, a __syncthreads -- so the tensor cores idled while
+// the exponentials ran and the copies cost the same 128 threads
+// instructions and registers; and each 64-key tile restaged every Q and
+// dO tile it swept, so over a sequence Q and dO were read s/64 times. Now
+// a block is a producer warpgroup and two consumer warpgroups (384
+// threads; setmaxnreg moves the producer's registers to the consumers):
+// one producer thread keeps TMA loads of Q and dO in flight in a ring of
+// stages under full/empty mbarriers, and the two consumers, 64 keys each,
+// share every staged tile, so Q and dO are read s/128 times and one
+// consumer's exponentials can run while the other's wgmma do. A consumer
+// issues the next q-tile's S^T and dP^T before it waits on this tile's
+// dK/dV; at head dim 128, where dK and dV of 128 columns take 128
+// registers, a whole tile's scores would not fit beside them without a
+// spill, so there it goes by halves of 32 query rows. At head dim 256 the
+// ring has one stage (K and V of 128 keys take 128 KB and a stage 64 KB,
+// so two stages would pass 227 KB): there the next q-tile's scores wait
+// until this tile's stage is released and refilled, and a consumer runs
+// serially, by halves. What this design does not do yet (PERF.md):
+// with one block of 384 threads an SM runs two consumer warpgroups, where
+// the first design ran three blocks of one, and a q-tile's chain of
+// scores, exponentials and dK/dV stays as long, so at the shapes timed it
+// is slower than the first design.
 //
 // The fp32 kernels. This is the simple, correct first version. The TPU
 // grid's sequential axis becomes a loop inside one block, and the causal
@@ -64,6 +91,7 @@
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -761,138 +789,322 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   }
 }
 
-// dK/dV on the tensor cores: one warpgroup per (bh, 64-key tile), looping
-// q-tiles from the diagonal (causal) or from 0. Per q-tile S^T = K Q^T and
-// dP^T = V dO^T (wgmma), P^T = exp2(S^T scale log2e - lse log2e) and
-// dS^T = P^T (dP^T - dvec) scale in fp32, then dV += P^T dO and dK +=
-// dS^T Q (wgmma, P^T and dS^T from registers, dO and Q read MN-major).
-// The partials are per query head: the caller sums the GQA group's.
-// Thread (warp w, lane l) owns key rows key0 = k0 + 16w + l/4 and key0 +
-// 8; its accumulator columns are query rows, so it reads 16 lse and 16
-// dvec values per q-tile. Those rows are staged in shared memory beside
-// the Q and dO tiles by 4-byte copies: a row of lse starts 16-byte
-// aligned only when s % 4 == 0.
+// dK/dV on the tensor cores, warp-specialised: one block per (bh, tile of
+// kConsumers x 64 keys, column split). Warpgroup 0 produces: after
+// setmaxnreg lowers its registers, one thread issues TMA loads (K and V of
+// the block's keys once, then each q-tile's Q and dO into a ring of
+// kStages stages, each guarded by a full and an empty mbarrier), and its
+// warp brings the q-tile's lse and dvec rows (a bulk copy when every row
+// starts 16-byte aligned, else 4-byte cp.async by the warp's 32 lanes,
+// each arriving on the same full barrier). Warpgroups 1.. consume: after
+// setmaxnreg raises their registers, consumer c owns keys [kc, kc + 64),
+// kc = k0 + 64c, and for each q-tile computes S^T = K Q^T and dP^T = V dO^T
+// (wgmma), P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T -
+// dvec) scale in fp32, then dV += P^T dO and dK += dS^T Q (wgmma, P^T and
+// dS^T from registers, dO and Q read MN-major), and releases the stage on
+// its empty barrier once those have read it. Both consumers read each
+// staged tile. A consumer takes a q-tile in units of kUnitRows query rows
+// (the whole tile, or at 128 accumulator columns each half), and issues
+// the next unit's S^T and dP^T before it waits on this unit's dK/dV,
+// except with a ring of one stage (head dim 256), where it runs serially.
+// Causal: q-tiles wholly above a
+// consumer's keys (consumer 1's first) are skipped, the stage still
+// released; a consumer whose keys all lie past s computes and writes
+// nothing. The partials are per query head: the caller sums the GQA
+// group's. Thread (warp w, lane l) of a consumer owns key rows key0 = kc +
+// 16w + l/4 and key0 + 8; its accumulator columns are query rows, so it
+// reads 16 lse and 16 dvec values per q-tile from the stage.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ dvec,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int g, int causal,
-    float scale) {
+struct DkvTc {
+  static constexpr int kConsumers = 2;  // warpgroups of 64 keys sharing each stage
+  static constexpr int kKeys = kConsumers * kTcKeys;
+  // Q/dO stages. At head dim 256, K and V of 128 keys take 128 KB and a
+  // stage 64 KB: two stages would pass the 227 KB a block may have.
+  static constexpr int kStages = D <= 128 ? 2 : 1;
+  // A consumer takes a q-tile in kHalves units of kUnitRows query rows:
+  // beside accumulators of 128 columns (dK and dV take 128 registers) the
+  // next unit's scores fit without a spill only for half a q-tile.
+  static constexpr int kHalves = TcCols<D>::kCols > 64 ? 2 : 1;
+  static constexpr int kUnitRows = kTcRows / kHalves;
+  static constexpr int kThreads = (1 + kConsumers) * kTcThreads;
+  // setmaxnreg: of the launch's 168 registers a thread (65,536 / 384) the
+  // producer keeps 40 (at 24 ptxas spilled) and the consumers take 232
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
   using KT = TcTile<kTcKeys, D>;
   using QT = TcTile<kTcRows, D>;
-  static_assert(kTcThreads == 2 * kTcRows, "a thread copies one lse or dvec value");
+  static constexpr int kRowFloats = 2 * kTcRows;  // a stage's lse[64], then dvec[64]
+  // shared memory, from a 1024-byte boundary
+  static constexpr int kK = 0;                                  // K: a tile a consumer
+  static constexpr int kV = kK + kConsumers * KT::kBytes;       // V: a tile a consumer
+  static constexpr int kQ = kV + kConsumers * KT::kBytes;       // Q stages
+  static constexpr int kDo = kQ + kStages * QT::kBytes;         // dO stages
+  static constexpr int kRows = kDo + kStages * QT::kBytes;      // lse/dvec stages
+  static constexpr int kBars = kRows + kStages * kRowFloats * 4;  // full, empty, K/V
+  static constexpr int kSmem = kBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kSmem <= 232448, "a block's shared memory");
+  static_assert(kProducerRegs * kTcThreads + kConsumerRegs * kConsumers * kTcThreads <=
+                    65536 / kThreads / 8 * 8 * kThreads,
+                "the block's registers at launch");
+};
+
+// What a consumer's units share: its key tile and rows, the ring's shared
+// memory and the scores' scale.
+struct DkvUnits {
+  uint32_t kt, vt;       // the consumer's K and V tiles
+  uint32_t sq, sdo;      // the Q and dO stages
+  uint32_t full;         // the stages' full barriers
+  const float* rows;     // the stages' lse and dvec rows
+  int i_begin, kc, key0, col0, s, causal;
+  float cexp, scale;
+};
+
+// A consumer's S^T = K Q^T and dP^T = V dO^T of unit v (query rows
+// [kUnitRows h, + kUnitRows) of q-tile v / kHalves, h = v % kHalves; both
+// K-major), issued once the tile's stage has landed, and committed; not
+// waited for.
+template <int D>
+__device__ __forceinline__ void dkv_scores(float (&st)[DkvTc<D>::kUnitRows / 2],
+                                           float (&dpt)[DkvTc<D>::kUnitRows / 2],
+                                           const DkvUnits& c, int v) {
+  using P = DkvTc<D>;
+  constexpr int N = P::kUnitRows;
+  const int t = v / P::kHalves, stage = t % P::kStages;
+  if (v % P::kHalves == 0) hopper::mbar_wait(c.full + 8 * stage, (t / P::kStages) & 1);
+  const uint32_t rows = stage * P::QT::kBytes + (v % P::kHalves) * N * P::QT::kRowBytes;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<N>::ss(st, P::KT::kmajor(c.kt, kk), P::QT::kmajor(c.sq + rows, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<N>::ss(dpt, P::KT::kmajor(c.vt, kk), P::QT::kmajor(c.sdo + rows, kk), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// Unit u of a consumer from its S^T and dP^T: P^T = exp2(S^T scale log2e -
+// lse log2e) and dS^T = P^T (dP^T - dvec) scale in fp32, rounded to bf16
+// in pa and da, then dV += P^T dO and dK += dS^T Q issued (wgmma, P^T and
+// dS^T from registers, dO and Q read MN-major) and committed; not waited
+// for.
+template <int D>
+__device__ __forceinline__ void dkv_grads(const float (&st)[DkvTc<D>::kUnitRows / 2],
+                                          const float (&dpt)[DkvTc<D>::kUnitRows / 2],
+                                          uint32_t (&pa)[DkvTc<D>::kUnitRows / 16][4],
+                                          uint32_t (&da)[DkvTc<D>::kUnitRows / 16][4],
+                                          float (&dka)[TcCols<D>::kCols / 2],
+                                          float (&dva)[TcCols<D>::kCols / 2], const DkvUnits& c,
+                                          int u) {
+  using P = DkvTc<D>;
+  using QT = typename P::QT;
+  constexpr int H = P::kHalves, NR = P::kUnitRows, DC = TcCols<D>::kCols;
+  const int stage = u / H % P::kStages, h = u % H;
+  const uint32_t qt = c.sq + stage * QT::kBytes, dt = c.sdo + stage * QT::kBytes;
+  const uint32_t qcols = QT::columns(TcCols<D>::first());
+  const float* lr = c.rows + stage * P::kRowFloats + h * NR;  // lse; dvec at lr + kTcRows
+  const int i0 = c.i_begin + u / H * kTcRows;  // the q-tile's first row
+  const int r0 = i0 + h * NR;                  // the unit's
+  // only the diagonal q-tile holds a query row above one of the keys, and
+  // only the last one rows past s
+  const bool masked = (c.causal && i0 < c.kc + kTcKeys - 1) || i0 + kTcRows > c.s;
+#pragma unroll
+  for (int j = 0; j < NR / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * j + c.col0);
+    const float2 d2 = *reinterpret_cast<const float2*>(lr + kTcRows + 8 * j + c.col0);
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * j + c.col0 + (e & 1);
+      // a masked row's lse and dvec may be stale (a bulk copy stops at s):
+      // selected away, never multiplied in
+      const bool keep =
+          !masked || (row < c.s && !(c.causal && c.key0 + 8 * (e >> 1) > row));
+      p[e] = keep ? exp2f(st[4 * j + e] * c.cexp - ((e & 1) ? l2.y : l2.x) * kLog2e) : 0.f;
+      ds[e] = keep ? p[e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * c.scale : 0.f;
+    }
+    pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
+    pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
+    da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
+    da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NR / 16; ++kk)
+    hopper::Wgmma<DC>::rs(dva, pa[kk], QT::mnmajor(dt + qcols, h * (NR / 16) + kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < NR / 16; ++kk)
+    hopper::Wgmma<DC>::rs(dka, da[kk], QT::mnmajor(qt + qcols, h * (NR / 16) + kk), 1);
+  hopper::wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvTc<D>::kThreads, 1) flash_bwd_dkv_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int g, int causal,
+    float scale, int rows_bulk) {
+  using P = DkvTc<D>;
+  using KT = typename P::KT;
+  using QT = typename P::QT;
+  constexpr int S = P::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
-  const uint32_t sk = align_1024(raw);
-  const uint32_t sv = sk + KT::kBytes;
-  const uint32_t sq = sv + KT::kBytes;          // Q stages 0 and 1
-  const uint32_t sdo = sq + 2 * QT::kBytes;     // dO stages 0 and 1
-  const uint32_t srows = sdo + 2 * QT::kBytes;  // per stage: lse[64], then dvec[64]
+  const uint32_t base = align_1024(raw);
+  const uint32_t sk = base + P::kK, sv = base + P::kV, sq = base + P::kQ, sdo = base + P::kDo;
+  const uint32_t srows = base + P::kRows;
+  const uint32_t full = base + P::kBars, empty = full + 8 * S, kv_full = empty + 8 * S;
   const float* rows = reinterpret_cast<const float*>(smem_raw + (srows - raw));
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTcKeys;  // causal: k-tile 0 sees every q-tile, and goes first
-  const size_t qoff = static_cast<size_t>(bh) * s * D;
-  const size_t kvoff = static_cast<size_t>(bh / g) * s * D;
-  const float* lb = lse + static_cast<size_t>(bh) * s;
-  const float* db = dvec + static_cast<size_t>(bh) * s;
-  const int lane = threadIdx.x % 32;
-  const int key0 = k0 + (threadIdx.x / 32) * 16 + lane / 4;
-  const int col0 = 2 * (lane % 4);      // accumulator columns 8j + col0 + {0, 1}
-  const int i_begin = causal ? k0 : 0;  // query rows below k0 never see these keys
+  const int k0 = blockIdx.y * P::kKeys;  // causal: key tile 0 sees every q-tile, and goes first
+  const int i_begin = causal ? k0 : 0;   // query rows below k0 never see these keys
   const int n_tiles = (s - i_begin + kTcRows - 1) / kTcRows;
+  // consumers with a key below s
+  const int active = min(P::kConsumers, (s - k0 + kTcKeys - 1) / kTcKeys);
+  // the warpgroup, uniform across the warp (a shuffle's result is), so
+  // that descriptor bases derived from it stay in uniform registers
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kTcThreads, 0);
 
-  // q-tile u into stage u & 1: its Q and dO rows, and its lse and dvec
-  // (one value per thread; rows past s are zero)
-  const auto load_q_tile = [&](int u) {
-    const int i0 = i_begin + u * kTcRows;
-    const uint32_t at = (u & 1) * QT::kBytes;
-    QT::load(sq + at, q + qoff, i0, s);
-    QT::load(sdo + at, dout + qoff, i0, s);
-    const int i = i0 + threadIdx.x % kTcRows;
-    const float* src = threadIdx.x < kTcRows ? lb : db;
-    hopper::cp_async_4(srows + ((u & 1) * kTcThreads + threadIdx.x) * 4, src + (i < s ? i : 0),
-                       i < s ? 4 : 0);
-  };
-  KT::load(sk, k + kvoff, k0, s);
-  KT::load(sv, v + kvoff, k0, s);
-  load_q_tile(0);
-  hopper::cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      // the producer's arrival (with the stage's bytes), and with 4-byte
+      // row copies one arrival of each of its warp's lanes
+      hopper::mbar_init(full + 8 * i, rows_bulk ? 1 : 1 + 32);
+      hopper::mbar_init(empty + 8 * i, kTcThreads * active);  // every consumer thread
+    }
+    hopper::mbar_init(kv_full, 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
 
+  if (role == 0) {
+    // ---------------------------------------------------------- producer
+    hopper::setmaxnreg_dec<P::kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    constexpr int kBoxCols = KT::kRowBytes / 2;  // a column block of TcTile
+    if (lane == 0) {
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+      hopper::prefetch_tensormap(&q_map);
+      hopper::prefetch_tensormap(&do_map);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * active * KT::kBytes);
+      for (int c = 0; c < active; ++c) {
+#pragma unroll
+        for (int j = 0; j < D / kBoxCols; ++j) {
+          const uint32_t at = c * KT::kBytes + j * KT::kBlockBytes;
+          hopper::tma_load_3d(sk + at, &k_map, kv_full, j * kBoxCols, k0 + c * kTcKeys, bh / g);
+          hopper::tma_load_3d(sv + at, &v_map, kv_full, j * kBoxCols, k0 + c * kTcKeys, bh / g);
+        }
+      }
+    }
+    const float* lrow = lse + static_cast<size_t>(bh) * s;
+    const float* drow = dvec + static_cast<size_t>(bh) * s;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % S;
+      const uint32_t fb = full + 8 * stage;
+      const uint32_t rows_at = srows + stage * P::kRowFloats * 4;
+      const int i0 = i_begin + t * kTcRows;
+      hopper::mbar_wait(empty + 8 * stage, ((t / S) & 1) ^ 1);  // the first round passes
+      if (!rows_bulk) {  // a row starts only 4-byte aligned: rows past s read as zeros
+#pragma unroll
+        for (int r = 0; r < P::kRowFloats / 32; ++r) {
+          const int v = lane + 32 * r;
+          const int i = i0 + v % kTcRows;
+          const float* src = (v < kTcRows ? lrow : drow) + (i < s ? i : 0);
+          hopper::cp_async_4(rows_at + 4 * v, src, i < s ? 4 : 0);
+        }
+        hopper::cp_async_arrive_noinc(fb);
+      }
+      if (lane == 0) {
+        // rows past s of a bulk copy are left as they were: the consumers
+        // mask those rows without reading their values into the result
+        const uint32_t row_bytes = rows_bulk ? 4 * min(kTcRows, s - i0) : 0;
+        hopper::mbar_arrive_expect_tx(fb, 2 * QT::kBytes + 2 * row_bytes);
+#pragma unroll
+        for (int j = 0; j < D / kBoxCols; ++j) {
+          const uint32_t at = stage * QT::kBytes + j * QT::kBlockBytes;
+          hopper::tma_load_3d(sq + at, &q_map, fb, j * kBoxCols, i0, bh);
+          hopper::tma_load_3d(sdo + at, &do_map, fb, j * kBoxCols, i0, bh);
+        }
+        if (rows_bulk) {
+          hopper::bulk_load(rows_at, lrow + i0, row_bytes, fb);
+          hopper::bulk_load(rows_at + kTcRows * 4, drow + i0, row_bytes, fb);
+        }
+      }
+    }
+    // Leave once every copy has landed and every stage has been released,
+    // so that no copy of this warp's outlives it.
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<0>();
+    if (lane == 0) {
+      for (int t = n_tiles; t < n_tiles + S; ++t)
+        hopper::mbar_wait(empty + 8 * (t % S), ((t / S) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  hopper::setmaxnreg_inc<P::kConsumerRegs>();
+  const int c = role - 1;
+  if (c >= active) return;  // every key past s
+  const int kc = k0 + c * kTcKeys;
+  const int lane = threadIdx.x % 32;
+  const int key0 = kc + (threadIdx.x % kTcThreads / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);  // accumulator columns 8j + col0 + {0, 1}
+  const DkvUnits units{sk + c * KT::kBytes, sv + c * KT::kBytes, sq, sdo, full, rows,
+                       i_begin, kc, key0, col0, s, causal, scale * kLog2e, scale};
   constexpr int DC = TcCols<D>::kCols;  // dK, dV columns [c0, c0 + DC) are this block's
   const int c0 = TcCols<D>::first();
-  const uint32_t qcols = QT::columns(c0);
-  const float c = scale * kLog2e;  // scores in the exp2 domain
   float dka[DC / 2], dva[DC / 2];
 #pragma unroll
   for (int i = 0; i < DC / 2; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
+  hopper::mbar_wait(kv_full, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    ring_next(load_q_tile, t, n_tiles);
-    const uint32_t qt = sq + (t & 1) * QT::kBytes, dt = sdo + (t & 1) * QT::kBytes;
-    const float* lr = rows + (t & 1) * kTcThreads;  // lse; dvec at lr + kTcRows
-
-    float st[kTcRows / 2], dpt[kTcRows / 2];  // S^T = K Q^T, dP^T = V dO^T
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::Wgmma<kTcRows>::ss(st, KT::kmajor(sk, kk), QT::kmajor(qt, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::Wgmma<kTcRows>::ss(dpt, KT::kmajor(sv, kk), QT::kmajor(dt, kk), kk > 0);
-    hopper::wgmma_commit();
+  int t = 0;
+  // causal: the q-tiles wholly above these keys hold nothing for them
+  for (; t < n_tiles && causal && i_begin + t * kTcRows + kTcRows - 1 < kc; ++t) {
+    hopper::mbar_wait(full + 8 * (t % S), (t / S) & 1);
+    hopper::mbar_arrive(empty + 8 * (t % S));
+  }
+  constexpr int H = P::kHalves, NR = P::kUnitRows;
+  const int u0 = t * H, n_units = n_tiles * H;  // this consumer's units
+  float st[NR / 2], dpt[NR / 2];            // S^T = K Q^T, dP^T = V dO^T of a unit
+  uint32_t pa[NR / 16][4], da[NR / 16][4];  // P^T, dS^T in bf16: A operands
+  if (u0 < n_units) dkv_scores<D>(st, dpt, units, u0);
+  for (int u = u0; u < n_units; ++u) {
     hopper::wgmma_wait<0>();
     hopper::fence_regs(st);
     hopper::fence_regs(dpt);
-
-    const int i0 = i_begin + t * kTcRows;
-    // only the diagonal q-tile holds a query row above one of the keys,
-    // and only the last one rows past s
-    const bool masked = (causal && i0 < k0 + kTcKeys - 1) || i0 + kTcRows > s;
-    uint32_t pa[kTcRows / 16][4], da[kTcRows / 16][4];  // P^T, dS^T in bf16: A operands
-#pragma unroll
-    for (int j = 0; j < kTcRows / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * j + col0);
-      const float2 d2 = *reinterpret_cast<const float2*>(lr + kTcRows + 8 * j + col0);
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = i0 + 8 * j + col0 + (e & 1);
-        p[e] = exp2f(st[4 * j + e] * c - ((e & 1) ? l2.y : l2.x) * kLog2e);
-        if (masked && (row >= s || (causal && key0 + 8 * (e >> 1) > row))) p[e] = 0.f;
-        ds[e] = p[e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * scale;
-      }
-      pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
-      pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
-      da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
-      da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+    dkv_grads<D>(st, dpt, pa, da, dka, dva, units, u);
+    // Issue the next unit's S^T and dP^T before waiting on this unit's dK
+    // and dV. With a ring of one stage the next q-tile's stage is this
+    // one's, refilled only once released, and a consumer runs serially.
+    const bool ahead = S > 1 && u + 1 < n_units;
+    if (ahead) {
+      dkv_scores<D>(st, dpt, units, u + 1);
+      hopper::wgmma_wait<1>();  // this unit's dK/dV; the next scores run on
+    } else {
+      hopper::wgmma_wait<0>();
     }
-
-    hopper::wgmma_fence();  // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < kTcRows / 16; ++kk)
-      hopper::Wgmma<DC>::rs(dva, pa[kk], QT::mnmajor(dt + qcols, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kTcRows / 16; ++kk)
-      hopper::Wgmma<DC>::rs(dka, da[kk], QT::mnmajor(qt + qcols, kk), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(dva);
-    hopper::fence_regs(dka);
     hopper::fence_regs(pa);
     hopper::fence_regs(da);
-    __syncthreads();  // the stage is refilled next iteration
+    // the q-tile's last unit: this thread's reads of its stage are done
+    if (u % H == H - 1) hopper::mbar_arrive(empty + 8 * (u / H % S));
+    if (!ahead && u + 1 < n_units) dkv_scores<D>(st, dpt, units, u + 1);
   }
+  hopper::wgmma_wait<0>();  // nothing is in flight; ptxas cannot tell on its own
+  hopper::fence_regs(dka);
+  hopper::fence_regs(dva);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key < s) {
-      const size_t at = qoff + static_cast<size_t>(key) * D + c0 + col0;
+      const size_t at = (static_cast<size_t>(bh) * s + key) * D + c0 + col0;
 #pragma unroll
       for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
@@ -921,10 +1133,10 @@ void allow_smem(int bytes) {
   }
 }
 
-// A tc kernel's grid: bh fastest, then 64-row tiles (q-tiles in the
-// forward and dQ, k-tiles in dK/dV), so that every row's heaviest tile is
-// dispatched before any lighter one; then the output's column splits.
-static_assert(kTcRows == kTcKeys, "q-tiles and k-tiles share the grid");
+// The forward's and dQ's grid: bh fastest, then 64-row q-tiles, so that
+// every row's heaviest tile is dispatched before any lighter one; then the
+// output's column splits.
+static_assert(kTcRows == kTcKeys, "q-tiles and k-tiles share TMA's box");
 template <int D>
 dim3 tc_grid(int bh, int s) {
   return dim3(bh, (s + kTcRows - 1) / kTcRows, TcCols<D>::kSplits);
@@ -954,19 +1166,82 @@ void launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
       static_cast<__nv_bfloat16*>(dq), s, g, causal, scale);
 }
 
+// cuTensorMapEncodeTiled, a driver function, through the runtime's
+// entry-point query, so the library links the runtime alone; null when the
+// driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* found = nullptr;
+    cudaDriverEntryPointQueryResult result{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &found, 12000, cudaEnableDefault, &result);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &found, cudaEnableDefault, &result);
+#endif
+    return err == cudaSuccess && result == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(found)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major [heads, s, D] bf16 tensor: boxes of 64 rows
+// by one column block of TcTile (min(D, 64) columns), swizzled as TcTile
+// lays a block out (32B, 64B or 128B), so that box j of a tile lands as
+// its column block j and the wgmma descriptors read it unchanged. Rows
+// past s (within a head) read as zeros.
 template <int D>
-void launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* dvec, void* dk, void* dv, int bh, int s, int g,
-                   int causal, float scale, cudaStream_t st) {
-  // K, V; two stages of Q, dO and the lse/dvec rows
-  constexpr int smem = 2 * TcTile<kTcKeys, D>::kBytes + 4 * TcTile<kTcRows, D>::kBytes +
-                       2 * kTcThreads * static_cast<int>(sizeof(float)) + 1024;
-  allow_smem<flash_bwd_dkv_tc_kernel<D>>(smem);
-  flash_bwd_dkv_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s, g, causal, scale);
+bool encode_rows(CUtensorMap* map, const void* ptr, int heads, int s) {
+  using T = TcTile<kTcRows, D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(s) * D * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kRowBytes / 2), kTcRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = T::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor maps are built here, on the host, for every call, and passed
+// by value (__grid_constant__). Returns the first error: a map the driver
+// refused, or cudaGetLastError after the launch.
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* dvec, void* dk, void* dv, int bh, int s,
+                          int g, int causal, float scale, cudaStream_t st) {
+  using P = DkvTc<D>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  if (!encode_rows<D>(&q_map, q, bh, s) || !encode_rows<D>(&do_map, dout, bh, s) ||
+      !encode_rows<D>(&k_map, k, bh / g, s) || !encode_rows<D>(&v_map, v, bh / g, s))
+    return cudaErrorInvalidValue;
+  // lse and dvec rows by bulk copy where every row starts 16-byte aligned
+  const int rows_bulk = s % 4 == 0 && reinterpret_cast<uintptr_t>(lse) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(dvec) % 16 == 0;
+  allow_smem<flash_bwd_dkv_tc_kernel<D>>(P::kSmem);
+  // bh fastest, then the key tiles (the heaviest, k0 0, first), then the
+  // column splits
+  const dim3 grid(bh, (s + P::kKeys - 1) / P::kKeys, TcCols<D>::kSplits);
+  flash_bwd_dkv_tc_kernel<D><<<grid, P::kThreads, P::kSmem, st>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), s, g, causal, scale, rows_bulk);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ launchers
@@ -1008,64 +1283,69 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // Each entry point routes by dtype: bf16 to its tensor-core kernel, fp32
-// to its scalar one.
+// to its scalar one. A route returns what failed before its launch, if
+// anything (the entry point then returns it), else cudaSuccess.
 template <typename T, int D>
-void route_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
-               int g, int causal, float scale, cudaStream_t st) {
+cudaError_t route_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                      int s, int g, int causal, float scale, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     launch_fwd_tc<D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
   } else {
     launch_fwd<T, D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
   }
+  return cudaSuccess;
 }
 
 template <typename T, int D>
-void route_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* dvec, void* dq, int bh, int s, int g, int causal, float scale,
-              cudaStream_t st) {
+cudaError_t route_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* dvec, void* dq, int bh, int s, int g,
+                     int causal, float scale, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     launch_dq_tc<D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
   } else {
     launch_dq<T, D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
   }
+  return cudaSuccess;
 }
 
 template <typename T, int D>
-void route_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* dvec, void* dk, void* dv, int bh, int s, int g, int causal,
-               float scale, cudaStream_t st) {
+cudaError_t route_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* dvec, void* dk, void* dv, int bh, int s, int g,
+                      int causal, float scale, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    launch_dkv_tc<D>(q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
+    return launch_dkv_tc<D>(q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
   } else {
     launch_dkv<T, D>(q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
+    return cudaSuccess;
   }
 }
 
-// Launches LAUNCH<T, D>(...) for the (dtype, head dim) pair, or returns
-// cudaErrorInvalidValue from the entry point for a head dim it does not take.
+// status = LAUNCH<T, D>(...) for the (dtype, head dim) pair, into the entry
+// point's local `status`, or returns cudaErrorInvalidValue from the entry
+// point for a head dim it does not take.
 #define FLASH_DISPATCH(LAUNCH, ...)                                   \
   do {                                                                \
     const bool bf = is_bf16 != 0;                                     \
     switch (d) {                                                      \
       case 16:                                                        \
-        bf ? LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__)                   \
-           : LAUNCH<float, 16>(__VA_ARGS__);                          \
+        status = bf ? LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__)          \
+                    : LAUNCH<float, 16>(__VA_ARGS__);                 \
         break;                                                        \
       case 32:                                                        \
-        bf ? LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__)                   \
-           : LAUNCH<float, 32>(__VA_ARGS__);                          \
+        status = bf ? LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__)          \
+                    : LAUNCH<float, 32>(__VA_ARGS__);                 \
         break;                                                        \
       case 64:                                                        \
-        bf ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                   \
-           : LAUNCH<float, 64>(__VA_ARGS__);                          \
+        status = bf ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)          \
+                    : LAUNCH<float, 64>(__VA_ARGS__);                 \
         break;                                                        \
       case 128:                                                       \
-        bf ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                  \
-           : LAUNCH<float, 128>(__VA_ARGS__);                         \
+        status = bf ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)         \
+                    : LAUNCH<float, 128>(__VA_ARGS__);                \
         break;                                                        \
       case 256:                                                       \
-        bf ? LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__)                  \
-           : LAUNCH<float, 256>(__VA_ARGS__);                         \
+        status = bf ? LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__)         \
+                    : LAUNCH<float, 256>(__VA_ARGS__);                \
         break;                                                        \
       default:                                                        \
         return static_cast<int>(cudaErrorInvalidValue);               \
@@ -1084,8 +1364,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, i
               int s, int d, int g, int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t status = cudaSuccess;
   FLASH_DISPATCH(route_fwd, q, k, v, o, lse, bh, s, g, causal, scale, st);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(status != cudaSuccess ? status : cudaGetLastError());
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1093,8 +1374,9 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t status = cudaSuccess;
   FLASH_DISPATCH(route_dq, q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(status != cudaSuccess ? status : cudaGetLastError());
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1102,8 +1384,9 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   int d, int g, int causal, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, s, g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t status = cudaSuccess;
   FLASH_DISPATCH(route_dkv, q, k, v, dout, lse, dvec, dk, dv, bh, s, g, causal, scale, st);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(status != cudaSuccess ? status : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 // 4-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
 // descriptors, wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands in
 // shared memory (ss) or A in registers (rs) for the flash kernels, and the
-// warp-level mma.sync m16n8k16 for the int8 decode matmul. Inline PTX only,
-// so a library builds in seconds; nothing here includes PyTorch or CUTLASS.
+// warp-level mma.sync m16n8k16 for the int8 decode matmul; then mbarriers,
+// TMA and bulk copies, setmaxnreg for warp specialisation, programmatic
+// dependent launch (griddepcontrol) and L2 prefetches. Inline PTX only, so
+// a library builds in seconds; nothing here includes PyTorch or CUTLASS.
 //
 // wgmma fragments, for thread t of the warpgroup (warp w = t / 32, lane
 // l = t % 32), in the layout of the PTX ISA ("wgmma ... register
@@ -128,8 +130,8 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
 
 // wgmma.mma_async m64nNk16, fp32 accumulators d[N / 2] per thread; scale_d
 // = 0 overwrites d with A B, 1 adds A B to it. ss (N 64: S = Q K^T, dP =
-// dO V^T, and their transposes K Q^T, V dO^T) reads A and B by
-// descriptor, both K-major; rs (N = head dim: O += P V, dQ += dS K, dV +=
+// dO V^T, and their transposes K Q^T, V dO^T; N 32: half of K Q^T or
+// V dO^T) reads A and B by descriptor, both K-major; rs (N = head dim: O += P V, dQ += dS K, dV +=
 // P^T dO, dK += dS^T Q) takes A from registers in the fragment layout above
 // and reads B MN-major (the transpose bit). The operand lists are
 // generated: N / 2 accumulator registers each.
@@ -152,6 +154,17 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
                                             int scale_d) {
     asm volatile(
@@ -215,5 +228,122 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
+
+// ---------------------------------------- mbarriers, TMA, bulk copies
+
+// An mbarrier in shared memory (8 bytes) expecting `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Makes the barriers just initialised visible to the other threads and to
+// the async proxy (TMA); a __syncthreads follows it.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, releasing what this thread read or wrote before it.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival, and `bytes` more that asynchronous copies must complete
+// before the phase does.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase before the first, parity 1, as complete).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// An arrival, counted in the barrier's init count (.noinc), made when every
+// cp.async this thread issued before it has landed.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// TMA: the box of a 3-d tensor map at (c0, c1, c2), innermost first, into
+// shared memory at dst, swizzled as the map says; rows outside the tensor
+// are written as zeros. Completes `bar`'s bytes for the whole box. `map`
+// is the address of a __grid_constant__ CUtensorMap parameter.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Brings a TMA descriptor (a __grid_constant__ CUtensorMap) into the
+// descriptor cache ahead of its first use.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// global -> shared, completing `bar`'s bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// --------------------------------------------- warp specialisation
+
+// setmaxnreg: a warpgroup gives up registers (dec) or takes them (inc),
+// all four warps together; N a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------- programmatic dependent launch
+
+// Waits until the grids this one depends on (the kernel ahead of it in the
+// stream, launched with programmatic stream serialization) have completed
+// and their writes are visible; a no-op for a launch without it.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the next kernel in the stream, if launched with programmatic stream
+// serialization, start before this one ends (it waits in its own
+// grid_dependency_wait for this one's writes).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ----------------------------------------------------- L2 prefetch
+
+// Brings the 128-byte line holding p into L2; moves no value into a thread.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Brings `bytes` (a multiple of 16, p 16-byte aligned) into L2.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
 
 }  // namespace hopper

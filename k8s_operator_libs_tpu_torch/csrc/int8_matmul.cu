@@ -20,12 +20,17 @@
 //
 // What bounds it. On the decode path M is the batch (8 at the smoke
 // configuration): 2*M operations per weight byte, against the ~300 per
-// byte the card needs before its arithmetic is the limit. So it is a
-// matrix-vector product bound by the bytes of q, N*K, over the memory rate.
+// byte the card needs before its arithmetic is the limit. So its bound is
+// the bytes of q, N*K, over the memory rate. At the smoke configuration's
+// decode shapes (K, N of 512 and 2048) a launch moves 0.26-1 MB and the
+// whole int8 model ~14 MB, which the 50 MB L2 holds from step to step: a
+// launch then takes ~3 us against a bound of ~0.2 us, and what it pays is
+// latency, launch to store in series, not bytes.
 //
 // bf16: int8_linear_tc_kernel, the products on the tensor cores. The first
 // design (int8_linear_kernel below, which fp32 keeps: TF32 cannot meet the
-// fp32 contract) had three limits; this design answers each.
+// fp32 contract) had three limits; this design answers each, and a fourth
+// step (4.) takes the serial start off the chain of launches.
 // 1. The grid was too small: a block owned 32 rows and walked all of K, so
 //    N 512 gave 16 blocks on 132 SMs, each walking K in series. Here a block
 //    owns 16 rows and K is split across its warps (k_warps, 8 or 4) and,
@@ -61,6 +66,23 @@
 //    a lane's 16 bytes of a row feed its A fragments of four k16 steps
 //    without a shuffle: in step j, lane (g, t)'s logical k {2t, 2t+1, 2t+8,
 //    2t+9} are the physical k 16t + 4j + {0, 1, 2, 3}.
+// 4. A decode step runs its int8 matmuls back to back (q, k and v on the
+//    same x, then out, the MLP's two), and each launch waited for the one
+//    ahead to end before it computed an index. Here each is launched with
+//    programmatic stream serialization and begins before the one ahead has
+//    ended: it computes its indices and slice bounds, makes its cluster's
+//    first arrival and asks L2 for its rows of q, its scales and bias
+//    (prefetches, which move no value into a thread), then waits in
+//    griddepcontrol.wait until the kernel ahead has ended and its writes
+//    are visible, and lets the next launch begin its own start
+//    (griddepcontrol.launch_dependents). Above 16 MB of weight, which L2
+//    would not keep, there is no prefetch and the next launch may begin
+//    only once this one's loads are done. Every register load (q, s, the
+//    bias, x), every store of y and every write into another block's
+//    shared memory comes after the wait, so the result does not depend on
+//    which kernel wrote an input last or still reads y's memory, and stays
+//    bit-equal to a launch without the attribute. A kernel ahead launched
+//    without the attribute ends as before the wait returns.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -268,6 +290,7 @@ constexpr int kTcMaxWarps = 8;       // k_warps
 constexpr int kTcMaxCluster = 8;     // blocks of a cluster (the portable limit)
 constexpr int kTcStages = 2;         // chunks of q and x in flight per warp
 constexpr float kByteBias = 8388736.f;  // 2^23 + 128
+constexpr long long kTcEarlyBytes = 16ll << 20;  // a third of the 50 MB L2
 
 // A lane's share of one 64-wide chunk at k = 64c + 16t: 16 bytes of q of
 // rows g and g + 8 of the tile, and 16 values of x row g.
@@ -396,6 +419,34 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
   const int8_t* qa = n0 + g < N ? q + static_cast<size_t>(n0 + g) * K : nullptr;
   const int8_t* qb = n0 + g + 8 < N ? q + static_cast<size_t>(n0 + g + 8) * K : nullptr;
   const bf16* xr = m0 + g < M ? x + static_cast<size_t>(m0 + g) * K : nullptr;
+
+  // A weight that fits well inside L2 (the decode shapes): its rows are
+  // prefetched, and the next launch may start as soon as this one has
+  // passed its wait. A larger one streams from memory: a prefetch would
+  // evict before use, and the next launch's early start and prefetches
+  // would take bandwidth from this one (K = N = 8192 measured slower), so
+  // the next launch may start only once this one's loads are done.
+  const bool small = static_cast<long long>(N) * K <= kTcEarlyBytes;
+  // Before the wait: L2 prefetches only, which move no value into a
+  // thread, so whatever kernel wrote q, s or the bias last, what is loaded
+  // after the wait is what it wrote. Lane r < 16 asks for row n0 + r's
+  // bytes of the warp's slice; warp 0's lanes 16 and 17 for the tile's
+  // scales and bias (64 and 32 bytes, each inside one line).
+  if (lane < kTcRows && n0 + lane < N && vec && c_end > c_begin && small) {
+    const int k_begin = c_begin * kTcChunk, k_end = min(K, c_end * kTcChunk);
+    hopper::bulk_prefetch_l2(q + static_cast<size_t>(n0 + lane) * K + k_begin,
+                             static_cast<uint32_t>(k_end - k_begin));
+  } else if (warp == 0 && lane == kTcRows) {
+    hopper::prefetch_l2(s + n0);
+  } else if (warp == 0 && lane == kTcRows + 1 && bias != nullptr) {
+    hopper::prefetch_l2(bias + n0);
+  }
+  // The kernel ahead (launched with or without programmatic serialization)
+  // has ended and its writes are visible; then the next int8 launch may
+  // start its own prologue while this one runs.
+  hopper::grid_dependency_wait();
+  if (small) hopper::launch_dependents();
+
   Chunk ring[kTcStages];
 #pragma unroll
   for (int p = 0; p < kTcStages; ++p) tc_load(ring[p], c_begin + p, c_end, t, qa, qb, xr, K, vec);
@@ -418,6 +469,8 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
       }
     }
   }
+
+  if (!small) hopper::launch_dependents();  // every load of this block is done
 
   float* mine = part[warp];
   mine[2 * t * kTcRows + g] = acc[0];
@@ -466,9 +519,10 @@ extern "C" {
 
 // y = x . deq(q)^T + bias; x, y [M, K] / [M, N] in bf16 (is_bf16) or fp32,
 // q int8 [N, K], s fp32 [N], bias [N] in x's type or null. bf16 runs
-// int8_linear_tc_kernel under the plan (k_warps, cluster) of int8_plan;
-// fp32 runs int8_linear_kernel<float>, which has a fixed plan and ignores
-// the two.
+// int8_linear_tc_kernel under the plan (k_warps, cluster) of int8_plan,
+// with programmatic stream serialization (a launch, or a stream capture,
+// that refuses it returns its error); fp32 runs int8_linear_kernel<float>,
+// which has a fixed plan and ignores the two.
 int int8_linear(const void* x, const void* q, const void* s, const void* bias, void* y, int M,
                 int K, int N, int is_bf16, int k_warps, int cluster, void* stream) {
   if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -491,13 +545,17 @@ int int8_linear(const void* x, const void* q, const void* s, const void* bias, v
   config.gridDim = dim3(static_cast<unsigned>(tiles * cluster), (M + kTcM - 1) / kTcM);
   config.blockDim = dim3(32 * k_warps);
   config.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  config.attrs = &attr;
-  config.numAttrs = 1;
+  // the cluster, and programmatic dependent launch: the kernel may start
+  // its prologue before the one ahead of it in the stream has ended
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attrs;
+  config.numAttrs = 2;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, int8_linear_tc_kernel, static_cast<const bf16*>(x),
       static_cast<const int8_t*>(q), static_cast<const float*>(s),

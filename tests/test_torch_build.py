@@ -56,6 +56,47 @@ compile_size = 64bit
         /*0010*/                   FFMA R2, R3, R4, R2 ;
 """
 
+DKV = "_ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiifi"
+INT8 = "_ZN12_GLOBAL__N_121int8_linear_tc_kernelEPK13__nv_bfloat16PKaPKfS1_PS0_iii"
+
+#: cuobjdump --dump-ptx, cut to the lines that matter: an entry with
+#: setmaxnreg in both roles and TMA loads (one under a guard predicate), a
+#: device function whose body is not an entry's, and an entry with
+#: programmatic dependent launch and a bulk L2 prefetch (not a TMA load)
+PTX = f"""\
+
+Fatbin ptx code:
+================
+arch = sm_90a
+code version = [8,7]
+
+.version 8.7
+.target sm_90a
+.address_size 64
+
+\t// .globl\t{DKV}
+.visible .entry {DKV}(
+\t.param .align 64 .b8 {DKV}_param_0[128],
+)
+{{
+\tsetmaxnreg.dec.sync.aligned.u32 24;
+\tcp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%r5], [%rd4, {{%r6, %r7, %r8}}], [%r9];
+\t@%p3 cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%r10], [%rd5, {{%r6, %r7, %r8}}], [%r9];
+\tsetmaxnreg.inc.sync.aligned.u32 240;
+\tmbarrier.try_wait.parity.shared::cta.b64 %p1, [%r1], %r2;
+}}
+.func _Z6helperv()
+{{
+\tsetmaxnreg.dec.sync.aligned.u32 24;
+}}
+.visible .entry {INT8}(
+)
+{{
+\tcp.async.bulk.prefetch.L2.global [%rd7], %r11;
+\tgriddepcontrol.wait;
+\tgriddepcontrol.launch_dependents;
+}}
+"""
 
 @pytest.mark.parametrize(
     "symbol,name",
@@ -97,6 +138,27 @@ def test_parse_sass_counts_tensor_core_instructions_per_function():
         "flash_fwd_tc_kernel<64>": {"HGMMA": 2, "HMMA": 0},
         "flash_bwd_dq_kernel<float, 128>": {"HGMMA": 0, "HMMA": 1},
     }
+
+
+def test_parse_ptx_counts_each_design_instruction_per_entry():
+    counts = _build.parse_ptx(PTX)
+    assert counts == {
+        "flash_bwd_dkv_tc_kernel<64>": {
+            "setmaxnreg": 2, "griddepcontrol.wait": 0,
+            "griddepcontrol.launch_dependents": 0, "cp.async.bulk.tensor": 2,
+        },
+        "int8_linear_tc_kernel": {
+            "setmaxnreg": 0, "griddepcontrol.wait": 1,
+            "griddepcontrol.launch_dependents": 1, "cp.async.bulk.tensor": 0,
+        },
+    }
+
+
+def test_the_build_carries_ptx_beside_the_sass():
+    """ptx_counts reads the PTX in the library, so the build embeds it
+    (compute_90a) beside the card's SASS (sm_90a)."""
+    gencode = _build.NVCC_FLAGS[_build.NVCC_FLAGS.index("-gencode") + 1]
+    assert gencode == "arch=compute_90a,code=[sm_90a,compute_90a]"
 
 
 def _sources(tmp_path):
@@ -145,7 +207,7 @@ def test_the_shipped_library_name_carries_the_digest():
 
 def _fake_toolkit(tmp_path, monkeypatch):
     """A CUDA_HOME whose nvcc writes its -o target and prints PTXAS, and
-    whose cuobjdump prints SASS."""
+    whose cuobjdump prints PTX for --dump-ptx, else SASS."""
     bin_dir = tmp_path / "cuda" / "bin"
     bin_dir.mkdir(parents=True)
     nvcc = bin_dir / "nvcc"
@@ -157,7 +219,10 @@ def _fake_toolkit(tmp_path, monkeypatch):
         f"sys.stderr.write({PTXAS!r})\n"
     )
     cuobjdump = bin_dir / "cuobjdump"
-    cuobjdump.write_text(f"#!{sys.executable}\nimport sys\nsys.stdout.write({SASS!r})\n")
+    cuobjdump.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        f"sys.stdout.write({PTX!r} if '--dump-ptx' in sys.argv else {SASS!r})\n"
+    )
     for tool in (nvcc, cuobjdump):
         tool.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
@@ -174,6 +239,7 @@ def test_build_keeps_the_ptxas_report_and_reuses_the_library(tmp_path, monkeypat
     assert _build.build("flash_attention") == lib  # cached: not rebuilt
     assert _build.build_seconds["flash_attention"] == 0.0
     assert _build.sass_counts("flash_attention") == _build.parse_sass(SASS)
+    assert _build.ptx_counts("flash_attention") == _build.parse_ptx(PTX)
 
 
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):

@@ -162,6 +162,53 @@ def test_the_widest_head_dim_runs_on_its_own_kernels(cuda, causal, dtype):
     assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.DEVICE_KERNELS}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4], ids=lambda g: f"g{g}")
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [65, 129, 200, 256], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("d", fa.HEAD_DIMS, ids=lambda d: f"d{d}")
+def test_bf16_dkv_matches_its_plain_version_on_every_key_tile(cuda, d, s, causal, g):
+    """The warp-specialised dK/dV (two consumer warpgroups of 64 keys on
+    each 128-key tile) at every head dim: s 65, one key for the second
+    consumer of the only tile; s 129, a second tile whose second consumer
+    has no key; s 200, a ragged tile; s 256, whole tiles. s 65 and 129
+    have s % 4 != 0, so the lse and dvec rows come by 4-byte copies; 200
+    and 256 by bulk copies."""
+    qf, kf, vf, dof, _ = _bf16_inputs(cuda, d, s, 4 // g, seed=7000 + d * 10 + s + g)
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, causal)
+    dvec = (o_ref * fp32[3]).sum(-1)
+    before = fa.device_launch_counts["flash_bwd_dkv_tc_kernel"]
+    dk, dv = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    assert fa.device_launch_counts["flash_bwd_dkv_tc_kernel"] == before + 1
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*fp32, lse_ref, dvec, g, causal)
+    assert _close(dk, dk_ref, BF16_TOL) and _close(dv, dv_ref, BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256], ids=lambda d: f"d{d}")
+def test_bf16_dkv_takes_lse_rows_that_start_only_4_byte_aligned(cuda, d):
+    """s % 4 == 0, but lse and dvec start 4 bytes past a 16-byte boundary
+    (contiguous views into a larger buffer): the rows come by 4-byte
+    copies, and the result is bit-equal to the aligned call's."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, d, 256, 2, seed=d)
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, True)
+    dvec = (o_ref * fp32[3]).sum(-1)
+
+    def shifted(rows):
+        flat = torch.empty(rows.numel() + 1, device=cuda)
+        out = flat[1:].view(rows.shape)
+        out.copy_(rows)
+        return out
+
+    lse_4, dvec_4 = shifted(lse_ref), shifted(dvec)
+    assert lse_4.is_contiguous() and lse_4.data_ptr() % 16 == 4
+    aligned = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_ref, dvec, g, True)
+    unaligned = fa.flash_bwd_dkv(qf, kf, vf, dof, lse_4, dvec_4, g, True)
+    assert torch.equal(aligned[0], unaligned[0]) and torch.equal(aligned[1], unaligned[1])
+
+
 def _bf16_backward_inputs(cuda):
     qf, kf, vf, dof, g = _bf16_inputs(cuda, 64, 1000, 2, seed=9)
     o, lse = fa.flash_forward(qf, kf, vf, g, True)
@@ -311,3 +358,86 @@ def test_int8_generate_launches_the_kernel_for_every_quantized_dense(cuda):
     assert out.shape == (3, 12) and torch.equal(out[:, :5], prompt)
     assert qz.launch_counts["int8_linear"] == (6 * 2 + 1) * 11
     assert set(fa.launch_counts.values()) == {0}  # decode runs no flash kernel
+
+
+def _int8_layer(cuda, k, n, seed):
+    """A weight quantized per row as ``quantize_model`` quantizes it (scale
+    amax / 127), its bias, in the magnitudes of a trained layer: the
+    output of one layer stays O(1) as the input of the next."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(n, k, device=cuda, generator=gen) / k**0.5
+    s = w.abs().amax(1) / 127.0
+    q = torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8)
+    bias = (0.1 * torch.randn(n, device=cuda, generator=gen)).bfloat16()
+    return q, s, bias
+
+
+@pytest.mark.cuda
+def test_a_dependent_int8_chain_in_a_cuda_graph_equals_eager(cuda):
+    """y of one launch is x of the next, three times (K = N = 512, M 8),
+    each launch allowed to start before the one ahead has ended. Captured
+    in one CUDA graph and replayed, the chain is bit-equal to eager, and
+    both are within 2^-7 of the plain chain: no launch read its x before
+    the one ahead wrote it."""
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    layers = [_int8_layer(cuda, 512, 512, seed=20 + i) for i in range(3)]
+    x = torch.randn(8, 512, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    x = x.bfloat16()
+
+    def chain(linear):
+        y = x
+        for q, s, bias in layers:
+            y = linear(y, q, s, bias)
+        return y
+
+    eager = chain(qz.int8_linear)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(qz.int8_linear)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain(qz.int8_linear)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert _close(eager, chain(qz.int8_linear_plain), BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_int8_linear_reads_weights_written_just_before_it(cuda):
+    """q, s and the bias written by the kernels right before the launch,
+    200 times, the last of the three writes rotating: each copy lands
+    where junk was just written (the allocator hands the junk's block
+    back), so a launch that read any of them into registers before the
+    kernel ahead ended would see junk. Every result is bit-equal to the
+    launch on the weights at rest."""
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    x, q, s, bias = _int8_inputs(cuda, 8, 512, 512, torch.bfloat16, seed=4)
+    want = qz.int8_linear(x, q, s, bias)
+    torch.cuda.synchronize()
+
+    def fresh(src, junk, write):
+        scratch = torch.full_like(src, junk)
+        del scratch
+        return write(src)
+
+    writes = {
+        "q": lambda: fresh(q, 99, torch.clone),
+        "s": lambda: fresh(s, float("nan"), lambda t: t.double().float()),
+        "bias": lambda: fresh(bias, float("nan"), lambda t: t.float().bfloat16()),
+    }
+    order = list(writes)
+    got = []
+    for i in range(200):
+        last = order[i % 3]  # written right before the launch
+        inputs = {name: write() for name, write in writes.items() if name != last}
+        inputs[last] = writes[last]()
+        got.append(qz.int8_linear(x, inputs["q"], inputs["s"], inputs["bias"]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want) for y in got)
