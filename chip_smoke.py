@@ -15,9 +15,10 @@ failure (the exit code is then non-zero and no result line is printed):
    instructions (``setmaxnreg``, ``griddepcontrol``, TMA in the PTX):
    each bf16 flash kernel must have tensor-core instructions, at every
    head dim, with no spill and no ptxas note that its wgmma were
-   serialized or its ``setmaxnreg`` ignored, dK/dV ``setmaxnreg`` and TMA
-   loads, and the bf16 int8 kernel HMMA, ``griddepcontrol.wait`` and
-   ``launch_dependents``, no spill and no ptxas note;
+   serialized or its ``setmaxnreg`` ignored, TMA loads in the forward, dQ
+   and dK/dV and ``setmaxnreg`` in dK/dV, at every head dim, and the bf16
+   int8 kernel HMMA, ``griddepcontrol.wait`` and ``launch_dependents``,
+   no spill and no ptxas note;
 2. kernels: each flash kernel against its plain PyTorch version on the
    card, at the trainer's shape and at GQA, MQA, non-causal, ragged and
    long shapes in fp32 and bf16, at head dims the kernels are not
@@ -3700,9 +3701,12 @@ def fleet_phase(config, card: str) -> dict:
 
 #: The design each redesigned tensor-core kernel must show in its PTX
 #: (``_build.PTX_MARKERS``): the int8 kernel's programmatic dependent
-#: launch, and dK/dV's TMA loads and register hand-over.
+#: launch, the TMA loads of the forward, dQ and dK/dV, and dK/dV's
+#: register hand-over.
 DESIGN_MARKERS = {
     "int8_linear_tc_kernel": ("griddepcontrol.wait", "griddepcontrol.launch_dependents"),
+    "flash_fwd_tc_kernel": ("cp.async.bulk.tensor",),
+    "flash_bwd_dq_tc_kernel": ("cp.async.bulk.tensor",),
     "flash_bwd_dkv_tc_kernel": ("setmaxnreg", "cp.async.bulk.tensor"),
 }
 
@@ -3712,7 +3716,8 @@ def compiled_report():
     registers, shared memory, spills and notes, the HGMMA/HMMA count of
     its SASS and the count of each of ``_build.PTX_MARKERS`` in its PTX.
     Raises unless each flash tensor-core kernel is built at every head dim
-    with tensor-core instructions, no spill and no ptxas note that its
+    (each of its instantiations there) with tensor-core instructions, no
+    spill and no ptxas note that its
     wgmma were serialized (C7515 for a call, C7512 for want of registers)
     or its ``setmaxnreg`` ignored, unless each int8 device kernel is
     built, the bf16 one with HMMA, no spill and no ptxas note, and unless
@@ -3748,7 +3753,10 @@ def compiled_report():
     tensor_core = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()
                    if "_tc_" in k}
     for kernel in sorted(tensor_core):
-        rows = [report.get(f"{kernel}<{d}>") for d in fa.HEAD_DIMS]
+        # every instantiation at each head dim (dQ's has two plans at d <= 64)
+        rows = [r for d in fa.HEAD_DIMS
+                for r in [row for name, row in report.items()
+                          if name == f"{kernel}<{d}>" or name.startswith(f"{kernel}<{d}, ")] or [None]]
         bad = [
             r for r in rows
             if r is None or r["HGMMA"] + r["HMMA"] == 0
@@ -4150,10 +4158,16 @@ def main(argv=None) -> int:
     # ---- 11. the result lines ----
     kernels = []
     head_dim = config.d_model // config.n_heads
+    # dQ's plan at the main shape (csrc launch_dq_tc): up to head dim 64,
+    # 64-key units (instantiation <d, 1>) where two blocks an SM hold the
+    # grid of b * h * ceil(s / 64) blocks, else <d, 0>
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = head_dim <= 64 and 8 * config.n_heads * -(-config.max_seq_len // 64) <= 2 * n_sms
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         t = main_timing[name]
         # the instantiation the main path runs (a tc kernel: the head dim)
-        built = compiled.get(f"{routed[name]}<{head_dim}>", {})
+        plan = f", {int(wide)}" if name == "flash_bwd_dq" else ""
+        built = compiled.get(f"{routed[name]}<{head_dim}{plan}>", {})
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -24,9 +24,12 @@
 //
 // What bounds them on the card. At the trainer's shape (b*h 64, s 256, d 64,
 // bf16) each kernel moves ~8-13 MB and does ~0.5-1.1 GFLOP, so the least
-// time is the memory time, a few microseconds, and launch overhead is what
-// a step pays. At long sequences (s 8192) they are bound by operations:
-// ~275 GFLOP causal per forward against 989 TFLOP/s of bf16 tensor cores.
+// time is the memory time, a few microseconds; what a call pays beyond it
+// is its launch and the serial chain of its heaviest block (4 K/V tiles of
+// 64 keys for a forward or dQ block: load, scores, exponentials, product).
+// At long sequences (s 8192) they are bound by operations: ~275 GFLOP
+// causal per forward against 989 TFLOP/s of bf16 tensor cores, and a tile's
+// exponentials take the SM about as long as its products.
 //
 // The bf16 kernels (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
 // flash_bwd_dkv_tc_kernel). Scalar FMAs reach ~13 TFLOP/s, 1/75 of the
@@ -42,10 +45,30 @@
 // kernel accumulates in registers and writes its output once: no atomics,
 // deterministic.
 //
-// The forward and dQ: one warpgroup owns a 64-row q-tile (one wgmma M),
-// copied once into shared memory; the K/V tiles stream through a 2-stage
-// ring of cp.async copies, the next tile's copy in flight while the
-// current one computes.
+// The forward and dQ (RowTc). One warpgroup owns a 64-row q-tile (one
+// wgmma M), and a block is that warpgroup alone, so that an SM keeps three
+// of them where shared memory allows (dQ two at head dim 128 and one at
+// 256, the forward two at 256). Run in series, a tile's scores, exponentials and product leave the
+// tensor cores idle while the exponentials run, and the reverse, unless
+// another block fills the gap. So one elected thread issues every load by
+// TMA: Q (and dO) once, K/V tiles into a ring of stages under
+// full/empty mbarriers; a stage is refilled once every thread has
+// released it, after the product that reads it completed, and no
+// __syncthreads is left in the loop. The scores are taken a unit of keys
+// at a time, and the next unit's S (and dP) is issued into a second score
+// buffer before this unit's exponentials (dS) run on the waited one, so
+// the tensor cores work through them; then this unit's P V (dS K) is
+// issued and both are waited. The unit loop is unrolled by two so that
+// each buffer is named at compile time. ptxas serializes the wgmma (C7515)
+// if any other instruction writes an accumulator between a wgmma's issue
+// and its wait: so the forward takes the rows' max and rescales O before
+// it issues the next S, and reads the scores without writing them back.
+// The units are 64 keys in the forward (32 at head dim 128 and 256, so
+// that more blocks fit) and 32 in dQ, whose S and dP of two units must fit
+// beside dQ in 168 registers; where two blocks an SM hold dQ's whole grid
+// (the trainer's shape), dQ takes 64-key units at two blocks an SM
+// instead, which halves its chain (head dims up to 64). Every head dim, in
+// every plan, issues the next unit's scores before this unit's softmax.
 //
 // dK/dV is warp-specialised. What held its first design back: one
 // warpgroup owned 64 keys and did everything in series for each q-tile --
@@ -444,7 +467,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTcRows = 64;      // query rows of a block: one wgmma M
 constexpr int kTcThreads = 128;  // one warpgroup
-constexpr int kTcKeys = 64;      // rows of a K/V tile
+constexpr int kTcKeys = 64;      // keys of a dK/dV consumer warpgroup
 
 // An [R, D] bf16 tile in shared memory, in wgmma's canonical layout with
 // the widest swizzle its rows take: rows of W = min(2D, 128) bytes (swizzle
@@ -458,31 +481,12 @@ constexpr int kTcKeys = 64;      // rows of a K/V tile
 template <int R, int D>
 struct TcTile {
   static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
-  static constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks in a block row
   static constexpr int kBlockBytes = R * kRowBytes;
   static constexpr int kBytes = R * D * 2;
   static constexpr uint32_t kSwizzle = kRowBytes == 128  ? hopper::kSwizzle128B
                                        : kRowBytes == 64 ? hopper::kSwizzle64B
                                                          : hopper::kSwizzle32B;
   static_assert(R % 8 == 0 && kBytes % 1024 == 0, "tiles keep 1024-byte alignment");
-
-  // Byte offset of chunk c (elements [8c, 8c + 8)) of row r.
-  __device__ __forceinline__ static uint32_t offset(int r, int c) {
-    const uint32_t off = (c / kChunks) * kBlockBytes + r * kRowBytes + (c % kChunks) * 16;
-    return off ^ (((off >> 7) & (kChunks - 1)) << 4);
-  }
-
-  // Copies rows [r0, r0 + R) of a row-major [s, D] matrix to the tile at
-  // base; rows past s are zero.
-  __device__ __forceinline__ static void load(uint32_t base, const __nv_bfloat16* src, int r0,
-                                              int s) {
-    for (int i = threadIdx.x; i < R * D / 8; i += kTcThreads) {
-      const int r = i / (D / 8), c = i % (D / 8);
-      const bool in = r0 + r < s;
-      hopper::cp_async_16(base + offset(r, c),
-                          src + static_cast<size_t>(in ? r0 + r : 0) * D + c * 8, in ? 16 : 0);
-    }
-  }
 
   // Descriptor of reduction step kk (columns [16kk, 16kk + 16)), K-major.
   __device__ __forceinline__ static uint64_t kmajor(uint32_t base, int kk) {
@@ -523,137 +527,283 @@ __device__ __forceinline__ uint32_t align_1024(uint32_t addr) {
   return (addr + 1023) & ~1023u;
 }
 
-// A 2-stage ring: waits for tile t (and what was copied with it), after
-// load_next(t + 1) has started the copy of tile t + 1 into the other stage.
-template <typename Load>
-__device__ __forceinline__ void ring_next(const Load& load_next, int t, int n_tiles) {
-  if (t + 1 < n_tiles) {
-    load_next(t + 1);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<1>();
-  } else {
-    hopper::cp_async_wait<0>();
-  }
-  hopper::fence_proxy_async();
-  __syncthreads();
-}
-
-// The forward's and dQ's K/V ring: K/V tile u into stage u & 1.
-template <typename KT>
-__device__ __forceinline__ void next_kv_tile(uint32_t sk, uint32_t sv, const __nv_bfloat16* kb,
-                                             const __nv_bfloat16* vb, int t, int n_tiles,
-                                             int s) {
-  ring_next(
-      [&](int u) {
-        const uint32_t at = (u & 1) * KT::kBytes;
-        KT::load(sk + at, kb, u * kTcKeys, s);
-        KT::load(sv + at, vb, u * kTcKeys, s);
-      },
-      t, n_tiles);
-}
-
-// Whether tile k0 holds a key that some row of q-tile q0 must not see.
-__device__ __forceinline__ bool tile_masked(int k0, int q0, int s, int causal) {
-  return (causal && k0 + kTcKeys - 1 > q0) || k0 + kTcKeys > s;
-}
-
-// Forward on the tensor cores: one warpgroup per (bh, 64-row q-tile).
-// Thread (warp w, lane l) owns rows row0 = q0 + 16w + l/4 and row0 + 8.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int s, int g, int causal, float scale) {
+// The forward's and dQ's plan, per head dim (kDq: dQ's; kWide: dQ's plan
+// for a grid that two blocks an SM hold, below). A block is one warpgroup
+// owning a 64-row q-tile. Its K/V tiles of kKeys rows stream through a ring
+// of kStages stages, each guarded by a full and an empty mbarrier; the
+// scores are taken kUnit keys at a time (one wgmma N), the next unit's
+// issued before this unit's softmax into the other of two score buffers.
+// Registers set dQ's unit: it holds S and dP of two units beside dQ, so its
+// units are 32 keys where three blocks share an SM (168 registers a
+// thread), and 64 keys in the wide plan, two blocks an SM, which halves a
+// block's chain (head dim 64 and below: above, 64-key units spill). Shared
+// memory sets the forward's at head dim 128 and 256: stages of 32 keys let
+// three blocks share an SM at 128 and two at 256, where 64-key stages let
+// two and one. Three stages, and 128-key tiles, were slower (PERF.md §6).
+template <int D, bool kDq, bool kWide = false>
+struct RowTc {
+  static constexpr int kD = D;
+  static constexpr int kKeys = !kDq && D >= 128 ? 32 : 64;  // K/V rows of a stage: one TMA box
+  static constexpr int kUnit = kDq ? (kWide ? 64 : 32) : D >= 128 ? 32 : 64;  // keys of a product
+  static constexpr int kStages = 2;
   using QT = TcTile<kTcRows, D>;
-  using KT = TcTile<kTcKeys, D>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t sq = align_1024(hopper::smem_u32(smem_raw));
-  const uint32_t sk = sq + QT::kBytes;      // K stages 0 and 1
-  const uint32_t sv = sk + 2 * KT::kBytes;  // V stages 0 and 1
+  using KT = TcTile<kKeys, D>;
+  // shared memory, from a 1024-byte boundary
+  static constexpr int kQ = 0;                                // Q, then dO in dQ
+  static constexpr int kK = kQ + (kDq ? 2 : 1) * QT::kBytes;  // K stages
+  static constexpr int kV = kK + kStages * KT::kBytes;        // V stages
+  static constexpr int kBars = kV + kStages * KT::kBytes;     // full, empty, then Q's
+  static constexpr int kSmem = kBars + (2 * kStages + 1) * 8 + 1024;
+  // the blocks an SM's 228 KB hold (1 KB reserved a block), at most 3
+  // (2 wide): __launch_bounds__ then leaves each thread 65,536 / (128 kBlocks)
+  static constexpr int kFit = 233472 / (kSmem + 1024);
+  static constexpr int kMost = kWide ? 2 : 3;
+  static constexpr int kBlocks = kFit < kMost ? kFit : kMost;
+  // a stage is refilled only once released: with one stage the next
+  // tile's scores would wait on a stage that is never released
+  static_assert(kStages >= 2 && kKeys % kUnit == 0 && kUnit % 16 == 0, "the ring's shape");
+  static_assert(kSmem <= 232448 && kBlocks >= 1, "a block's shared memory");
+};
 
+// The ring of a forward or dQ block: the stages, their barriers, the K/V
+// tensor maps and the KV head.
+struct KvRing {
+  uint32_t sq, sk, sv;        // Q (dO after it), the K and V stages
+  uint32_t full, empty, q_full;
+  const CUtensorMap* k_map;
+  const CUtensorMap* v_map;
+  int head;                   // the K/V row, bh / g
+};
+
+// TMA of K/V tile t (rows [t kKeys, + kKeys)) into stage t % kStages: one
+// box of a TcTile column block each, rows past s written as zeros.
+template <typename P>
+__device__ __forceinline__ void load_kv(const KvRing& r, int t) {
+  using KT = typename P::KT;
+  constexpr int kBoxCols = KT::kRowBytes / 2;
+  const int stage = t % P::kStages;
+  const uint32_t fb = r.full + 8 * stage;
+  hopper::mbar_arrive_expect_tx(fb, 2 * KT::kBytes);
+#pragma unroll
+  for (int j = 0; j < KT::kBytes / KT::kBlockBytes; ++j) {
+    const uint32_t at = stage * KT::kBytes + j * KT::kBlockBytes;
+    hopper::tma_load_3d(r.sk + at, r.k_map, fb, j * kBoxCols, t * P::kKeys, r.head);
+    hopper::tma_load_3d(r.sv + at, r.v_map, fb, j * kBoxCols, t * P::kKeys, r.head);
+  }
+}
+
+// Sets up a block's ring: thread 0 initialises the barriers, then issues
+// the q-tile's Q (and dO) and the first kStages K/V tiles. The one
+// __syncthreads of the kernel is here.
+template <typename P>
+__device__ __forceinline__ KvRing ring_start(const CUtensorMap* q_map, const CUtensorMap* do_map,
+                                             const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                             int bh, int g, int q0, int n_tiles) {
+  using QT = typename P::QT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = align_1024(hopper::smem_u32(smem_raw));
+  const uint32_t full = base + P::kBars, empty = full + 8 * P::kStages;
+  const KvRing r{base + P::kQ, base + P::kK, base + P::kV, full, empty,
+                 empty + 8 * P::kStages, k_map, v_map, bh / g};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::kStages; ++i) {
+      hopper::mbar_init(full + 8 * i, 1);              // the loading thread, with the bytes
+      hopper::mbar_init(empty + 8 * i, kTcThreads);    // every thread, done reading
+    }
+    hopper::mbar_init(r.q_full, 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::prefetch_tensormap(q_map);
+    hopper::prefetch_tensormap(k_map);
+    hopper::prefetch_tensormap(v_map);
+    if (do_map != nullptr) hopper::prefetch_tensormap(do_map);
+    constexpr int kBoxCols = QT::kRowBytes / 2;
+    const int n_q = do_map != nullptr ? 2 : 1;
+    hopper::mbar_arrive_expect_tx(r.q_full, n_q * QT::kBytes);
+#pragma unroll
+    for (int j = 0; j < QT::kBytes / QT::kBlockBytes; ++j) {
+      hopper::tma_load_3d(r.sq + j * QT::kBlockBytes, q_map, r.q_full, j * kBoxCols, q0, bh);
+      if (do_map != nullptr)
+        hopper::tma_load_3d(r.sq + QT::kBytes + j * QT::kBlockBytes, do_map, r.q_full,
+                            j * kBoxCols, q0, bh);
+    }
+    for (int t = 0; t < P::kStages && t < n_tiles; ++t) load_kv<P>(r, t);
+  }
+  return r;
+}
+
+// After the last unit of tile t: every thread releases its stage, and
+// thread 0 refills it with tile t + kStages once all have. The warp
+// reconverges before its next wgmma.
+template <typename P>
+__device__ __forceinline__ void ring_release(const KvRing& r, int t, int n_tiles) {
+  const int stage = t % P::kStages;
+  hopper::mbar_arrive(r.empty + 8 * stage);
+  if (threadIdx.x == 0 && t + P::kStages < n_tiles) {
+    hopper::mbar_wait(r.empty + 8 * stage, (t / P::kStages) & 1);
+    load_kv<P>(r, t + P::kStages);
+  }
+  __syncwarp();
+}
+
+// Where unit u lies: its tile, the tile's stage, its first row there.
+template <typename P>
+struct Unit {
+  int t, stage, row;
+  __device__ __forceinline__ explicit Unit(int u)
+      : t(u * P::kUnit / P::kKeys), stage(t % P::kStages), row(u * P::kUnit % P::kKeys) {}
+  // whether the unit ends its tile (or the block's units)
+  __device__ __forceinline__ static bool last(int u, int n_units) {
+    return u + 1 == n_units || (u + 1) * P::kUnit % P::kKeys == 0;
+  }
+};
+
+// Waits for unit u's tile when the unit is the tile's first.
+template <typename P>
+__device__ __forceinline__ void wait_tile(const KvRing& r, const Unit<P>& at) {
+  if (at.row == 0) hopper::mbar_wait(r.full + 8 * at.stage, (at.t / P::kStages) & 1);
+}
+
+// Whether the N keys from k0 hold one that some row of q-tile q0 must not see.
+template <int N>
+__device__ __forceinline__ bool unit_masked(int k0, int q0, int s, int causal) {
+  return (causal && k0 + N - 1 > q0) || k0 + N > s;
+}
+
+// Forward: S = Q K^T of unit u, issued and committed, not waited for.
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&x)[RowTc<D, false>::kUnit / 2],
+                                           const KvRing& r, int u) {
+  using P = RowTc<D, false>;
+  const Unit<P> at(u);
+  wait_tile(r, at);
+  const uint32_t kt = r.sk + at.stage * P::KT::kBytes + at.row * P::KT::kRowBytes;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<P::kUnit>::ss(x, P::QT::kmajor(r.sq, kk), P::KT::kmajor(kt, kk), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// A forward thread's rows: (warp w, lane l) owns rows row0 = q0 + 16w +
+// l/4 and row0 + 8, accumulator columns 8j + col0 + {0, 1}.
+struct RowThread {
+  int q0, row0, col0, s, causal;
+};
+
+// Forward unit u from its scores x (waited). The rows' new max, alpha and
+// the rescale of acc and l come first, while no product is in flight; then
+// unit u + 1's S is issued into y, and this unit's exponentials run beside
+// it (P rounded to bf16 in pa; x is only read, so
+// no accumulator of the window is written but by wgmma). O += P V is
+// issued, and everything waited. The stage is released after the tile's
+// last unit.
+template <int D>
+__device__ __forceinline__ void fwd_unit(float (&x)[RowTc<D, false>::kUnit / 2],
+                                         float (&y)[RowTc<D, false>::kUnit / 2],
+                                         uint32_t (&pa)[RowTc<D, false>::kUnit / 16][4],
+                                         float (&acc)[TcCols<D>::kCols / 2], float (&m)[2],
+                                         float (&l)[2], const KvRing& r, const RowThread& th,
+                                         uint32_t vcols, float c, int u, int n_units,
+                                         int n_tiles) {
+  using P = RowTc<D, false>;
+  constexpr int N = P::kUnit, DC = TcCols<D>::kCols;
+  const Unit<P> at(u);
+  const int k0 = u * N;
+  const bool masked = unit_masked<N>(k0, th.q0, th.s, th.causal);
+  // whether element (j, e) is a key the row must not see
+  const auto hidden = [&](int j, int e) {
+    const int key = k0 + 8 * j + th.col0 + (e & 1);
+    return masked && (key >= th.s || (th.causal && key > th.row0 + 8 * (e >> 1)));
+  };
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], hidden(j, e) ? kNeg : x[4 * j + e] * c);
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // a row's 4 threads share its max
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = exp2f(m[i] - mx[i]);
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+  if (u + 1 < n_units) fwd_scores<D>(y, r, u + 1);
+  // key 0, in every row's first unit, is seen by every row, so m is finite
+  // and a hidden key's exp2(kNeg - m) would be 0: it is selected as 0
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = hidden(j, e) ? 0.f : exp2f(x[4 * j + e] * c - m[e >> 1]);
+      l[e >> 1] += p[e];
+    }
+    pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
+    pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
+  }
+
+  const uint32_t vt = r.sv + at.stage * P::KT::kBytes + vcols;
+  hopper::wgmma_fence();  // O += P V
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::Wgmma<DC>::rs(acc, pa[kk], P::KT::mnmajor(vt, at.row / 16 + kk), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(y);
+  hopper::fence_regs(acc);
+  hopper::fence_regs(pa);
+  if (Unit<P>::last(u, n_units)) ring_release<P>(r, at.t, n_tiles);
+}
+
+// Forward on the tensor cores: one warpgroup per (bh, 64-row q-tile),
+// K/V on a TMA ring (RowTc). Units alternate between the score buffers sa
+// and sb, the loop unrolled by two so that each is named at compile time.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, RowTc<D, false>::kBlocks) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int s, int g, int causal, float scale) {
+  using P = RowTc<D, false>;
+  constexpr int N = P::kUnit;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest q-tile first
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh / g) * s * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh / g) * s * D;
   const int lane = threadIdx.x % 32;
-  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
-  const int col0 = 2 * (lane % 4);  // accumulator columns 8j + col0 + {0, 1}
+  const RowThread th{q0, q0 + (static_cast<int>(threadIdx.x) / 32) * 16 + lane / 4,
+                     2 * (lane % 4), s, causal};
   const int kv_end = causal ? min(s, q0 + kTcRows) : s;
-  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+  const int n_units = (kv_end + N - 1) / N;
+  const int n_tiles = (kv_end + P::kKeys - 1) / P::kKeys;
+  const KvRing r = ring_start<P>(&q_map, nullptr, &k_map, &v_map, bh, g, q0, n_tiles);
   constexpr int DC = TcCols<D>::kCols;  // O columns [c0, c0 + DC) are this block's
   const int c0 = TcCols<D>::first();
-  const uint32_t vcols = KT::columns(c0);
-
-  QT::load(sq, q + static_cast<size_t>(bh) * s * D, q0, s);
-  KT::load(sk, kb, 0, s);
-  KT::load(sv, vb, 0, s);
-  hopper::cp_async_commit();
+  const uint32_t vcols = P::KT::columns(c0);
 
   const float c = scale * kLog2e;  // scores in the exp2 domain
   float acc[DC / 2];
 #pragma unroll
   for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float sa[N / 2], sb[N / 2];
+  uint32_t pa[N / 16][4];  // P in bf16: the A operand of P V
 
-  for (int t = 0; t < n_tiles; ++t) {
-    next_kv_tile<KT>(sk, sv, kb, vb, t, n_tiles, s);
-    const uint32_t kt = sk + (t & 1) * KT::kBytes, vt = sv + (t & 1) * KT::kBytes;
-
-    float sc[kTcKeys / 2];  // S = Q K^T
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::Wgmma<kTcKeys>::ss(sc, QT::kmajor(sq, kk), KT::kmajor(kt, kk), kk > 0);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-
-    const int k0 = t * kTcKeys;
-    const bool masked = tile_masked(k0, q0, s, causal);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kTcKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[4 * j + e] * c;
-        const int key = k0 + 8 * j + col0 + (e & 1);
-        if (masked && (key >= s || (causal && key > row0 + 8 * (e >> 1)))) x = kNeg;
-        sc[4 * j + e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // a row's 4 threads share its max
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-    uint32_t pa[kTcKeys / 16][4];  // P in bf16: the A operand of P V
-#pragma unroll
-    for (int j = 0; j < kTcKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[4 * j + e] = exp2f(sc[4 * j + e] - m[e >> 1]);
-        l[e >> 1] += sc[4 * j + e];
-      }
-      pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(sc[4 * j], sc[4 * j + 1]);
-      pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
-    }
-#pragma unroll
-    for (int i = 0; i < DC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-    hopper::wgmma_fence();  // O += P V
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      hopper::Wgmma<DC>::rs(acc, pa[kk], KT::mnmajor(vt + vcols, kk), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    hopper::fence_regs(pa);
-    __syncthreads();  // the stage is refilled next iteration
+  hopper::mbar_wait(r.q_full, 0);
+  fwd_scores<D>(sa, r, 0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sa);
+  for (int u = 0; u < n_units; u += 2) {
+    fwd_unit<D>(sa, sb, pa, acc, m, l, r, th, vcols, c, u, n_units, n_tiles);
+    if (u + 1 == n_units) break;
+    fwd_unit<D>(sb, sa, pa, acc, m, l, r, th, vcols, c, u + 1, n_units, n_tiles);
   }
 
 #pragma unroll
@@ -663,10 +813,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+    const int row = th.row0 + 8 * i;
     if (row < s) {
       const float inv_l = 1.f / l[i];
-      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s + row) * D + c0 + col0;
+      __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s + row) * D + c0 + th.col0;
 #pragma unroll
       for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
@@ -679,49 +829,105 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
   }
 }
 
-// dQ on the tensor cores: one warpgroup per (bh, 64-row q-tile), looping
-// k-tiles to the causal bound. Per tile S = Q K^T and dP = dO V^T (wgmma),
-// P = exp2(S scale log2e - lse log2e), dS = P (dP - dvec) scale in fp32,
-// then dQ += dS K (wgmma, dS from registers). dQ is written once.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+// dQ: S = Q K^T and dP = dO V^T of unit u, issued and committed together,
+// not waited for.
+template <typename P>
+__device__ __forceinline__ void dq_scores(float (&x)[P::kUnit / 2], float (&dx)[P::kUnit / 2],
+                                          const KvRing& r, int u) {
+  constexpr int D = P::kD;
+  const Unit<P> at(u);
+  wait_tile(r, at);
+  const uint32_t rows = at.stage * P::KT::kBytes + at.row * P::KT::kRowBytes;
+  const uint32_t sdo = r.sq + P::QT::kBytes;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<P::kUnit>::ss(x, P::QT::kmajor(r.sq, kk), P::KT::kmajor(r.sk + rows, kk),
+                                kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<P::kUnit>::ss(dx, P::QT::kmajor(sdo, kk), P::KT::kmajor(r.sv + rows, kk),
+                                kk > 0);
+  hopper::wgmma_commit();
+}
+
+// dQ unit u from its S and dP (x, dx; waited): unit u + 1's are issued
+// into (y, dy) first. Then P = exp2(S scale log2e - lse log2e)
+// and dS = P (dP - dvec) scale in fp32, rounded to bf16 in da, dQ += dS K
+// issued (K read MN-major), and everything waited; the stage is released
+// after the tile's last unit.
+template <typename P>
+__device__ __forceinline__ void dq_unit(float (&x)[P::kUnit / 2], float (&dx)[P::kUnit / 2],
+                                        float (&y)[P::kUnit / 2], float (&dy)[P::kUnit / 2],
+                                        uint32_t (&da)[P::kUnit / 16][4],
+                                        float (&acc)[TcCols<P::kD>::kCols / 2],
+                                        const float (&lse2)[2], const float (&dvr)[2],
+                                        const KvRing& r, const RowThread& th, uint32_t kcols,
+                                        float c, float scale, int u, int n_units, int n_tiles) {
+  constexpr int N = P::kUnit, DC = TcCols<P::kD>::kCols;
+  if (u + 1 < n_units) dq_scores<P>(y, dy, r, u + 1);
+
+  const Unit<P> at(u);
+  const int k0 = u * N;
+  const bool masked = unit_masked<N>(k0, th.q0, th.s, th.causal);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(x[4 * j + e] * c - lse2[e >> 1]);
+      const int key = k0 + 8 * j + th.col0 + (e & 1);
+      if (masked && (key >= th.s || (th.causal && key > th.row0 + 8 * (e >> 1)))) p = 0.f;
+      ds[e] = p * (dx[4 * j + e] - dvr[e >> 1]) * scale;
+    }
+    da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
+    da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+  }
+
+  const uint32_t kt = r.sk + at.stage * P::KT::kBytes + kcols;
+  hopper::wgmma_fence();  // dQ += dS K
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::Wgmma<DC>::rs(acc, da[kk], P::KT::mnmajor(kt, at.row / 16 + kk), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(y);
+  hopper::fence_regs(dy);
+  hopper::fence_regs(acc);
+  hopper::fence_regs(da);
+  if (Unit<P>::last(u, n_units)) ring_release<P>(r, at.t, n_tiles);
+}
+
+// dQ on the tensor cores: one warpgroup per (bh, 64-row q-tile), Q and dO
+// once and K/V on a TMA ring (RowTc, wide or not), looping units to the
+// causal bound. dQ is written once.
+template <int D, bool kWide>
+__global__ void __launch_bounds__(kTcThreads, RowTc<D, true, kWide>::kBlocks)
+    flash_bwd_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ lse, const float* __restrict__ dvec,
     __nv_bfloat16* __restrict__ dq, int s, int g, int causal, float scale) {
-  using QT = TcTile<kTcRows, D>;
-  using KT = TcTile<kTcKeys, D>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t sq = align_1024(hopper::smem_u32(smem_raw));
-  const uint32_t sdo = sq + QT::kBytes;
-  const uint32_t sk = sdo + QT::kBytes;     // K stages 0 and 1
-  const uint32_t sv = sk + 2 * KT::kBytes;  // V stages 0 and 1
-
+  using P = RowTc<D, true, kWide>;
+  constexpr int N = P::kUnit;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest q-tile first
-  const size_t qoff = static_cast<size_t>(bh) * s * D;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh / g) * s * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh / g) * s * D;
   const int lane = threadIdx.x % 32;
-  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
-  const int col0 = 2 * (lane % 4);
+  const RowThread th{q0, q0 + (static_cast<int>(threadIdx.x) / 32) * 16 + lane / 4,
+                     2 * (lane % 4), s, causal};
   const int kv_end = causal ? min(s, q0 + kTcRows) : s;
-  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
-
-  QT::load(sq, q + qoff, q0, s);
-  QT::load(sdo, dout + qoff, q0, s);
-  KT::load(sk, kb, 0, s);
-  KT::load(sv, vb, 0, s);
-  hopper::cp_async_commit();
+  const int n_units = (kv_end + N - 1) / N;
+  const int n_tiles = (kv_end + P::kKeys - 1) / P::kKeys;
+  const KvRing r = ring_start<P>(&q_map, &do_map, &k_map, &v_map, bh, g, q0, n_tiles);
 
   constexpr int DC = TcCols<D>::kCols;  // dQ columns [c0, c0 + DC) are this block's
   const int c0 = TcCols<D>::first();
-  const uint32_t kcols = KT::columns(c0);
+  const uint32_t kcols = P::KT::columns(c0);
   const float c = scale * kLog2e;
   float lse2[2], dvr[2];  // the rows' lse (exp2 domain) and dvec
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+    const int row = th.row0 + 8 * i;
     const size_t at = static_cast<size_t>(bh) * s + (row < s ? row : 0);
     lse2[i] = row < s ? lse[at] * kLog2e : 0.f;
     dvr[i] = row < s ? dvec[at] : 0.f;
@@ -729,57 +935,26 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(
   float acc[DC / 2];
 #pragma unroll
   for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
+  float sa[N / 2], dpa[N / 2], sb[N / 2], dpb[N / 2];  // S, dP of two units
+  uint32_t da[N / 16][4];  // dS in bf16: the A operand of dS K
 
-  for (int t = 0; t < n_tiles; ++t) {
-    next_kv_tile<KT>(sk, sv, kb, vb, t, n_tiles, s);
-    const uint32_t kt = sk + (t & 1) * KT::kBytes, vt = sv + (t & 1) * KT::kBytes;
-
-    float sc[kTcKeys / 2], dp[kTcKeys / 2];  // S = Q K^T, dP = dO V^T
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::Wgmma<kTcKeys>::ss(sc, QT::kmajor(sq, kk), KT::kmajor(kt, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::Wgmma<kTcKeys>::ss(dp, QT::kmajor(sdo, kk), KT::kmajor(vt, kk), kk > 0);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-    hopper::fence_regs(dp);
-
-    const int k0 = t * kTcKeys;
-    const bool masked = tile_masked(k0, q0, s, causal);
-    uint32_t da[kTcKeys / 16][4];  // dS in bf16: the A operand of dS K
-#pragma unroll
-    for (int j = 0; j < kTcKeys / 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(sc[4 * j + e] * c - lse2[e >> 1]);
-        const int key = k0 + 8 * j + col0 + (e & 1);
-        if (masked && (key >= s || (causal && key > row0 + 8 * (e >> 1)))) p = 0.f;
-        ds[e] = p * (dp[4 * j + e] - dvr[e >> 1]) * scale;
-      }
-      da[j / 2][2 * (j % 2)] = hopper::pack_bf16(ds[0], ds[1]);
-      da[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
-    }
-
-    hopper::wgmma_fence();  // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      hopper::Wgmma<DC>::rs(acc, da[kk], KT::mnmajor(kt + kcols, kk), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    hopper::fence_regs(da);
-    __syncthreads();  // the stage is refilled next iteration
+  hopper::mbar_wait(r.q_full, 0);
+  dq_scores<P>(sa, dpa, r, 0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sa);
+  hopper::fence_regs(dpa);
+  for (int u = 0; u < n_units; u += 2) {
+    dq_unit<P>(sa, dpa, sb, dpb, da, acc, lse2, dvr, r, th, kcols, c, scale, u, n_units, n_tiles);
+    if (u + 1 == n_units) break;
+    dq_unit<P>(sb, dpb, sa, dpa, da, acc, lse2, dvr, r, th, kcols, c, scale, u + 1, n_units,
+               n_tiles);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+    const int row = th.row0 + 8 * i;
     if (row < s) {
-      __nv_bfloat16* drow = dq + qoff + static_cast<size_t>(row) * D + c0 + col0;
+      __nv_bfloat16* drow = dq + (static_cast<size_t>(bh) * s + row) * D + c0 + th.col0;
 #pragma unroll
       for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<uint32_t*>(drow + 8 * j) =
@@ -1136,34 +1311,9 @@ void allow_smem(int bytes) {
 // The forward's and dQ's grid: bh fastest, then 64-row q-tiles, so that
 // every row's heaviest tile is dispatched before any lighter one; then the
 // output's column splits.
-static_assert(kTcRows == kTcKeys, "q-tiles and k-tiles share TMA's box");
 template <int D>
 dim3 tc_grid(int bh, int s) {
   return dim3(bh, (s + kTcRows - 1) / kTcRows, TcCols<D>::kSplits);
-}
-
-template <int D>
-void launch_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int s, int g, int causal, float scale, cudaStream_t st) {
-  constexpr int smem = TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
-  allow_smem<flash_fwd_tc_kernel<D>>(smem);
-  flash_fwd_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s, g, causal, scale);
-}
-
-template <int D>
-void launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* dvec, void* dq, int bh, int s, int g,
-                  int causal, float scale, cudaStream_t st) {
-  constexpr int smem = 2 * TcTile<kTcRows, D>::kBytes + 4 * TcTile<kTcKeys, D>::kBytes + 1024;
-  allow_smem<flash_bwd_dq_tc_kernel<D>>(smem);
-  flash_bwd_dq_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<__nv_bfloat16*>(dq), s, g, causal, scale);
 }
 
 // cuTensorMapEncodeTiled, a driver function, through the runtime's
@@ -1192,21 +1342,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of a row-major [heads, s, D] bf16 tensor: boxes of 64 rows
+// The TMA map of a row-major [heads, s, D] bf16 tensor: boxes of R rows
 // by one column block of TcTile (min(D, 64) columns), swizzled as TcTile
 // lays a block out (32B, 64B or 128B), so that box j of a tile lands as
 // its column block j and the wgmma descriptors read it unchanged. Rows
 // past s (within a head) read as zeros.
-template <int D>
+template <int D, int R = kTcRows>
 bool encode_rows(CUtensorMap* map, const void* ptr, int heads, int s) {
-  using T = TcTile<kTcRows, D>;
+  using T = TcTile<R, D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(s) * D * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kRowBytes / 2), kTcRows, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kRowBytes / 2), R, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle = T::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -1215,6 +1365,72 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int heads, int s) {
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The forward's and dQ's launches: Q (dO) maps of 64-row boxes, K/V maps of
+// kKeys-row boxes, built here for every call and passed by value. Returns
+// the first error: a map the driver refused, or cudaGetLastError after
+// the launch.
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                          int bh, int s, int g, int causal, float scale, cudaStream_t st) {
+  using P = RowTc<D, false>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_rows<D>(&q_map, q, bh, s) || !encode_rows<D, P::kKeys>(&k_map, k, bh / g, s) ||
+      !encode_rows<D, P::kKeys>(&v_map, v, bh / g, s))
+    return cudaErrorInvalidValue;
+  allow_smem<flash_fwd_tc_kernel<D>>(P::kSmem);
+  flash_fwd_tc_kernel<D><<<tc_grid<D>(bh, s), kTcThreads, P::kSmem, st>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, g,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+// The SMs of the current device, read once per device.
+int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+// dQ takes its wide plan (64-key units, two blocks an SM) where two blocks
+// an SM hold the whole grid, so that a third would find no block to run
+// (the trainer's b 8, h 8, s 256: 256 blocks on 132 SMs), and 32-key
+// units at three blocks an SM otherwise; the wide plan is built for head
+// dims up to 64.
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* dvec, void* dq, int bh, int s, int g,
+                         int causal, float scale, cudaStream_t st) {
+  using P = RowTc<D, true>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  if (!encode_rows<D>(&q_map, q, bh, s) || !encode_rows<D>(&do_map, dout, bh, s) ||
+      !encode_rows<D, P::kKeys>(&k_map, k, bh / g, s) ||
+      !encode_rows<D, P::kKeys>(&v_map, v, bh / g, s))
+    return cudaErrorInvalidValue;
+  const dim3 grid = tc_grid<D>(bh, s);
+  const auto* lse_f = static_cast<const float*>(lse);
+  const auto* dvec_f = static_cast<const float*>(dvec);
+  auto* dq_b = static_cast<__nv_bfloat16*>(dq);
+  if constexpr (D <= 64) {
+    using W = RowTc<D, true, true>;
+    static_assert(W::kKeys == P::kKeys, "both plans read the same maps");
+    if (grid.x * grid.y * grid.z <= 2u * sm_count()) {
+      allow_smem<flash_bwd_dq_tc_kernel<D, true>>(W::kSmem);
+      flash_bwd_dq_tc_kernel<D, true><<<grid, kTcThreads, W::kSmem, st>>>(
+          q_map, do_map, k_map, v_map, lse_f, dvec_f, dq_b, s, g, causal, scale);
+      return cudaGetLastError();
+    }
+  }
+  allow_smem<flash_bwd_dq_tc_kernel<D, false>>(P::kSmem);
+  flash_bwd_dq_tc_kernel<D, false><<<grid, kTcThreads, P::kSmem, st>>>(
+      q_map, do_map, k_map, v_map, lse_f, dvec_f, dq_b, s, g, causal, scale);
+  return cudaGetLastError();
 }
 
 // The tensor maps are built here, on the host, for every call, and passed
@@ -1289,11 +1505,11 @@ template <typename T, int D>
 cudaError_t route_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                       int s, int g, int causal, float scale, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    launch_fwd_tc<D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
+    return launch_fwd_tc<D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
   } else {
     launch_fwd<T, D>(q, k, v, o, lse, bh, s, g, causal, scale, st);
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 template <typename T, int D>
@@ -1301,11 +1517,11 @@ cudaError_t route_dq(const void* q, const void* k, const void* v, const void* do
                      const void* lse, const void* dvec, void* dq, int bh, int s, int g,
                      int causal, float scale, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    launch_dq_tc<D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+    return launch_dq_tc<D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
   } else {
     launch_dq<T, D>(q, k, v, dout, lse, dvec, dq, bh, s, g, causal, scale, st);
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 template <typename T, int D>

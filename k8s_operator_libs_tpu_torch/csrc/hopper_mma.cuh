@@ -1,6 +1,5 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernels: 16- and
-// 4-byte cp.async copies, the proxy fence, wgmma shared-memory matrix
-// descriptors, wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands in
+// Hopper (sm_90a) building blocks for the tensor-core kernels: 4-byte
+// cp.async copies, wgmma shared-memory matrix descriptors, wgmma m64nNk16 (fp32 += bf16 x bf16) with both operands in
 // shared memory (ss) or A in registers (rs) for the flash kernels, and the
 // warp-level mma.sync m16n8k16 for the int8 decode matmul; then mbarriers,
 // TMA and bulk copies, setmaxnreg for warp specialisation, programmatic
@@ -30,14 +29,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte copy global -> shared that bypasses L1; src_bytes 0 writes zeros
-// (the ragged edge) and reads nothing.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
 // 4-byte copy global -> shared (through L1), for rows whose start is
 // only 4-byte aligned; src_bytes 0 writes a zero.
 __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
@@ -54,12 +45,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Make this thread's finished shared-memory writes visible to the async
-// proxy, through which wgmma reads its shared-memory operands.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

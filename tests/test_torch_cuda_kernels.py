@@ -250,6 +250,123 @@ def test_a_bf16_train_step_runs_the_tensor_core_kernels(cuda):
     }
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4], ids=lambda g: f"g{g}")
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 200, 203, 256, 1000], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("d", fa.HEAD_DIMS, ids=lambda d: f"d{d}")
+def test_bf16_forward_and_dq_match_their_plain_versions_around_the_ring(cuda, d, s, causal, g):
+    """The forward and dQ, whose K/V tiles stream through a ring of TMA
+    stages: one row; a short tile; one key past a tile, or past two; a
+    ragged tile; whole tiles; and s 1000, 16 tiles, where the ring wraps
+    more often than it has stages."""
+    qf, kf, vf, dof, _ = _bf16_inputs(cuda, d, s, 4 // g, seed=9000 + d * 10 + s + g)
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    before = dict(fa.device_launch_counts)
+    o, lse = fa.flash_forward(qf, kf, vf, g, causal)
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, causal)
+    assert _close(o, o_ref, BF16_TOL)
+    assert _close(lse, lse_ref)  # fp32 on both sides, from the same values
+    dvec = (o_ref * fp32[3]).sum(-1)
+    dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), BF16_TOL)
+    launched = {
+        name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
+    }
+    assert launched == {"flash_fwd_tc_kernel": 1, "flash_bwd_dq_tc_kernel": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [16, 32, 64], ids=lambda d: f"d{d}")
+def test_bf16_dq_on_a_grid_wider_than_two_blocks_an_sm(cuda, d, causal):
+    """Up to head dim 64, dQ runs 64-key units at two blocks an SM where
+    two blocks an SM hold its grid (the shapes above), and 32-key units
+    at three otherwise: here b*h is chosen so that the grid passes that,
+    and the second plan is held to the plain version too."""
+    s, g = 1000, 2
+    bh = 2 * (2 * torch.cuda.get_device_properties(0).multi_processor_count // 16 + 1)
+    assert bh * -(-s // 64) > 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    qf, dof = (torch.randn(bh, s, d, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    kf, vf = (torch.randn(bh // g, s, d, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    fp32 = [t.float() for t in (qf, kf, vf, dof)]
+    o_ref, lse_ref = fa.flash_forward_plain(*fp32[:3], g, causal)
+    dvec = (o_ref * fp32[3]).sum(-1)
+    dq = fa.flash_bwd_dq(qf, kf, vf, dof, lse_ref, dvec, g, causal)
+    assert _close(dq, fa.flash_bwd_dq_plain(*fp32, lse_ref, dvec, g, causal), BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_is_deterministic(cuda):
+    """O and lse are written once from registers, with no atomics: two
+    launches on the same inputs agree bit for bit."""
+    qf, kf, vf, _, g = _bf16_inputs(cuda, 64, 1000, 2, seed=10)
+    (o1, lse1), (o2, lse2) = (fa.flash_forward(qf, kf, vf, g, True) for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 256], ids=lambda d: f"d{d}")
+def test_bf16_forward_and_dq_replayed_in_a_cuda_graph_equal_eager(cuda, d, causal):
+    """The tensor maps are encoded on the host at each call and passed by
+    value, so a captured launch keeps them: replayed, the forward and dQ
+    are bit-equal to the eager calls."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, d, 1000, 2, seed=11 + d)
+
+    def calls():
+        o, lse = fa.flash_forward(qf, kf, vf, g, causal)
+        dvec = (o.float() * dof.float()).sum(-1)
+        return o, lse, fa.flash_bwd_dq(qf, kf, vf, dof, lse, dvec, g, causal)
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+
+
+@pytest.mark.cuda
+def test_bf16_forward_and_dq_read_inputs_written_just_before_them(cuda):
+    """q, k, v and dO written by a kernel right before each launch, 60
+    times, into the block the allocator hands back after junk was written
+    there: a load that ran ahead of the write would see the junk. Every
+    result is bit-equal to the launch on the inputs at rest."""
+    qf, kf, vf, dof, g = _bf16_inputs(cuda, 64, 1000, 2, seed=12)
+    o_want, lse_want = fa.flash_forward(qf, kf, vf, g, True)
+    dvec = (o_want.float() * dof.float()).sum(-1)
+    dq_want = fa.flash_bwd_dq(qf, kf, vf, dof, lse_want, dvec, g, True)
+    torch.cuda.synchronize()
+
+    def fresh(src):
+        junk = torch.full_like(src, float("nan"))
+        del junk
+        return src.float().bfloat16()  # a kernel's write, just ahead of the launch
+
+    order = ("q", "k", "v", "do")
+    ok = True
+    for i in range(60):
+        t = {name: fresh(src) for name, src in zip(order, (qf, kf, vf, dof))}
+        if i % 2:
+            o, lse = fa.flash_forward(t["q"], t["k"], t["v"], g, True)
+            ok &= torch.equal(o, o_want) and torch.equal(lse, lse_want)
+        else:
+            dq = fa.flash_bwd_dq(t["q"], t["k"], t["v"], t["do"], lse_want, dvec, g, True)
+            ok &= torch.equal(dq, dq_want)
+    assert ok
+
+
 # ------------------------------------------------ the int8 decode matmul
 
 #: (M, K, N): every decode shape of the smoke config at M 8 (q/k/v/out,
