@@ -32,6 +32,11 @@ checkpoint handshake do exactly this).
 Exporters: :func:`to_chrome` (load the output at ``chrome://tracing`` /
 https://ui.perfetto.dev) and :func:`to_otlp` (OTLP/JSON-flavoured —
 the field names an OTLP collector expects, minus protobuf fidelity).
+
+The workload's hot path (a train step and its phases, a decode call and
+its steps) records into a tracer of its own, :func:`workload_tracer`,
+through :mod:`.hotpath`, which holds a trace's spans until the card's
+times are known and then records them with :meth:`Tracer.record_held`.
 """
 
 from __future__ import annotations
@@ -61,11 +66,13 @@ __all__ = [
     "selftest",
     "set_default_tracer",
     "set_span_observer",
+    "set_workload_tracer",
     "span_observer",
     "start_span",
     "to_chrome",
     "to_otlp",
     "traces_from_payload",
+    "workload_tracer",
 ]
 
 _TRACEPARENT_VERSION = "00"
@@ -79,6 +86,9 @@ DEFAULT_CAPACITY = 64
 #: emits 2 + O(active nodes) spans; the cap protects the buffer from a
 #: pathological hot loop, not from normal fleets.
 DEFAULT_MAX_SPANS = 4096
+#: Bound on the workload tracer's traces: one a train step or a decode
+#: call, so a thousand steps of history (see :func:`workload_tracer`).
+WORKLOAD_CAPACITY = 1024
 
 _rand = random.Random()
 
@@ -172,6 +182,10 @@ class Span:
         self._start_mono = time.monotonic()
         self.duration: Optional[float] = None
         self._token: Optional[contextvars.Token] = None
+        #: a held span is left out of the buffer when it ends; its owner
+        #: records it with :meth:`Tracer.record_held` once its attributes
+        #: are complete (device times known only after the step)
+        self.held = False
 
     # ------------------------------------------------------------- recording
     def set_attribute(self, key: str, value: Any) -> "Span":
@@ -200,7 +214,8 @@ class Span:
         observer = _span_observer
         if observer is not None:
             observer.span_ended(self)
-        self._tracer._record(self)
+        if not self.held:
+            self._tracer._record(self)
 
     # ------------------------------------------------------- context manager
     def __enter__(self) -> "Span":
@@ -372,32 +387,42 @@ class Tracer:
 
     def _record(self, span: Span) -> None:
         with self._lock:
-            if (
-                span.parent_id
-                and span.trace_id not in self._traces
-                and len(self._traces) >= self._capacity
-            ):
-                # A child joining a trace the FULL buffer already
-                # evicted: creating an entry would resurrect a ghost
-                # (never-complete, invisible to /debug/traces) whose
-                # insertion evicts a genuine completed trace.  Count and
-                # drop; below capacity the entry is created normally so
-                # split-process children (the workload-side handshake
-                # tracer) stay visible.
-                self.orphan_spans += 1
-                return
-            trace = self._get_or_create_locked(span.trace_id)
-            if len(trace.spans) >= self._max_spans:
-                # count-only: building the record dict for a span the
-                # buffer will drop is pure overhead
-                trace.dropped_spans += 1
-            else:
-                trace.spans.append(span.to_dict())
-            if not span.parent_id:
-                trace.complete = True
-                trace.name = span.name
-            elif not trace.name:
-                trace.name = span.name
+            self._record_locked(span)
+
+    def record_held(self, spans: Iterable[Span]) -> None:
+        """Record ended held spans (:attr:`Span.held`), in the order given,
+        under one lock; the bounds drop and count them as any others."""
+        with self._lock:
+            for span in spans:
+                self._record_locked(span)
+
+    def _record_locked(self, span: Span) -> None:
+        if (
+            span.parent_id
+            and span.trace_id not in self._traces
+            and len(self._traces) >= self._capacity
+        ):
+            # A child joining a trace the FULL buffer already
+            # evicted: creating an entry would resurrect a ghost
+            # (never-complete, invisible to /debug/traces) whose
+            # insertion evicts a genuine completed trace.  Count and
+            # drop; below capacity the entry is created normally so
+            # split-process children (the workload-side handshake
+            # tracer) stay visible.
+            self.orphan_spans += 1
+            return
+        trace = self._get_or_create_locked(span.trace_id)
+        if len(trace.spans) >= self._max_spans:
+            # count-only: building the record dict for a span the
+            # buffer will drop is pure overhead
+            trace.dropped_spans += 1
+        else:
+            trace.spans.append(span.to_dict())
+        if not span.parent_id:
+            trace.complete = True
+            trace.name = span.name
+        elif not trace.name:
+            trace.name = span.name
 
     def traces(self, complete_only: bool = True) -> List[dict]:
         """Buffered traces, oldest first.  *complete_only* keeps traces
@@ -435,6 +460,26 @@ def set_default_tracer(tracer: Tracer) -> Tracer:
     with _default_lock:
         previous = _default_tracer
         _default_tracer = tracer
+        return previous
+
+
+_workload_tracer = Tracer(capacity=WORKLOAD_CAPACITY)
+
+
+def workload_tracer() -> Tracer:
+    """The process-wide tracer of the workload's hot path (the trainer's
+    steps and the decode calls, :mod:`.hotpath`): a tracer of its own, so
+    that a thousand steps never evict the control plane's traces."""
+    with _default_lock:
+        return _workload_tracer
+
+
+def set_workload_tracer(tracer: Tracer) -> Tracer:
+    """Swap the workload tracer (tests); returns the previous."""
+    global _workload_tracer
+    with _default_lock:
+        previous = _workload_tracer
+        _workload_tracer = tracer
         return previous
 
 

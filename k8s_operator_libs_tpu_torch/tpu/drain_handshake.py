@@ -9,7 +9,8 @@ so that the orchestrator can reject an acknowledgement left over from an
 earlier cycle.
 
 The save and the acknowledgement run under a ``checkpoint-drain`` span
-(:mod:`..obs.tracing`), parented by the W3C traceparent that the
+(:mod:`..obs.tracing`), as its children ``checkpoint.save`` and
+``drain.ack``, parented by the W3C traceparent that the
 orchestrator writes beside the request
 (``nvidia.com/<component>-pre-drain-traceparent``) from its own
 ``drain-handshake`` span: the cross-process leg of the reconcile trace.
@@ -200,7 +201,8 @@ class DrainSignalWatcher:
         """If a checkpoint was requested: run ``on_checkpoint`` (the
         trainer's save), acknowledge, and return True.  Both run under a
         ``checkpoint-drain`` span parented by the traceparent the gate
-        wrote next to the request."""
+        wrote next to the request, as its ``checkpoint.save`` and
+        ``drain.ack`` spans."""
         if not self.checkpoint_requested():
             return False
         traceparent = self._read_tp() or None
@@ -209,6 +211,8 @@ class DrainSignalWatcher:
             attributes={"node": self.node_name},
             traceparent=traceparent,
         ):
-            on_checkpoint()
-            self.acknowledge()
+            with tracing.start_span("checkpoint.save"):
+                on_checkpoint()
+            with tracing.start_span("drain.ack"):
+                self.acknowledge()
         return True

@@ -95,6 +95,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..obs import hotpath
 from . import distributed, quantize
 
 #: optax.adamw(3e-4)'s settings (optax 0.2 defaults: b1 0.9, b2 0.999,
@@ -861,14 +862,23 @@ def make_train_step(model: TinyLM, optimizer, mesh=None):
     before AdamW.  So every rank applies the update the unsharded model would
     and returns the same loss, the mean over the global batch.  Plain
     collectives, not ``DistributedDataParallel``: the model keeps
-    TinyLM's state_dict keys for checkpoints and :mod:`..convert`."""
+    TinyLM's state_dict keys for checkpoints and :mod:`..convert`.
+
+    Inside a ``train.step`` trace (:meth:`CheckpointingTrainer.run`) the
+    forward, the backward and the optimizer are its timed phases
+    (:mod:`..obs.hotpath`); on a mesh the backward's device time takes in
+    the gradients' all-reduce.  Called outside one, the step records
+    nothing."""
     if mesh is None:
 
         def step(tokens):
             optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(model, tokens)
-            loss.backward()
-            optimizer.step()
+            with hotpath.phase("train.forward", timed=True):
+                loss = loss_fn(model, tokens)
+            with hotpath.phase("train.backward", timed=True):
+                loss.backward()
+            with hotpath.phase("train.optimizer", timed=True, closes=True):
+                optimizer.step()
             return loss.detach()
 
         return step
@@ -880,12 +890,15 @@ def make_train_step(model: TinyLM, optimizer, mesh=None):
 
     def spmd_step(tokens):
         optimizer.zero_grad(set_to_none=True)
-        loss, plan = _rank_loss(model, tokens)
-        loss.backward()
+        with hotpath.phase("train.forward", timed=True):
+            loss, plan = _rank_loss(model, tokens)
+        with hotpath.phase("train.backward", timed=True):
+            loss.backward()
         flat = _flat([p.grad for p in params] + [loss.detach().float().reshape(1)])
         distributed.all_reduce_sum(flat, spmd.data_seq if plan.seq_split else spmd.data)
         _unflatten_into(flat[:-1], [p.grad for p in params])
-        optimizer.step()
+        with hotpath.phase("train.optimizer", timed=True, closes=True):
+            optimizer.step()
         return flat[-1]
 
     return spmd_step
@@ -1179,20 +1192,35 @@ class CheckpointingTrainer:
     def run(self, n_steps: int) -> int:
         """Train up to *n_steps*; returns the step counter (it stops
         early when a drain checkpoint ends the loop).  Raises ValueError
-        for a watcher on a mesh of more than one rank."""
+        for a watcher on a mesh of more than one rank.
+
+        Each step is one ``train.step`` trace in
+        :func:`..obs.tracing.workload_tracer` (attributes ``step`` and, once
+        trained, ``tokens``, b x (s - 1)), its phases in order:
+        ``train.poll`` (the watcher), ``train.batch``, the step function's
+        ``train.forward``, ``train.backward`` and ``train.optimizer``, and
+        ``train.loss_read``, whose host read of the loss waits for the
+        step and anchors the card's times (:mod:`..obs.hotpath`)."""
         if self.watcher is not None and self.mesh is not None and self.mesh.size() > 1:
             raise ValueError(
                 "a watcher polled by one rank of a mesh stops only that rank: drive "
                 "step_fn and save under multihost_trainer.MultihostDrainLoop instead"
             )
+        tokens = self.batch_size * (self.config.max_seq_len - 1)
         for _ in range(n_steps):
-            if self.watcher is not None and self.watcher.check_and_acknowledge(
-                self.save
-            ):
-                self.drained = True
-                break
-            batch = make_batch(self.config, self.batch_size, self.step, self.device)
-            self.losses.append(float(self.step_fn(batch)))
+            with hotpath.StepTrace("train.step", self.device, {"step": self.step}) as trace:
+                with trace.phase("train.poll"):
+                    drained = self.watcher is not None and self.watcher.check_and_acknowledge(self.save)
+                if drained:
+                    self.drained = True
+                    break
+                with trace.phase("train.batch"):
+                    batch = make_batch(self.config, self.batch_size, self.step, self.device)
+                loss = self.step_fn(batch)
+                with trace.phase("train.loss_read"):
+                    self.losses.append(float(loss))
+                    trace.anchor()
+                trace.root.set_attribute("tokens", tokens)
             self.step += 1
         return self.step
 
@@ -1320,10 +1348,11 @@ def _serving_model(config: ModelConfig, model_or_state, device: torch.device) ->
     return model
 
 
-def _prompt_lens(prompt_lens, b: int, prompt_len: int, device) -> torch.Tensor:
-    """[b] int64 on *device*; validated here, once, on the host."""
+def _prompt_lens(prompt_lens, b: int, prompt_len: int, device):
+    """([b] int64 on *device*, their sum); validated here, once, on the
+    host."""
     if prompt_lens is None:
-        return torch.full((b,), prompt_len, dtype=torch.long, device=device)
+        return torch.full((b,), prompt_len, dtype=torch.long, device=device), b * prompt_len
     lens = torch.as_tensor(prompt_lens)
     if tuple(lens.shape) != (b,):
         raise ValueError(f"prompt_lens must be [batch] = [{b}], got {tuple(lens.shape)}")
@@ -1332,7 +1361,7 @@ def _prompt_lens(prompt_lens, b: int, prompt_len: int, device) -> torch.Tensor:
         # out-of-range lengths would teacher-force the zero padding into
         # the cache: garbage, not an error
         raise ValueError(f"prompt_lens must lie in [1, {prompt_len}], got {host.tolist()}")
-    return host.to(device, torch.long)
+    return host.to(device, torch.long), int(host.sum())
 
 
 def _sample(last, temperature: float, top_k: int, generator):
@@ -1371,6 +1400,15 @@ def generate(
     ``top_k`` largest logits, seeded by *seed* on the device.  Returns the
     buffer [b, prompt_len + max_new_tokens], int64 on the device.  The loop
     keeps every decision on the device: no host synchronisation per token.
+
+    The call is one ``decode.generate`` trace in
+    :func:`..obs.tracing.workload_tracer` (attributes ``batch``,
+    ``total_len`` and ``served_tokens``, the positions after each row's
+    prompt), with one ``decode.step`` span a step (attribute ``i``), timed
+    on the card (:mod:`..obs.hotpath`).  On the card the call ends in one
+    host wait, for the event recorded after its last step, which anchors
+    the steps' device times on the host's clock: the buffer is ready when
+    it returns.
     """
     cfg = dataclasses.replace(
         config, decode=True, seq_axis=None, ring_attention=False, flash_attention=False, remat=False
@@ -1384,21 +1422,26 @@ def generate(
             f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
             f"exceeds max_seq_len ({cfg.max_seq_len})"
         )
-    plens = _prompt_lens(prompt_lens, b, prompt_len, device)
+    plens, prompt_tokens = _prompt_lens(prompt_lens, b, prompt_len, device)
     model = _serving_model(cfg, model_or_state, device)
     cache = KVCache(cfg, b, total, device)
     buf = torch.zeros((b, total), dtype=torch.long, device=device)
     buf[:, :prompt_len] = prompt.to(device)
     generator = torch.Generator(device=device).manual_seed(seed) if temperature > 0.0 else None
-    with torch.inference_mode():
-        for i in range(total - 1):
-            positions = torch.full((b, 1), i, dtype=torch.long, device=device)
-            last = model(buf[:, i:i + 1], positions, cache=cache)[:, -1].float()
-            if generator is None:
-                nxt = last.argmax(-1)
-            else:
-                nxt = _sample(last, max(temperature, 1e-6), top_k, generator)
-            buf[:, i + 1] = torch.where(plens > i + 1, buf[:, i + 1], nxt)
+    attributes = {"batch": b, "total_len": total, "served_tokens": b * total - prompt_tokens}
+    with hotpath.StepTrace("decode.generate", device, attributes) as trace:
+        with torch.inference_mode():
+            for i in range(total - 1):
+                with trace.phase("decode.step", timed=True, i=i):
+                    positions = torch.full((b, 1), i, dtype=torch.long, device=device)
+                    last = model(buf[:, i:i + 1], positions, cache=cache)[:, -1].float()
+                    if generator is None:
+                        nxt = last.argmax(-1)
+                    else:
+                        nxt = _sample(last, max(temperature, 1e-6), top_k, generator)
+                    buf[:, i + 1] = torch.where(plens > i + 1, buf[:, i + 1], nxt)
+        trace.mark()
+        trace.anchor(wait=True)
     return buf
 
 

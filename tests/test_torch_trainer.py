@@ -232,8 +232,11 @@ def test_a_missing_or_malformed_traceparent_starts_a_new_root(carrier, tracers):
     assert DrainSignalWatcher(nodes, "gpu-host").check_and_acknowledge(lambda: saved.append(1))
     assert saved == [1]
     [trace] = port_tracer.traces()  # complete: the span is its own root
-    [span] = trace["spans"]
+    spans = {s["name"]: s for s in trace["spans"]}
+    assert set(spans) == {"checkpoint-drain", "checkpoint.save", "drain.ack"}
+    span = spans["checkpoint-drain"]
     assert (span["name"], span["parent_id"], span["status"]) == ("checkpoint-drain", "", "ok")
+    assert {spans[n]["parent_id"] for n in ("checkpoint.save", "drain.ack")} == {span["span_id"]}
 
 
 def test_an_injected_traceparent_reader_parents_the_span(tracers):
