@@ -317,6 +317,7 @@ turn`` line each, then the card line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -869,6 +870,64 @@ def time_int8(m, k, n, dtype: str, graphs: bool, iters: int = 50) -> dict:
     return row
 
 
+#: The decode cell's attention: GPT-2 medium at 512 rows, a 512-position
+#: cache, the step that writes position 255.
+DECODE_ATTENTION_SHAPE = {"b": 512, "total": 512, "h": 16, "hd": 64, "index": 255}
+
+
+def time_decode_attention(b, total, h, hd, index, dtype: str) -> dict:
+    """Device ms of ``decode_attention`` over positions 0..*index* of a
+    [b, total, h, hd] cache by graph replay, beside its plain version
+    (masked over the whole cache, the einsums it replaced) and SDPA over
+    the prefix (a yardstick the port never calls), and its bound: the
+    prefix of K and V, q and the output, once each."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(index)
+    q, keys, values = (torch.randn(shape, device="cuda", generator=gen).to(getattr(torch, dtype))
+                       for shape in ((b, 1, h, hd), (b, total, h, hd), (b, total, h, hd)))
+    n = index + 1
+    head_major = lambda t: t.transpose(1, 2)  # noqa: E731
+    row = {
+        "ms": graph_ms(lambda: fa.decode_attention(q, keys, values, index)),
+        "plain_ms": graph_ms(lambda: fa.decode_attention_plain(q, keys, values, index)),
+        "sdpa_prefix_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+            head_major(q), head_major(keys[:, :n]), head_major(values[:, :n]))),
+    }
+    nbytes = (2 * b * n * h * hd + 2 * b * h * hd) * q.element_size()
+    row.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               plan=fa.decode_plan(b, h, hd, q.element_size(), n,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)._asdict())
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def decode_attention_phase() -> dict:
+    """Hold the decode kernel to its plain version at the decode cell's
+    shape and at GPT-2 XL's b 8 (a split prefix), bf16 and fp32, at the
+    first, a middle and the last position; then time it at the cell's
+    shape.  Returns the timing."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    cases = {"medium-b512": (512, 512, 16, 64), "xl-b8": (8, 1024, 25, 64), "d80-b3": (3, 300, 6, 80)}
+    for (name, (b, total, h, hd)), dtype in itertools.product(cases.items(), ("bfloat16", "float32")):
+        gen = torch.Generator(device="cuda").manual_seed(total)
+        q, keys, values = (torch.randn(shape, device="cuda", generator=gen).to(getattr(torch, dtype))
+                           for shape in ((b, 1, h, hd), (b, total, h, hd), (b, total, h, hd)))
+        for index in (0, total // 2, total - 1):
+            want = fa.decode_attention_plain(q.float(), keys.float(), values.float(), index)
+            check_close(f"decode attention {name} {dtype} index {index}",
+                        fa.decode_attention(q, keys, values, index), want, dtype)
+    timing = time_decode_attention(**DECODE_ATTENTION_SHAPE, dtype="bfloat16")
+    log("timing decode_attention:", json.dumps({**DECODE_ATTENTION_SHAPE, **timing}))
+    return timing
+
+
 def int8_kernel_phase(config):
     """Hold the kernel to its plain version at every decode shape of
     *config* (M 8), at M 1, 13, 16 and 17, at ragged K and N, at a K the
@@ -919,6 +978,39 @@ def decode_logits(cfg, model, tokens):
             pos = torch.full((b, 1), i, dtype=torch.long, device="cuda")
             steps.append(model(tokens[:, i:i + 1], pos, cache=cache)[:, -1].float())
     return torch.stack(steps, 1)
+
+
+def check_cache_routes(what: str, cfg, model, exact_model, tokens) -> dict:
+    """The cached decode of *model* (bf16) against its full prefix, on
+    both routes of decode attention.  With its plain version, the full
+    prefix's own arithmetic (dense, softmax in bf16), the two agree
+    within ``BF16_TOL``.  The kernel rounds once, from fp32 scores and
+    softmax, so it sits ~2^-7 of the logits' scale from any bf16 route
+    (0.047 against a 0.038 tolerance at the smoke config; PERF.md §6):
+    it is held to the exact function instead, no farther from
+    *exact_model* (the same weights computing in fp32) than the plain
+    route is.  Returns the errors."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+    from k8s_operator_libs_tpu_torch.tpu import workload as wl
+
+    with torch.inference_mode():
+        full, exact = model(tokens).float(), exact_model(tokens).float()
+    kernel = decode_logits(cfg, model, tokens)
+    routed = wl.decode_attention
+    wl.decode_attention = fa.decode_attention_plain
+    try:
+        plain = decode_logits(cfg, model, tokens)
+    finally:
+        wl.decode_attention = routed
+    errs = {"cache_err": check_close(f"{what} decode (plain attention) vs full prefix", plain, full,
+                                     "bfloat16"),
+            "kernel_vs_exact": max_err(kernel, exact), "plain_vs_exact": max_err(plain, exact)}
+    if not errs["kernel_vs_exact"] <= errs["plain_vs_exact"]:
+        raise RuntimeError(f"{what} decode: the kernel route strays from the fp32 model by "
+                           f"{errs['kernel_vs_exact']:.3e}, the plain route by {errs['plain_vs_exact']:.3e}")
+    return errs
 
 
 def exact_dense(self, x):
@@ -1011,9 +1103,12 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     plain = wl.TinyLM(bf16, "cuda")
     plain.load_state_dict(qz.dequantize_params(qstate))
     tokens = wl.greedy_generate(bf16, int8, prompt, new_tokens)
-    with torch.inference_mode():
-        full = model(tokens).float()
-    out["bf16_cache_err"] = check_close("bf16 decode vs full prefix", decode_logits(bf16, model, tokens), full, "bfloat16")
+    exact = wl.TinyLM(dataclasses.replace(bf16, dtype=torch.float32), "cuda")
+    exact.load_state_dict(model.state_dict())
+    routes = check_cache_routes("bf16", bf16, model, exact, tokens)
+    out["bf16_cache_err"] = routes.pop("cache_err")
+    out["bf16_cache_routes_vs_fp32"] = routes
+    del exact
     kernel_logits = decode_logits(bf16, int8, tokens)
     cublas_logits = decode_logits(bf16, plain, tokens)
     for dense in plain.modules():
@@ -1034,15 +1129,17 @@ def serving_gates(config, prompt_len: int = 16, new_tokens: int = 32) -> dict:
     device_launches = {k: n for k, n in qz.device_launch_counts.items() if n}
     want = (6 * config.n_layers + 1) * (total - 1)
     routed = qz.DEVICE_KERNELS["int8_linear"][config.dtype]
-    if launches != want or device_launches != {routed: want} or any(fa.launch_counts.values()):
+    attention = _check_decode_attention_launches("phase 5", config.n_layers * (total - 1))
+    if launches != want or device_launches != {routed: want}:
         raise RuntimeError(
             f"int8 launches {launches} by device kernel {device_launches} (want {want}, all "
-            f"{routed}), flash launches {fa.launch_counts} (want 0)"
+            f"{routed})"
         )
     if not torch.equal(gated, tokens):
         raise RuntimeError("two greedy int8 generations differ")
     log(f"serving bf16/int8: errs {json.dumps(out)} (tol {BF16_TOL}); int8 launches {launches} "
-        f"= (6*{config.n_layers}+1)*{total - 1}, all {routed}; flash 0; no host sync in the loop")
+        f"= (6*{config.n_layers}+1)*{total - 1}, all {routed}; decode attention {attention}; "
+        f"flash 0; no host sync in the loop")
 
     # where a decode step's time goes, float and int8 (8 new tokens)
     out["decode_breakdown"] = {
@@ -1082,7 +1179,7 @@ def stage_phase(card: str) -> dict:
         t0 = time.perf_counter()
         rec = records[stage] = smoke.run_stage(stage)
         seconds = time.perf_counter() - t0
-        flash = dict(fa.launch_counts)
+        flash = fa.flash_launch_counts()
         flash_devices = {k: n for k, n in fa.device_launch_counts.items() if n}
         int8 = qz.launch_counts["int8_linear"]
         int8_devices = {k: n for k, n in qz.device_launch_counts.items() if n}
@@ -1119,6 +1216,10 @@ def stage_phase(card: str) -> dict:
             # a warm and a timed generation over 16 + new_tokens positions
             want = (6 * cfg.n_layers + 1) * (16 + dec["new_tokens"] - 1) * 2
             routed = qz.DEVICE_KERNELS["int8_linear"][torch.bfloat16]
+            # attention runs in the float generations too: four in all
+            _check_decode_attention_launches(
+                "decode stage", cfg.n_layers * (16 + dec["new_tokens"] - 1) * 4
+            )
             if int8 != want or int8_devices != {routed: want} or any(flash.values()):
                 raise RuntimeError(
                     f"decode: int8 launches {int8} by device kernel {int8_devices}, want "
@@ -1242,6 +1343,28 @@ def _check_drained(what: str, nodes, token: str, ckpt: str, results) -> int:
     return step
 
 
+def _check_decode_attention_launches(what: str, want: int) -> dict:
+    """Since the last reset: *want* launches of ``decode_attention`` (one a
+    layer a decode step), each on ``decode_attention_kernel``, and no
+    flash launch.  Returns the decode kernels' counts (the merge pass
+    runs where the plan splits the prefix)."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.tpu import flash_attention as fa
+
+    kernel = fa.DEVICE_KERNELS["decode_attention"][torch.bfloat16]
+    counts = {k: n for k, n in fa.device_launch_counts.items()
+              if k in (kernel, fa.DECODE_MERGE_KERNEL)}
+    if (fa.launch_counts["decode_attention"] != want or counts[kernel] != want
+            or any(fa.flash_launch_counts().values())):
+        raise RuntimeError(
+            f"{what}: decode attention launches {fa.launch_counts['decode_attention']} by "
+            f"device kernel {counts} (want {want}), flash launches {fa.flash_launch_counts()} "
+            f"(want 0)"
+        )
+    return counts
+
+
 def _check_flash_launches(what: str, counts: dict, want: dict) -> None:
     """*counts* by device kernel must be *want* by entry point, each on
     its bf16 tensor-core kernel."""
@@ -1304,7 +1427,7 @@ def one_rank_drain(config, card: str) -> dict:
             step = _check_drained("7a", nodes, token, ckpt, [rec])
         n = config.n_layers * step
         rec["flash_launches"] = dist_worker.flash_device_launches()
-        _check_flash_launches("7a", rec["flash_launches"], dict.fromkeys(fa.launch_counts, n))
+        _check_flash_launches("7a", rec["flash_launches"], dict.fromkeys(fa.FLASH_ENTRIES, n))
         if not all(math.isfinite(x) for x in rec["losses"]):
             raise RuntimeError(f"7a: losses {rec['losses']}")
         log("phase 7a one NCCL rank:", json.dumps(rec), "|", card)
@@ -1383,7 +1506,7 @@ def ranks_drain(config, backend: str, reference: list, card: str, n: int = 2,
     launches = config.n_layers * step
     for r in results:
         _check_flash_launches(f"{what} rank {r['rank']}", r["flash_launches"],
-                              dict.fromkeys(fa.launch_counts, launches))
+                              dict.fromkeys(fa.FLASH_ENTRIES, launches))
     rec = {"backend": backend, "stopped_at_step": step, "losses": losses[0],
            "max_diff_vs_one_rank": diff, "steps_compared": common,
            "step_ms": [r["step_ms"] for r in results],
@@ -1436,10 +1559,10 @@ def ranks_rings(backend: str, card: str, n: int = 2, what: str = "7b") -> dict:
         pairs = [len(ra.ring_schedule(n, r, causal, layout)) for r in range(n)]
         for r, line in enumerate(lines):
             row = line["cases"][name]
-            if row["pairs"] != pairs[r] or row["launches"] != dict.fromkeys(fa.launch_counts, pairs[r]):
+            if row["pairs"] != pairs[r] or row["launches"] != dict.fromkeys(fa.FLASH_ENTRIES, pairs[r]):
                 raise RuntimeError(f"{what} {name} rank {r}: launches {row['launches']}, want {pairs[r]} each")
             _check_flash_launches(f"{what} {name} rank {r}", row["device_launches"],
-                                  dict.fromkeys(fa.launch_counts, pairs[r]))
+                                  dict.fromkeys(fa.FLASH_ENTRIES, pairs[r]))
         report["cases"][name] = {
             "pairs": pairs, "max_abs_err": errs, "err_over_scale": rel,
             "fwd_ms": [line["cases"][name]["fwd_ms"] for line in lines],
@@ -1669,7 +1792,7 @@ def moe_train_phase(config, card: str) -> dict:
     batch = wl.make_batch(config, 8, seed=0, device="cuda")
     fa.reset_launch_counts()
     losses = [float(step(batch)) for _ in range(MOE_STEPS)]
-    launches = dict(fa.launch_counts)
+    launches = fa.flash_launch_counts()
     device_launches = {k: n for k, n in fa.device_launch_counts.items() if n}
     want = dict.fromkeys(launches, config.n_layers * MOE_STEPS)
     if launches != want:
@@ -1697,7 +1820,8 @@ def moe_decode_phase(config, card: str, prompt_len: int = 16, new_tokens: int = 
     int8 kernel first at the router's shape (M 8, K d_model, N = E = 4:
     fewer weight rows than the kernel's 16-row tile, which no earlier phase
     ran) against its plain version; then gates: each model's cached decode
-    logits within ``BF16_TOL`` of its full-prefix recompute; the int8
+    on both attention routes against its full-prefix recompute
+    (:func:`check_cache_routes`); the int8
     model's ``generate`` launches the int8 kernel ``(5 + 2E) n_layers + 1``
     times a step, all on the bf16 tensor-core kernel, no flash kernel, no
     host synchronisation in the loop.  Then where a decode step's time
@@ -1720,11 +1844,13 @@ def moe_decode_phase(config, card: str, prompt_len: int = 16, new_tokens: int = 
     model = wl.TinyLM(bf16, "cuda", seed=0)
     int8 = wl.quantize_model(model)
     tokens = wl.greedy_generate(bf16, int8, prompt, new_tokens)
-    for name, m in (("float", model), ("int8", int8)):
-        with torch.inference_mode():
-            full = m(tokens).float()
-        out[f"{name}_cache_err"] = check_close(f"9b MoE {name} decode vs full prefix",
-                                               decode_logits(bf16, m, tokens), full, "bfloat16")
+    exact = wl.TinyLM(dataclasses.replace(bf16, dtype=torch.float32), "cuda")
+    exact.load_state_dict(model.state_dict())
+    for name, m, m_exact in (("float", model, exact), ("int8", int8, wl.quantize_model(exact))):
+        routes = check_cache_routes(f"9b MoE {name}", bf16, m, m_exact, tokens)
+        out[f"{name}_cache_err"] = routes.pop("cache_err")
+        out[f"{name}_cache_routes_vs_fp32"] = routes
+    del exact
     qz.reset_launch_counts()
     fa.reset_launch_counts()
     gated = no_host_sync(lambda: wl.generate(bf16, int8, prompt, new_tokens))
@@ -1733,10 +1859,11 @@ def moe_decode_phase(config, card: str, prompt_len: int = 16, new_tokens: int = 
     per_step = (5 + 2 * e) * layers + 1
     want = per_step * (total - 1)
     routed = qz.DEVICE_KERNELS["int8_linear"][config.dtype]
-    if launches != want or device_launches != {routed: want} or any(fa.launch_counts.values()):
+    _check_decode_attention_launches("9b", layers * (total - 1))
+    if launches != want or device_launches != {routed: want}:
         raise RuntimeError(
             f"9b int8 MoE launches {launches} by device kernel {device_launches} (want {want}, "
-            f"all {routed}), flash launches {fa.launch_counts} (want 0)"
+            f"all {routed})"
         )
     if not torch.equal(gated, tokens):
         raise RuntimeError("9b: two greedy int8 MoE generations differ")
@@ -1817,7 +1944,7 @@ def pipeline_phase(backend: str, card: str, n: int = 4, what: str = "9d") -> dic
     diff = max(abs(a - b) for a, b in zip(losses, reference))
     if diff > LOSS_TOL["bfloat16"] or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"{what}: pipelined losses {losses} vs sequential {reference}: {diff:.3e}")
-    want = dict.fromkeys(fa.launch_counts, PIPE_MICROBATCHES * PIPE_STEPS)
+    want = dict.fromkeys(fa.FLASH_ENTRIES, PIPE_MICROBATCHES * PIPE_STEPS)
     for line in lines:
         if line["launches"] != want:
             raise RuntimeError(f"{what} stage {line['stage']}: launches {line['launches']}, want {want}")
@@ -2091,7 +2218,7 @@ def fleet_drain(cluster, config, node: str, what: str = "10c", tracer=None) -> d
     finally:
         if tracer is not None:
             tracing.set_default_tracer(previous)
-    launches = dict(fa.launch_counts)
+    launches = fa.flash_launch_counts()
     _check_flash_launches(what, {k: n for k, n in fa.device_launch_counts.items() if n},
                           dict.fromkeys(launches, config.n_layers * step))
     if not all(math.isfinite(x) for x in trainer.losses):
@@ -2495,7 +2622,7 @@ def upgrade_wave(client, store, config, what: str = "10g", facade=None, use_stat
         metrics.set_default_registry(previous[0])
         tracing.set_default_tracer(previous[1])
         events.set_default_log(previous[2])
-    launches = dict(fa.launch_counts)
+    launches = fa.flash_launch_counts()
     _check_flash_launches(what, {k: n for k, n in fa.device_launch_counts.items() if n},
                           dict.fromkeys(launches, config.n_layers * step))
     if not all(math.isfinite(x) for x in trainer.losses):
@@ -3165,7 +3292,7 @@ def operator_rollout(facade, store, config, profile_hz=OPERATOR_PROFILE_HZ, arti
             if wl.restore_checkpoint(ckpt, step)["step"] != step:
                 raise RuntimeError(f"10j: the checkpoint does not restore at step {step}")
             answered, polls = trainer.watcher.answered or "", trainer.watcher.polls
-        launches = dict(fa.launch_counts)
+        launches = fa.flash_launch_counts()
         _check_flash_launches("10j", {k: n for k, n in fa.device_launch_counts.items() if n},
                               dict.fromkeys(launches, config.n_layers * step))
         if not all(math.isfinite(x) for x in trainer.losses):
@@ -3576,7 +3703,7 @@ def chaos_rollout(facade, store, config, first) -> dict:
         tracing.set_default_tracer(previous[1])
         events.set_default_log(previous[2])
         timeline.set_default_recorder(previous[3])
-    launches = dict(fa.launch_counts)
+    launches = fa.flash_launch_counts()
     _check_flash_launches("10l", {k: n for k, n in fa.device_launch_counts.items() if n},
                           dict.fromkeys(launches, config.n_layers * step))
     if not all(math.isfinite(x) for x in trainer.losses):
@@ -3720,9 +3847,10 @@ def compiled_report():
     spill and no ptxas note that its
     wgmma were serialized (C7515 for a call, C7512 for want of registers)
     or its ``setmaxnreg`` ignored, unless each int8 device kernel is
-    built, the bf16 one with HMMA, no spill and no ptxas note, and unless
+    built, the bf16 one with HMMA, no spill and no ptxas note, unless
     each kernel of ``DESIGN_MARKERS`` holds its markers (at every head
-    dim)."""
+    dim), and unless ``decode_attention_kernel`` is built for both dtypes
+    at every head width, with no spill."""
     import torch
 
     from k8s_operator_libs_tpu_torch import _build
@@ -3768,6 +3896,12 @@ def compiled_report():
                 f"{kernel}: a head dim missing, without tensor-core instructions, spilling, "
                 f"with serialized wgmma or an ignored setmaxnreg ({rows})"
             )
+    # the decode kernel: every dtype and head width built, none spilling
+    decode = {name: row for name, row in report.items()
+              if name.split("<")[0] == fa.DEVICE_KERNELS["decode_attention"][torch.bfloat16]}
+    if len(decode) != 2 * len(fa.HEAD_DIMS) or any(
+            row.get("spill_stores", 1) or row.get("spill_loads", 1) for row in decode.values()):
+        raise RuntimeError(f"decode_attention_kernel: not every instantiation built, or a spill ({decode})")
     return report
 
 
@@ -4065,7 +4199,7 @@ def main(argv=None) -> int:
         result = smoke.run_smoke(
             ckpt, steps=steps, warmup=warmup, config=config, kernel_sections=False
         )
-    launches = dict(fa.launch_counts)
+    launches = fa.flash_launch_counts()
     device_launches = dict(fa.device_launch_counts)
     drain = result["drain_handshake"]
     train_steps = warmup + steps + drain["resumed_steps"]
@@ -4106,6 +4240,7 @@ def main(argv=None) -> int:
 
     # ---- 5. serving: the int8 kernel, then the decode path's gates ----
     int8_err, int8_timing = int8_kernel_phase(config)
+    decode_timing = decode_attention_phase()
     serving = serving_gates(config)
     log("phase 5 done", f"{time.perf_counter() - t_start:.1f} s")
 
@@ -4263,6 +4398,24 @@ def main(argv=None) -> int:
         # against the plain version
         "moe_decode_launches_per_step": moe_decode["launches_per_step"],
         "moe_router_max_abs_err": moe_decode["router_err"],
+    })
+    decode_kernel = fa.DEVICE_KERNELS["decode_attention"][torch.bfloat16]
+    built = compiled.get(f"{decode_kernel}<__nv_bfloat16, 64>", {})
+    kernels.append({
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "k8s_operator_libs_tpu_torch/csrc/decode_attention.cu",
+        # flax's cached dot_product_attention, fused by XLA: no Pallas kernel
+        "replaces": None,
+        "device_kernels": {"bfloat16": decode_kernel, "float32": decode_kernel,
+                           "split plan's second pass": fa.DECODE_MERGE_KERNEL},
+        "unit": "ms a launch at the decode cell's shape "
+                + json.dumps(DECODE_ATTENTION_SHAPE) + ", bf16, graph replay",
+        **{k: decode_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "plan")},
+        "registers": built.get("registers"),
+        "spill_bytes": built.get("spill_stores"),
+        # SDPA over the written prefix: a yardstick the port never calls
+        "library_ms": decode_timing["sdpa_prefix_ms"],
     })
     log("long-context:", json.dumps(long_timing))
     # every phase joins what it started: a thread left would hold the exit

@@ -57,6 +57,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # scale, stream
         "flash_bwd_dkv": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
     },
+    "decode_attention": {
+        # q, k, v, o, part_o (or 0), part_ml (or 0), b, total, h, hd, index,
+        # then the plan (tpu/flash_attention.py decode_plan): heads, tile,
+        # splits, split_len; is_bf16, scale, stream
+        "decode_attention": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P),
+    },
     "int8_matmul": {
         # x, q, s, bias (or 0), y, M, K, N, is_bf16, then the bf16 plan
         # (tpu/quantize.py int8_plan): k_warps, cluster; stream

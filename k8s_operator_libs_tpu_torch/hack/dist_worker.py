@@ -233,7 +233,7 @@ def ring_cases(cases, group, device) -> tuple:
         torch.autograd.backward(out, do)
         _sync(device)
         row = {
-            "launches": dict(fa.launch_counts),
+            "launches": fa.flash_launch_counts(),
             "device_launches": flash_device_launches(),
         }
         if case["fn"] != "ring_attention":
@@ -320,7 +320,7 @@ def spmd_runs(runs, base, device, out_path: str) -> dict:
             row["shard_shapes"] = {n: list(p.shape) for n, p in model.named_parameters()}
             row["plan"] = _plan(model)
             steps = run["steps"]
-        launches, device_launches = dict(fa.launch_counts), flash_device_launches()
+        launches, device_launches = fa.flash_launch_counts(), flash_device_launches()
         if not run.get("drain") and device.type == "cuda":
             row["device"] = smoke.device_busy(lambda: step(tokens), 1)  # one more step, traced
         plan = row["plan"]
@@ -359,7 +359,7 @@ def pipeline_run(cfg, device, steps: int, microbatches: int, batch: int, out_pat
         row["losses"].append(float(step(block, rest, tokens)))  # float() waits for the device
         row["step_ms"].append((time.perf_counter() - t0) * 1e3)
     row.update(
-        stage=stage, loss=float(loss), launches=dict(fa.launch_counts),
+        stage=stage, loss=float(loss), launches=fa.flash_launch_counts(),
         device_launches=flash_device_launches(),
         shapes={k: list(v.shape) for k, v in [*block.items(), *rest.items()]},
     )

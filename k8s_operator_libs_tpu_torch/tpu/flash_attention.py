@@ -23,6 +23,12 @@ CPU (the tests); for a CUDA tensor it launches the kernel or raises.  Each
 wrapper counts its launches in :data:`launch_counts`, and by device
 kernel in :data:`device_launch_counts`.
 
+Beside them, :func:`decode_attention` runs a decode step's cached
+attention on ``csrc/decode_attention.cu``: one query a row against the
+written prefix of a :class:`.workload.KVCache` layer, read in place.  It
+replaces no Pallas kernel (the JAX package leaves cached attention to
+flax and XLA); its plain version is that attention, dense and masked.
+
 The public functions keep the JAX layout ``[batch, seq, heads, head_dim]``
 and fold to ``[batch*heads, seq, head_dim]`` inside.  ``block_q`` and
 ``block_k`` keep their meaning for validation and padding; the CUDA
@@ -34,8 +40,9 @@ kernels, as it stays outside Pallas in JAX.
 from __future__ import annotations
 
 import math
-from functools import partial
-from typing import Dict, Tuple
+import operator
+from functools import lru_cache, partial
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +56,11 @@ launch_counts: Dict[str, int] = {
     "flash_fwd": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
+    "decode_attention": 0,
 }
+
+#: The entry points of the flash kernels (the train and ring paths).
+FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 #: The device kernel (in csrc/flash_attention.cu) each entry point
 #: launches, by dtype.
@@ -66,11 +77,20 @@ DEVICE_KERNELS: Dict[str, Dict[torch.dtype, str]] = {
         torch.bfloat16: "flash_bwd_dkv_tc_kernel",
         torch.float32: "flash_bwd_dkv_kernel",
     },
+    # in csrc/decode_attention.cu, one template for both dtypes
+    "decode_attention": {
+        torch.bfloat16: "decode_attention_kernel",
+        torch.float32: "decode_attention_kernel",
+    },
 }
+
+#: The second pass of a split decode plan (:func:`decode_plan`).
+DECODE_MERGE_KERNEL = "decode_attention_merge_kernel"
 
 #: Launches by device kernel, counted beside :data:`launch_counts`.
 device_launch_counts: Dict[str, int] = {
-    name: 0 for kernels in DEVICE_KERNELS.values() for name in kernels.values()
+    **{name: 0 for kernels in DEVICE_KERNELS.values() for name in kernels.values()},
+    DECODE_MERGE_KERNEL: 0,
 }
 
 #: Head dims the CUDA kernels are compiled for.  Any head dim up to the
@@ -83,6 +103,11 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, device_launch_counts):
         for name in counts:
             counts[name] = 0
+
+
+def flash_launch_counts() -> Dict[str, int]:
+    """:data:`launch_counts` of the flash entry points alone."""
+    return {entry: launch_counts[entry] for entry in FLASH_ENTRIES}
 
 
 def _count_launch(entry: str, dtype: torch.dtype) -> None:
@@ -263,11 +288,11 @@ def _check_kernel_inputs(what: str, qf, kf, vf, g: int, dof=None, lse=None, dvec
         raise ValueError(f"{what}: bf16 q/k/v/dO must start on a 16-byte boundary")
 
 
-def _launch_env(qf, scale) -> Tuple:
+def _launch_env(qf, scale, library: str = "flash_attention") -> Tuple:
     """(library, is_bf16, scale, stream) of a launch; *scale* defaults
     to 1/sqrt(head_dim).  The C entry points launch on the current
     device, so the tensors must be there."""
-    lib = _build.load("flash_attention")
+    lib = _build.load(library)
     if qf.device.index != torch.cuda.current_device():
         raise ValueError(
             f"tensors on {qf.device}, but the current CUDA device is "
@@ -364,6 +389,143 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, dvec, g: int, causal: bool):
         partial(head_padded, _flash_bwd_dkv_cuda, 4), flash_bwd_dkv_plain,
         qf, kf, vf, dof, lse, dvec, g, causal,
     )
+
+
+# ------------------------------------------------- decode attention
+
+#: Positions folded at a time, the most a stage holds, and the bytes of K
+#: and V a stage aims at, as ``csrc/decode_attention.cu`` takes them.
+DECODE_GROUP = 4
+DECODE_MAX_TILE = 32
+DECODE_STAGE_BYTES = 16 * 1024
+DECODE_MAX_THREADS = 256
+
+
+class DecodePlan(NamedTuple):
+    """How ``decode_attention_kernel`` covers a step: the compiled head
+    width, ``heads`` a block (``groups`` blocks a row), ``threads`` a
+    block, ``tile`` positions a stage, and the prefix cut into ``splits``
+    parts of ``split_len`` positions (1: no merge pass)."""
+
+    width: int
+    heads: int
+    groups: int
+    threads: int
+    tile: int
+    splits: int
+    split_len: int
+
+
+def decode_plan(b: int, h: int, hd: int, elem: int, n: int, n_sms: int) -> DecodePlan:
+    """The launch plan of a decode step over *n* cached positions of *b*
+    rows of *h* heads of width *hd* (*elem* bytes an element) on a card of
+    *n_sms* SMs, from the shape alone.
+
+    A thread owns 16 bytes of a head (32 where a head of the compiled
+    width would need more than 32 lanes); a block takes as many heads of
+    one row as fit 256 threads, so all of GPT-2's.  A stage holds ~16 KB
+    of K and V, whole groups of four positions.  Where b x groups blocks
+    fill the card twice over (the serving cell: 512 on 132 SMs) each takes
+    its row's whole prefix.  Otherwise (GPT-2 XL at b 8: 8 blocks) the
+    prefix is split towards 2 x SMs blocks, each of four tiles at least,
+    and a merge pass combines the parts."""
+    width = padded_head_dim(hd)
+    per_head = width // max(width // 32, 16 // elem)
+    groups = -(-h // max(1, DECODE_MAX_THREADS // per_head))
+    heads = -(-h // groups)
+    threads = -(-heads * per_head // 32) * 32
+    tile = DECODE_STAGE_BYTES // (2 * heads * hd * elem) // DECODE_GROUP * DECODE_GROUP
+    tile = min(DECODE_MAX_TILE, max(DECODE_GROUP, tile))
+    splits = 1
+    if b * groups < 2 * n_sms:
+        splits = max(1, min(-(-2 * n_sms // (b * groups)), n // (4 * tile)))
+    per_split = -(-n // splits)
+    split_len = -(-per_split // tile) * tile  # whole tiles but the last split's
+    return DecodePlan(width, heads, groups, threads, tile, -(-n // split_len), split_len)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_attention_plain(q, keys, values, index: int):
+    """Plain version of the decode kernel: flax's cached attention as
+    ``workload._attend`` takes it, dense over the whole cache in the
+    inputs' dtype, positions after *index* masked with ``finfo.min``."""
+    q = q / math.sqrt(q.shape[3])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, keys)
+    visible = torch.arange(keys.shape[1], device=q.device) <= index
+    scores = scores.masked_fill(~visible, torch.finfo(scores.dtype).min)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), values)
+
+
+def _check_decode_inputs(q, keys, values, index: int) -> None:
+    """Raise on what the decode kernel does not take, on every device."""
+    what = "decode_attention"
+    if keys.dim() != 4 or tuple(values.shape) != tuple(keys.shape):
+        raise ValueError(f"{what}: keys {tuple(keys.shape)} and values "
+                         f"{tuple(values.shape)} must be one [b, total, h, hd] shape")
+    b, total, h, hd = keys.shape
+    if tuple(q.shape) != (b, 1, h, hd):
+        raise ValueError(f"{what}: q {tuple(q.shape)} != {(b, 1, h, hd)}")
+    if not q.dtype == keys.dtype == values.dtype or q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what}: q/keys/values dtypes {q.dtype}, {keys.dtype}, "
+                         f"{values.dtype}: one of {_KERNEL_DTYPES}")
+    if hd > HEAD_DIMS[-1] or hd * q.element_size() % 16:
+        raise ValueError(f"{what}: head_dim {hd} must be at most {HEAD_DIMS[-1]}, "
+                         f"a head row whole 16-byte chunks")
+    if not 0 <= index < total:
+        raise ValueError(f"{what}: index {index} outside [0, {total})")
+    if not q.device == keys.device == values.device:
+        raise ValueError(f"{what}: tensors on {q.device}, {keys.device}, {values.device}")
+
+
+def _decode_attention_cuda(q, keys, values, index: int):
+    if not (keys.is_contiguous() and values.is_contiguous()):
+        raise ValueError("decode_attention: the cache must be contiguous (it is read in place)")
+    q = q.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, keys, values)):
+        raise ValueError("decode_attention: q/keys/values must start on a 16-byte boundary")
+    b, total, h, hd = keys.shape
+    lib, is_bf16, scale, stream = _launch_env(q, 1.0 / math.sqrt(hd), "decode_attention")
+    plan = decode_plan(b, h, hd, q.element_size(), index + 1, _sm_count(q.device.index))
+    out = torch.empty_like(q)
+    # the split plan's scratch, each part's accumulator and its (max, sum),
+    # held until the launch is queued
+    parts = [torch.empty(b, plan.splits, h, width, dtype=torch.float32, device=q.device)
+             for width in (hd, 2)] if plan.splits > 1 else []
+    part_o, part_ml = (t.data_ptr() for t in parts) if parts else (0, 0)
+    _build.check(
+        lib.decode_attention(
+            q.data_ptr(), keys.data_ptr(), values.data_ptr(), out.data_ptr(), part_o, part_ml,
+            b, total, h, hd, index, plan.heads, plan.tile, plan.splits, plan.split_len,
+            is_bf16, scale, stream,
+        ),
+        "decode_attention",
+    )
+    _count_launch("decode_attention", q.dtype)
+    if plan.splits > 1:
+        device_launch_counts[DECODE_MERGE_KERNEL] += 1
+    return out
+
+
+def decode_attention(q, keys, values, index: int):
+    """A decode step's cached attention: q [b, 1, h, hd] against the
+    positions ``0..index`` of one :class:`.workload.KVCache` layer's
+    *keys* and *values* [b, total, h, hd], which this step has already
+    written; returns [b, 1, h, hd] in q's dtype.  A CUDA tensor runs
+    ``decode_attention_kernel`` over the written prefix only, reading the
+    cache in place; a CPU tensor runs :func:`decode_attention_plain`.
+    Shapes, dtypes, head dim and *index* are checked first, on every
+    device."""
+    index = operator.index(index)
+    _check_decode_inputs(q, keys, values, index)
+    if q.is_cuda:
+        return _decode_attention_cuda(q, keys, values, index)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, keys, values, index)
+    raise ValueError(f"decode_attention has no kernel for device {q.device}")
 
 
 # ------------------------------------------------------- autograd layer

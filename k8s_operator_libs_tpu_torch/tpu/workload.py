@@ -97,6 +97,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..obs import hotpath
 from . import distributed, quantize
+from .flash_attention import decode_attention
 
 #: optax.adamw(3e-4)'s settings (optax 0.2 defaults: b1 0.9, b2 0.999,
 #: eps 1e-8, weight decay 1e-4 on every parameter).
@@ -596,12 +597,12 @@ class Attention(nn.Module):
     @staticmethod
     def _cached(q, k, v, cache: KVCache, layer: int):
         """flax's decode step: write this token's K/V at the cache index,
-        then attend over the cached keys ``arange(total) <= index``."""
+        then attend over the cached keys ``arange(total) <= index``: on the
+        card the decode kernel reads that prefix of the cache in place."""
         i, keys, values = cache.index, cache.keys[layer], cache.values[layer]
         keys[:, i] = k[:, 0]
         values[:, i] = v[:, 0]
-        visible = torch.arange(keys.shape[1], device=q.device) <= i
-        return _attend(q, keys, values, visible)
+        return decode_attention(q, keys, values, i)
 
     def forward(self, x, plan: AttentionPlan, cache: KVCache = None, layer: int = 0,
                 spmd: Optional[_Spmd] = None):

@@ -62,7 +62,8 @@ def test_a_flash_train_step_launches_each_kernel_once_per_layer(cuda):
     fa.reset_launch_counts()
     losses = [float(step(wl.make_batch(cfg, 4, seed=i, device=cuda))) for i in range(3)]
     assert all(torch.isfinite(torch.tensor(losses)))
-    assert fa.launch_counts == {name: 2 * 3 for name in fa.launch_counts}
+    assert fa.flash_launch_counts() == {name: 2 * 3 for name in fa.FLASH_ENTRIES}
+    assert fa.launch_counts["decode_attention"] == 0
 
 
 def _bf16_inputs(cuda, d, s, hk, seed):
@@ -133,7 +134,7 @@ def test_head_dims_between_the_compiled_ones_run_padded(cuda, d, hk, causal, dty
     launched = {
         name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
     }
-    assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.DEVICE_KERNELS}
+    assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.FLASH_ENTRIES}
 
 
 @pytest.mark.cuda
@@ -159,7 +160,7 @@ def test_the_widest_head_dim_runs_on_its_own_kernels(cuda, causal, dtype):
     launched = {
         name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
     }
-    assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.DEVICE_KERNELS}
+    assert launched == {fa.DEVICE_KERNELS[e][dtype]: 1 for e in fa.FLASH_ENTRIES}
 
 
 @pytest.mark.cuda
@@ -474,7 +475,8 @@ def test_int8_generate_launches_the_kernel_for_every_quantized_dense(cuda):
     out = wl.generate(cfg, model, prompt, 7)
     assert out.shape == (3, 12) and torch.equal(out[:, :5], prompt)
     assert qz.launch_counts["int8_linear"] == (6 * 2 + 1) * 11
-    assert set(fa.launch_counts.values()) == {0}  # decode runs no flash kernel
+    assert set(fa.flash_launch_counts().values()) == {0}  # decode runs no flash kernel
+    assert fa.launch_counts["decode_attention"] == 2 * 11  # but its own, a layer a step
 
 
 def _int8_layer(cuda, k, n, seed):
@@ -558,3 +560,102 @@ def test_int8_linear_reads_weights_written_just_before_it(cuda):
         got.append(qz.int8_linear(x, inputs["q"], inputs["s"], inputs["bias"]))
     torch.cuda.synchronize()
     assert all(torch.equal(y, want) for y in got)
+
+
+# ------------------------------------------------------------ decode attention
+
+
+def _decode_inputs(cuda, b, total, h, hd, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, keys, values = (
+        torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        for shape in ((b, 1, h, hd), (b, total, h, hd), (b, total, h, hd))
+    )
+    return q, keys, values
+
+
+#: (b, h, total): 384 rows of 16 heads are 384 blocks or more, past twice
+#: the SMs, so each block takes a row's whole prefix; 2 rows of 4 heads
+#: split the prefix over blocks and merge (past the first few positions).
+DECODE_SHAPES = {"whole": (384, 16, 300), "split": (2, 4, 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("index", [0, 150, 299], ids=lambda i: f"i{i}")
+@pytest.mark.parametrize("hd", [16, 64, 80, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("plan", sorted(DECODE_SHAPES))
+def test_decode_attention_matches_its_plain_version(cuda, plan, hd, index, dtype):
+    b, h, total = DECODE_SHAPES[plan]
+    q, keys, values = _decode_inputs(cuda, b, total, h, hd, dtype, seed=hd + index)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = fa.decode_plan(b, h, hd, q.element_size(), index + 1, n_sms).splits
+    if plan == "whole" or index == 0:
+        assert splits == 1
+    elif index == total - 1:
+        assert splits > 1
+    before = dict(fa.device_launch_counts)
+    got = fa.decode_attention(q, keys, values, index)
+    want = fa.decode_attention_plain(q.float(), keys.float(), values.float(), index)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _close(got, want, BF16_TOL if dtype == torch.bfloat16 else 1e-4)
+    launched = {
+        name: n - before[name] for name, n in fa.device_launch_counts.items() if n != before[name]
+    }
+    assert launched == {"decode_attention_kernel": 1, **({fa.DECODE_MERGE_KERNEL: 1} if splits > 1 else {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", sorted(DECODE_SHAPES))
+def test_decode_attention_reads_only_the_written_prefix(cuda, plan):
+    """NaN in every position after the index changes no bit of the
+    output: the kernel never loads the masked tail."""
+    b, h, total = DECODE_SHAPES[plan]
+    q, keys, values = _decode_inputs(cuda, b, total, h, 64, torch.bfloat16, seed=7)
+    want = fa.decode_attention(q, keys, values, 200)
+    keys[:, 201:] = float("nan")
+    values[:, 201:] = float("nan")
+    got = fa.decode_attention(q, keys, values, 200)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", sorted(DECODE_SHAPES))
+def test_decode_attention_is_deterministic(cuda, plan):
+    b, h, total = DECODE_SHAPES[plan]
+    q, keys, values = _decode_inputs(cuda, b, total, h, 64, torch.bfloat16, seed=3)
+    first = fa.decode_attention(q, keys, values, 250)
+    assert all(torch.equal(fa.decode_attention(q, keys, values, 250), first) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_a_cache_it_cannot_read_in_place(cuda):
+    q, keys, values = _decode_inputs(cuda, 2, 16, 4, 64, torch.bfloat16, seed=1)
+    before = fa.launch_counts["decode_attention"]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.decode_attention(q, keys.transpose(1, 2).contiguous().transpose(1, 2), values, 3)
+    assert fa.launch_counts["decode_attention"] == before
+
+
+@pytest.mark.cuda
+def test_int8_generate_runs_decode_attention_a_layer_a_step_and_matches_the_cpu(cuda):
+    """fp32 int8 serving of a 2-layer model on the card (the fp32 int8 and
+    decode kernels) and on the CPU (their plain versions), from the same
+    float weights: the same greedy tokens, and one decode_attention launch
+    a layer a step."""
+    from k8s_operator_libs_tpu_torch.tpu import quantize as qz
+
+    cfg = wl.ModelConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq_len=40)
+    float_cpu = wl.TinyLM(cfg, "cpu", seed=5)
+    float_card = wl.TinyLM(cfg, cuda)
+    float_card.load_state_dict(float_cpu.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (3, 6), generator=torch.Generator().manual_seed(5))
+    want = wl.generate(cfg, wl.quantize_model(float_cpu), prompt, 30, device="cpu")
+    served = wl.quantize_model(float_card)
+    fa.reset_launch_counts()
+    qz.reset_launch_counts()
+    got = wl.generate(cfg, served, prompt.to(cuda), 30, device=cuda)
+    assert fa.launch_counts["decode_attention"] == cfg.n_layers * 35
+    assert fa.device_launch_counts["decode_attention_kernel"] == cfg.n_layers * 35
+    assert set(fa.flash_launch_counts().values()) == {0}
+    assert torch.equal(got.cpu(), want)

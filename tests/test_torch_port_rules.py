@@ -187,26 +187,36 @@ def _cu_function(name: str) -> str:
 
 
 def test_bf16_routes_to_tensor_core_kernels_and_fp32_to_scalar_ones():
-    for entry, kernels in fa.DEVICE_KERNELS.items():
+    assert set(fa.FLASH_ENTRIES) | {"decode_attention"} == set(fa.DEVICE_KERNELS)
+    for entry in fa.FLASH_ENTRIES:
+        kernels = fa.DEVICE_KERNELS[entry]
         assert "_tc_" in kernels[torch.bfloat16], entry
         assert "_tc_" not in kernels[torch.float32], entry
     assert fa.DEVICE_KERNELS["flash_bwd_dkv"] == {
         torch.bfloat16: "flash_bwd_dkv_tc_kernel", torch.float32: "flash_bwd_dkv_kernel",
     }
+    # bandwidth-bound: one template of fp32 arithmetic for both dtypes
+    assert set(fa.DEVICE_KERNELS["decode_attention"].values()) == {"decode_attention_kernel"}
+
+
+def _global_functions(source: str) -> set:
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", source
+    ))
 
 
 def test_every_device_kernel_is_a_global_function_of_the_source():
-    source = CU_SOURCE.read_text()
-    defined = set(re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", source
-    ))
-    named = {k for kernels in fa.DEVICE_KERNELS.values() for k in kernels.values()}
+    defined = _global_functions(CU_SOURCE.read_text())
+    named = {k for e in fa.FLASH_ENTRIES for k in fa.DEVICE_KERNELS[e].values()}
     assert named <= defined, named - defined
     assert "flash_bwd_dkv_tc_kernel" in defined
+    decode = _global_functions((PORT / "csrc" / "decode_attention.cu").read_text())
+    assert {*fa.DEVICE_KERNELS["decode_attention"].values(), fa.DECODE_MERGE_KERNEL} == decode
+    assert set(fa.device_launch_counts) == named | decode
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("entry", sorted(fa.DEVICE_KERNELS))
+@pytest.mark.parametrize("entry", sorted(fa.FLASH_ENTRIES))
 def test_the_c_entry_point_launches_the_device_kernel_named_for_its_dtype(entry, dtype):
     """C entry point -> FLASH_DISPATCH(route_*) -> the route's bf16 or fp32
     branch -> launch_* -> the kernel it launches, read from the source."""
@@ -220,12 +230,47 @@ def test_the_c_entry_point_launches_the_device_kernel_named_for_its_dtype(entry,
 
 def test_launch_counts_start_at_zero_and_reset():
     fa.launch_counts["flash_fwd"] += 3
+    fa.device_launch_counts[fa.DECODE_MERGE_KERNEL] += 1
     fa.reset_launch_counts()
-    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert fa.launch_counts == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0,
+    }
+    assert fa.flash_launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert set(fa.device_launch_counts.values()) == {0}
     # the plain versions on the CPU never count
     q = torch.randn(1, 32, 2, 16)
     fa.flash_attention(q, q, q, True, 32, 32)
+    fa.decode_attention(q[:, :1], q, q, 5)
     assert set(fa.launch_counts.values()) == {0}
+
+
+def test_the_decode_entry_point_launches_its_kernel_and_the_merge_for_a_split():
+    """One main launch for both dtypes and every head width; the merge
+    pass only where the plan splits the prefix; each launch's error is
+    returned."""
+    source = (PORT / "csrc" / "decode_attention.cu").read_text()
+    launch = re.search(r"cudaError_t launch\((?:.|\n)*?\n\}\n", source).group()
+    assert re.findall(r"(\w+)<[^<>;]*>\s*<<<", launch) == [
+        "decode_attention_kernel", "decode_attention_merge_kernel",
+    ]
+    assert "if (!merge) return cudaSuccess;" in launch
+    entry = re.search(r"int decode_attention\((?:.|\n)*?\n\}\n", source).group()
+    assert "launch_width<__nv_bfloat16>" in entry and "launch_width<float>" in entry
+    assert "cudaGetLastError" in entry
+    widths = re.findall(r"DECODE_WIDTH\((\d+)\);", source)
+    assert tuple(map(int, widths)) == fa.HEAD_DIMS
+
+
+def test_the_decode_wrapper_raises_without_nvcc(monkeypatch, tmp_path):
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is present")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    keys = torch.zeros(2, 8, 4, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa._decode_attention_cuda(keys[:, :1], keys, keys, 3)
+    assert fa.launch_counts["decode_attention"] == 0
 
 
 def test_the_scans_see_the_serving_modules():
